@@ -1,0 +1,561 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py                 # every phase, one card
+
+Phases, in order; any failure exits non-zero before the result line:
+
+1. card + build: the card's name and power limit (``nvidia-smi``), then
+   the CUDA kernels built from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, in parallel) with their build seconds.
+2. kernels: each kernel's wrapper against its plain PyTorch version on the
+   card at the fleet's shapes, float32 (TF32 off) and bfloat16.
+3. model: full-width smollm-360m (random weights from a seeded
+   ``torch.Generator``) through ``prefill`` + 16 ``decode_step``s on the
+   kernel path and on the plain path, teacher-forced with the kernel
+   path's greedy tokens; logits and tokens compared.
+4. fleet: the served path — ``LocalFleet(...).call_fn(...).batch_call``
+   answering 12 OpenAI-style requests at full width with both kernels on;
+   launch counts are zeroed just before and read just after.  Then one
+   batch under ``torch.profiler`` (the card's busy share, top kernels),
+   and a reduced float32 fleet on the card held token-for-token against
+   the same fleet on the CPU (the plain path).
+5. times: kernel, plain version and one PyTorch library call at the
+   fleet's shapes (median of CUDA-event timings, L2 flushed before each
+   run), beside each kernel's bound.
+
+The last two lines are one JSON object with a row per kernel, then
+``{"ok": true, "device": {...}}``.  The script imports nothing of JAX and
+nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+ARCH = "smollm-360m"
+MAX_SEQ = 512
+BLOCK = 16
+BATCH = 8
+GEN = 32
+PROMPT_CAP = MAX_SEQ - GEN - 1            # the fleet's longest prefill (479)
+NUM_BLOCKS = 1 + (BATCH + 4) * (MAX_SEQ // BLOCK)
+# kernel vs plain: |a - b| <= TOL + TOL * |b| (tests/test_kernels.py:_tol's
+# atol = rtol; bf16: a couple of bf16 ulps of the O(1) outputs)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PHASES = ("kernels", "model", "fleet", "times")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Failure(Exception):
+    pass
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise Failure(msg)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: card + build
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
+        f"total {time.perf_counter() - t0:.2f} s")
+    for name in _build.SOURCES:
+        logf = _build.BUILD_DIR / f"{name}.log"
+        if logf.exists():
+            for line in logf.read_text(errors="replace").splitlines():
+                if "registers" in line or "smem" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _rand(shape, dtype, gen):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def flash_cases(dtype, gen):
+    """(label, q, k, v, lens, causal, window) at the fleet's prefill
+    shapes: B=1, Hq=15, Hkv=5, hd=64, causal, S in the width buckets; plus
+    one lens + window case in which every query row sees a key."""
+    import torch
+    cases = []
+    for S in (16, 64, PROMPT_CAP):
+        cases.append((f"causal S={S}", _rand((1, S, 15, 64), dtype, gen),
+                      _rand((1, S, 5, 64), dtype, gen),
+                      _rand((1, S, 5, 64), dtype, gen), None, True, 0))
+    S = PROMPT_CAP
+    lens = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
+    cases.append((f"lens+window S={S}", _rand((2, S, 15, 64), dtype, gen),
+                  _rand((2, S, 5, 64), dtype, gen),
+                  _rand((2, S, 5, 64), dtype, gen), lens, True, 256))
+    return cases
+
+
+def decode_case(dtype, gen):
+    """B=8 rows over the fleet's pool (385 blocks of 16, 5 KV heads, hd 64)
+    through a random permutation of physical blocks; kv_len covers 0, 1,
+    partial blocks and the full 512-token table."""
+    import torch
+    max_blocks = MAX_SEQ // BLOCK
+    perm = torch.randperm(NUM_BLOCKS - 1, generator=torch.Generator()
+                          .manual_seed(1)) + 1
+    tbl = perm[:BATCH * max_blocks].reshape(BATCH, max_blocks)
+    tbl = tbl.to(torch.int32).cuda().contiguous()
+    kv_len = torch.tensor([0, 1, 7, 16, 100, 257, 511, 512],
+                          dtype=torch.int32, device="cuda")
+    q = _rand((BATCH, 15, 64), dtype, gen)
+    kpool = _rand((NUM_BLOCKS, BLOCK, 5, 64), dtype, gen)
+    vpool = _rand((NUM_BLOCKS, BLOCK, 5, 64), dtype, gen)
+    return q, kpool, vpool, tbl, kv_len
+
+
+def _compare(out, ref, tol):
+    """(max abs error, within |a - b| <= tol + tol * |b| everywhere)."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    ok = math.isfinite(err) and bool(
+        (diff <= tol + tol * ref.float().abs()).all().item())
+    return err, ok
+
+
+def phase_kernels(errs):
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode, paged_flash_decode_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("kernels: float32 references with TF32 off "
+        "(torch.backends.cuda.matmul.allow_tf32 = False); limits "
+        f"|a - b| <= tol + tol * |b|: float32 tol {TOL['float32']}, "
+        f"bfloat16 tol {TOL['bfloat16']}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for label, q, k, v, lens, causal, window in flash_cases(dtype, gen):
+            out = flash_attention(q, k, v, lens, causal=causal,
+                                  sliding_window=window)
+            ref = flash_attention_plain(q, k, v, lens, causal=causal,
+                                        sliding_window=window)
+            torch.cuda.synchronize()
+            err, ok = _compare(out, ref, TOL[dname])
+            log(f"  flash_attention {dname} {label}: max_abs_err {err:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention {dname} {label}: {err}")
+            errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                          err)
+        q, kpool, vpool, tbl, kv_len = decode_case(dtype, gen)
+        out = paged_flash_decode(q, kpool, vpool, tbl, kv_len)
+        ref = paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len)
+        torch.cuda.synchronize()
+        err, ok = _compare(out, ref, TOL[dname])
+        zeros = bool((out[kv_len == 0] == 0).all().item())
+        ok = ok and zeros
+        log(f"  paged_flash_decode {dname} B={BATCH} "
+            f"kv_len={kv_len.tolist()}: max_abs_err {err:.3e}, "
+            f"kv_len==0 rows exact zeros: {zeros} {'ok' if ok else 'FAIL'}")
+        check(ok, f"paged_flash_decode {dname}: {err} zeros={zeros}")
+        errs["paged_flash_decode"] = max(errs.get("paged_flash_decode", 0.0),
+                                         err)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: full-width model, kernel path vs plain path
+# ---------------------------------------------------------------------------
+
+# max |logit difference| kernel path vs plain path over prefill + 16 steps;
+# an H100 run measured 6.3e-6 (float32) and 6.25e-2 (bf16: a few bf16 ulps
+# of logits of magnitude ~4, compounded over 32 layers)
+MODEL_TOL = {"float32": 1e-3, "bfloat16": 0.25}
+
+
+def phase_model():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.serving.serve_lib import greedy
+    B, lens_l = 4, [PROMPT_CAP, 300, 37, 128]
+    max_blocks = MAX_SEQ // BLOCK
+    for dname in ("bfloat16", "float32"):
+        cfg = get_config(ARCH).replace(dtype=dname)
+        t0 = time.perf_counter()
+        params = MD.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        n_par = sum(p.numel() for p in params.parameters())
+        tok_gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(4, cfg.vocab_size, (B, PROMPT_CAP),
+                             generator=tok_gen, device="cuda",
+                             dtype=torch.int32)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        tbl = (1 + torch.arange(B * max_blocks, device="cuda")
+               .reshape(B, max_blocks)).to(torch.int32)
+        paths = {"kernel": cfg.replace(attn_impl="pallas",
+                                       decode_impl="flash_paged"),
+                 "plain": cfg.replace(attn_impl="einsum", decode_impl="xla")}
+        caches, logits = {}, {}
+        for name, c in paths.items():
+            caches[name] = MD.init_paged_cache(c, B, MAX_SEQ,
+                                               1 + B * max_blocks, BLOCK,
+                                               device="cuda")
+            logits[name], _ = MD.prefill(c, params, toks, caches[name],
+                                         lens=lens, tbl=tbl,
+                                         paged_fresh=True)
+            caches[name]["pos"] = lens.clone()
+            caches[name]["tbl"] = tbl
+        max_diff, agree, total, first_div = 0.0, 0, 0, None
+        for step in range(17):
+            lk, lp = logits["kernel"].float(), logits["plain"].float()
+            check(bool(torch.isfinite(lk).all()) and
+                  bool(torch.isfinite(lp).all()),
+                  f"model {dname}: non-finite logits at step {step}")
+            d = (lk - lp).abs().max().item()
+            max_diff = max(max_diff, d)
+            tk, tp = greedy(lk), greedy(lp)
+            same = tk == tp
+            agree += int(same.sum())
+            total += B
+            if first_div is None and not bool(same.all()):
+                r = int((~same).nonzero()[0, 0])
+                top2 = torch.topk(lp[r], 2).values
+                first_div = (step, r, (top2[0] - top2[1]).item(), d)
+            if step == 16:
+                break
+            nxt = greedy(logits["kernel"])[:, None]   # teacher forcing
+            for name, c in paths.items():
+                logits[name], _ = MD.decode_step(c, params, nxt,
+                                                 caches[name])
+        torch.cuda.synchronize()
+        log(f"model {ARCH} {dname}: {n_par} params, prefill lens {lens_l} + "
+            f"16 decode steps, max |logit diff| kernel vs plain "
+            f"{max_diff:.4e} (limit {MODEL_TOL[dname]}), greedy tokens "
+            f"agree {agree}/{total}, {time.perf_counter() - t0:.1f} s")
+        check(max_diff <= MODEL_TOL[dname],
+              f"model {dname}: logit diff {max_diff}")
+        if first_div is not None:
+            step, r, gap, d = first_div
+            log(f"  first divergence: step {step} row {r}, top-2 logit gap "
+                f"{gap:.4e} vs logit diff {d:.4e} at that step")
+            check(gap < d, f"model {dname}: divergence is not a near-tie")
+        del params, caches
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the served path
+# ---------------------------------------------------------------------------
+
+def payloads():
+    """12 OpenAI-style requests (more than the 8 slots).  Five share a
+    32-word system prompt (two full 16-token blocks); one of those is the
+    shared prompt alone, fully cached, so its admission copies a block
+    (COW) and prefills a 1-token suffix."""
+    shared = " ".join(f"policy{i}" for i in range(32))
+    users = ["summarize the incident report for the on call team",
+             "translate the release notes into plain english",
+             "what is the capital of the country with the longest coast",
+             "write a haiku about paged attention",
+             "list three risks of speculative decoding in production",
+             "explain continuous batching to a new engineer",
+             "how many tokens fit in a sixteen token block",
+             "draft an apology for the delayed shipment",
+             "compare grouped query attention with multi head attention",
+             "name two reasons to keep a trash block in a kv pool",
+             "give a one line status update", "what changed since yesterday"]
+    out = []
+    for i, u in enumerate(users):
+        if i in (0, 2, 4, 6):
+            msgs = [{"role": "system", "content": shared},
+                    {"role": "user", "content": u}]
+        elif i == 9:
+            msgs = [{"role": "system", "content": shared}]
+        else:
+            msgs = [{"role": "user", "content": u}]
+        out.append({"model": ARCH, "messages": msgs})
+    return out
+
+
+def profile_fleet(fleet, prompts, max_new=8):
+    """Device busy share and the top kernels by device time while the
+    fleet serves one batch (8 prompts, one per slot, ``max_new`` tokens)
+    under torch.profiler.  Its overhead inflates the wall time, so the
+    busy share is a floor; only device-side events are summed (a CPU op's
+    device time repeats its kernels')."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet.generate(ARCH, prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in events)
+    log(f"profile: {len(prompts)} requests x {max_new} tokens, wall "
+        f"{wall * 1e3:.1f} ms under the profiler, device busy "
+        f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+            f"{e.key[:90]}")
+
+
+def phase_fleet(launches, card):
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    from repro_torch.serving.fleet import LocalFleet
+    t0 = time.perf_counter()
+    fleet = LocalFleet([ARCH], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
+                       gen_tokens=GEN, decode_impl="flash_paged",
+                       arch_overrides={ARCH: {"attn_impl": "pallas"}})
+    member = fleet.members[ARCH]
+    log(f"fleet: built + warmed up in {time.perf_counter() - t0:.1f} s "
+        f"(warmup {member.warmup_ms:.0f} ms), device {fleet.device}")
+    call = fleet.call_fn({ARCH: ARCH})
+    reqs = payloads()
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    paged_flash_decode.launches = 0
+    t0 = time.perf_counter()
+    answers = call.batch_call(None, reqs, [{}] * len(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["flash_attention"] = flash_attention.launches
+    launches["paged_flash_decode"] = paged_flash_decode.launches
+    sched = fleet.schedulers[ARCH]
+    ntok = [a["usage"]["completion_tokens"] for a in answers]
+    ttft = [a["usage"]["vsr_ttft_ms"] for a in answers]
+    tpot = [(a["usage"]["vsr_service_ms"] - a["usage"]["vsr_ttft_ms"])
+            / max(1, n - 1) for a, n in zip(answers, ntok)]
+    stats = sched.pool.stats
+    log(f"fleet: {len(answers)} answers, tokens each {sorted(set(ntok))}, "
+        f"launches {json.dumps(launches)}, live_refs "
+        f"{sched.pool.live_refs()}, cached_tokens {stats.cached_tokens}, "
+        f"cow_copies {stats.cow_copies}, prefill calls "
+        f"{sched.prefill.prefills}, decode steps {sched.decode_steps}, "
+        f"occupancy {sched.occupancy:.2f}")
+    log(f"fleet: wall {wall * 1e3:.1f} ms, decode tokens/s "
+        f"{sum(ntok) / wall:.1f}, TTFT ms p50 {statistics.median(ttft):.1f} "
+        f"max {max(ttft):.1f}, TPOT ms p50 {statistics.median(tpot):.2f} "
+        f"max {max(tpot):.2f} [{card}]")
+    check(len(answers) == 12 and all(n == GEN for n in ntok),
+          f"fleet: expected 12 answers of {GEN} tokens, got {ntok}")
+    check(all(v > 0 for v in launches.values()),
+          f"fleet: a kernel was not launched on the main path: {launches}")
+    check(sched.pool.live_refs() == 0, "fleet: blocks leaked after drain")
+    check(stats.cached_tokens > 0 and stats.cow_copies > 0,
+          "fleet: the prefix-hit suffix prefill / COW copy did not run")
+    profile_fleet(fleet, [" ".join(m["content"] for m in r["messages"])
+                          for r in reqs[:BATCH]])
+    del fleet
+    torch.cuda.empty_cache()
+
+    # small input against the reference path: a reduced float32 fleet with
+    # both kernels on the card vs the same fleet's plain path on the CPU
+    ov = {ARCH: {"dtype": "float32", "attn_impl": "pallas"}}
+    prompts = [" ".join(m["content"] for m in r["messages"]) for r in reqs]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        small = LocalFleet([ARCH], batch=4, gen_tokens=8, warmup=False,
+                           decode_impl="flash_paged", arch_overrides=ov,
+                           device=dev)
+        outs[dev] = [o["tokens"] for o in small.generate(ARCH, prompts)]
+    same = outs["cuda"] == outs["cpu"]
+    log(f"fleet: reduced float32 fleet, card kernels vs CPU plain path: "
+        f"tokens identical for {len(prompts)} prompts: {same}")
+    check(same, "fleet: reduced fleet tokens differ between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, flush, reps=25, warm=3):
+    """Median ms of ``fn`` over ``reps`` CUDA-event timed runs, each after
+    overwriting a 128 MB buffer (the serving path finds KV cold in L2).
+    A ~1 ms spin kernel queued before the start event keeps the card busy
+    while the host enqueues ``fn``, so the events time the device's work
+    and not the host's launch overhead."""
+    import torch
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_times(rows, errs, launches, card):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode.ops import (
+        gather_kv, paged_flash_decode, paged_flash_decode_plain)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dt = torch.bfloat16
+    esz = 2
+    saved = (flash_attention.launches, paged_flash_decode.launches)
+
+    # flash attention at the fleet's longest prefill: B=1, S=479, causal
+    for S in (16, 64, PROMPT_CAP):
+        q = _rand((1, S, 15, 64), dt, gen)
+        k = _rand((1, S, 5, 64), dt, gen)
+        v = _rand((1, S, 5, 64), dt, gen)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush)
+        plain = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                        flush)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(3, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(3, dim=2).transpose(1, 2).contiguous()
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush)
+        flops = 4 * 64 * 15 * S * (S + 1) / 2
+        nbytes = (2 * S * 15 * 64 + 2 * S * 5 * 64) * esz
+        t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"times flash_attention bf16 S={S}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.6f} ms "
+            f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces":
+                     "src/repro/kernels/flash_attention/flash_attention.py:144",
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_attention"], "ms": ms,
+                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                 "library_ms": lib})
+
+    # paged decode at the fleet's decode shapes (phase 2's rows)
+    q, kpool, vpool, tbl, kv_len = decode_case(dt, gen)
+    ms = time_ms(lambda: paged_flash_decode(q, kpool, vpool, tbl, kv_len),
+                 flush)
+    plain = time_ms(
+        lambda: paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len), flush)
+    kg = gather_kv(kpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
+    vg = gather_kv(vpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None] <
+            kv_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :].contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=mask), flush)
+    live = int(kv_len.sum())
+    nbytes = (2 * live * 5 * 64 + 2 * BATCH * 15 * 64) * esz + \
+        (tbl.numel() + kv_len.numel()) * 4
+    flops = 4 * 15 * 64 * live
+    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times paged_flash_decode bf16 B={BATCH} live keys {live}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa over gathered view "
+        f"{lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    rows.append({"name": "paged_flash_decode", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+                 "replaces": "src/repro/kernels/flash_decode/ops.py:193",
+                 "launches": launches["paged_flash_decode"],
+                 "max_abs_err": errs["paged_flash_decode"], "ms": ms,
+                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                 "library_ms": lib})
+    # timing launches are not main-path launches
+    flash_attention.launches, paged_flash_decode.launches = saved
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (card + build always run; the result lines need "
+                    "every phase)")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card} | torch.cuda.get_device_name: "
+        f"{torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    errs, launches, rows = {}, {}, []
+    try:
+        phase_build()
+        if "kernels" in phases:
+            phase_kernels(errs)
+        if "model" in phases:
+            phase_model()
+        if "fleet" in phases:
+            phase_fleet(launches, card)
+        if "times" in phases:
+            phase_times(rows, errs, launches, card)
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    torch.cuda.synchronize()
+    log(f"chip_smoke: phases {phases} passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    if set(phases) != set(PHASES):
+        return 0                       # a partial run prints no result
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,42 @@
+"""Float32 oracles for single-token GQA decode attention over a KV cache,
+the port of ``repro.kernels.flash_decode.ref`` (GQA part)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def decode_reference(q, k, v, kv_len):
+    """q: (B, Hq, hd); k/v: (B, Skv, Hkv, hd); kv_len: (B,) valid prefix.
+
+    Returns (B, Hq, hd)."""
+    B, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, hd)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
+    logits = logits / math.sqrt(hd)
+    mask = torch.arange(Skv, device=q.device)[None] < kv_len.to(q.device)[:, None]
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v.float())
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def _gather(pool, tbl):
+    nb, blk = pool.shape[:2]
+    flat = pool.reshape((nb * blk,) + tuple(pool.shape[2:]))
+    idx = tbl.long()[:, :, None] * blk + torch.arange(blk, device=pool.device)
+    return flat[idx.reshape(tbl.shape[0], -1)]
+
+
+def paged_decode_reference(q, kpool, vpool, tbl, kv_len):
+    """Oracle for block-table decode: gather per-row KV views from the
+    physical pool (kpool/vpool: (num_blocks, block_tokens, Hkv, hd);
+    tbl: (B, max_blocks) int), then standard masked decode attention."""
+    return decode_reference(q, _gather(kpool, tbl), _gather(vpool, tbl),
+                            kv_len)

@@ -1,0 +1,552 @@
+"""LocalFleet of the port: in-process text backends for router serving.
+
+The port of ``repro.serving.fleet`` for paged text members.  Each member
+arch gets an :class:`ARLane` — a continuous-batching autoregressive lane
+over a paged :class:`DecodeScheduler` — and ``LocalFleet`` drains its
+lanes for ``generate`` and for the router transport ``call_fn`` /
+``batch_call``.  Content is synthetic (hash tokenizer, random weights);
+the serving path (slot admission, paged KV with prefix sharing and COW,
+per-row positions, per-request latency) is real and runs on the card
+through the port's CUDA kernels when ``decode_impl="flash_paged"`` and
+``attn_impl="pallas"`` are selected.
+
+Serving is dropless and single-device: no mesh and no sharding rules.
+The audio and diffusion lanes, contiguous caches, speculative decoding
+and ``model_axis > 1`` are later slices and raise ``NotImplementedError``.
+
+Concurrency: the fleet lock covers ONLY submission and bookkeeping.
+Draining happens outside it — per-lane step locks serialize the steps
+while concurrent callers' requests share the same slot pools, and
+whichever thread steps a lane publishes every finished request to a
+shared results table for the other callers to collect.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field, fields as dc_fields
+from dataclasses import replace as dc_replace
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import model as MD
+from repro_torch.serving import serve_lib
+from repro_torch.serving.paged import PoolStats
+from repro_torch.serving.scheduler import PREFILL_BUCKETS, DecodeScheduler
+
+
+def _validate_decode_impl(decode_impl: Optional[str]):
+    if decode_impl == "shardmap":
+        raise NotImplementedError("decode_impl='shardmap' is a multi-device "
+                                  "path, not ported yet")
+    if decode_impl is not None and decode_impl not in MD.DECODE_IMPLS:
+        raise ValueError(
+            f"unknown decode_impl {decode_impl!r}; valid: "
+            + ", ".join(MD.DECODE_IMPLS))
+
+
+def _validate_arch_overrides(overrides, archs: List[str]):
+    """``arch_overrides`` maps a fleet arch to ModelConfig field
+    overrides applied on top of its registry config — plus the synthetic
+    ``depth_mult`` key, which multiplies every layer group's ``repeats``.
+    Validated at construction so a typo'd field fails with the arch named,
+    not deep inside a lane build."""
+    if overrides is None:
+        return
+    if not isinstance(overrides, dict):
+        raise ValueError(
+            f"arch_overrides expects a dict of arch -> field overrides, "
+            f"got {type(overrides).__name__}")
+    for arch, ov in overrides.items():
+        if arch not in archs:
+            raise ValueError(
+                f"arch_overrides names {arch!r} which is not a fleet "
+                f"member; fleet archs: " + ", ".join(archs))
+        if not isinstance(ov, dict):
+            raise ValueError(
+                f"arch_overrides[{arch!r}] expects a dict of ModelConfig "
+                f"fields, got {type(ov).__name__}")
+        known = {f.name for f in dc_fields(get_reduced(arch))}
+        for key in ov:
+            if key != "depth_mult" and key not in known:
+                raise ValueError(
+                    f"arch_overrides[{arch!r}]: unknown ModelConfig "
+                    f"field {key!r}")
+        if "depth_mult" in ov and int(ov["depth_mult"]) < 1:
+            raise ValueError(
+                f"arch_overrides[{arch!r}]: depth_mult must be >= 1, "
+                f"got {ov['depth_mult']}")
+
+
+def _apply_arch_overrides(cfg, ov: dict):
+    ov = dict(ov)
+    mult = int(ov.pop("depth_mult", 1) or 1)
+    if mult > 1:
+        cfg = cfg.replace(groups=tuple(
+            dc_replace(g, repeats=g.repeats * mult) for g in cfg.groups))
+    if ov:
+        cfg = cfg.replace(**ov)
+    return cfg
+
+
+def hash_tokens(text: str, vocab: int, max_len: int) -> np.ndarray:
+    ids = []
+    for w in text.lower().split():
+        h = hashlib.blake2s(w.encode(), digest_size=4).digest()
+        ids.append(4 + int.from_bytes(h, "little") % (vocab - 4))
+    # over-long prompts keep the TAIL: the newest turns must survive
+    return np.asarray(ids[-max_len:] or [4], np.int32)
+
+
+@dataclass
+class MemberStats:
+    """Serving stats shared by every lane's member record."""
+    calls: int = field(default=0, kw_only=True)       # drains served
+    tokens_out: int = field(default=0, kw_only=True)  # work units produced
+    prompts_in: int = field(default=0, kw_only=True)  # real requests served
+    warmup_ms: float = field(default=0.0, kw_only=True)  # warmup wall
+
+    @property
+    def slots_per_call(self) -> float:
+        """Mean real prompts per generate()/batch_call drain."""
+        return self.prompts_in / max(1, self.calls)
+
+
+@dataclass
+class FleetMember(MemberStats):
+    arch: str
+    cfg: object
+    params: object               # MD.Model on the fleet's device
+    decode_rows: object          # (params, toks(B,1), cache) per-row decode
+    batch: int                   # decode slots
+    max_seq: int
+    prompt_cap: int              # longest admissible prompt
+    prefill_paged_fresh: object = None   # no-prefix paged admission
+    prefill_paged_suffix: object = None  # suffix-only paged admission
+    copy_block: object = None            # COW block copy
+    block_tokens: int = 16
+    num_blocks: int = 0                  # physical blocks incl. trash block
+
+
+# ---------------------------------------------------------------------------
+# backend lanes
+# ---------------------------------------------------------------------------
+
+class BackendLane:
+    """Protocol for one execution lane of the fleet.
+
+    ``modality``    lane type: "text" (the port's only lane so far).
+    ``submit(prompt, max_new=, priority=, slo=) -> rid``   queue one
+                    request payload.
+    ``step() -> [finished]``              advance the lane's batch one
+                                          iteration.
+    ``pending``     queued + in-flight count.
+    ``result(job) -> dict``               transport payload: ``content``,
+                                          ``tokens``, ``ttft_ms``,
+                                          ``tpot_ms``, ``service_ms``,
+                                          ``lane``.
+    ``warmup()``    run every production step once; must not pollute
+                    serving stats.
+    ``occupancy``   mean active slots per step.
+    """
+
+    modality = "text"
+
+    def submit(self, prompt: str, max_new: Optional[int] = None,
+               priority: int = 0, slo: str = "") -> int:
+        raise NotImplementedError
+
+    def step(self) -> List[object]:
+        raise NotImplementedError
+
+    @property
+    def pending(self) -> int:
+        raise NotImplementedError
+
+    def result(self, job) -> dict:
+        raise NotImplementedError
+
+    def warmup(self):
+        raise NotImplementedError
+
+
+class ARLane(BackendLane):
+    """Continuous-batching autoregressive lane over one fleet member."""
+
+    modality = "text"
+
+    def __init__(self, fleet: "LocalFleet", member: FleetMember):
+        self.fleet = fleet
+        self.m = member
+        self.sched = fleet._make_scheduler(member)
+
+    def submit(self, prompt: str, max_new: Optional[int] = None,
+               priority: int = 0, slo: str = "") -> int:
+        m = self.m
+        return self.sched.submit(
+            hash_tokens(prompt, m.cfg.vocab_size, m.prompt_cap),
+            max_new=max_new, priority=priority, slo=slo)
+
+    @property
+    def pending(self) -> int:
+        return self.sched.pending
+
+    def step(self):
+        return self.sched.step()
+
+    def result(self, seq) -> dict:
+        m = self.m
+        return {
+            "content": (f"[{m.arch}] {len(seq.out)} tokens: "
+                        + " ".join(str(x) for x in seq.out[:10])),
+            "tokens": list(seq.out),
+            "ttft_ms": seq.ttft_ms,
+            "tpot_ms": seq.tpot_ms,
+            "service_ms": (seq.t_done - seq.t_submit) * 1e3,
+            "lane": self.modality,
+        }
+
+    @property
+    def occupancy(self) -> float:
+        return self.sched.occupancy
+
+    def _warmup_widths(self) -> List[int]:
+        m = self.m
+        return [b for b in PREFILL_BUCKETS if b <= m.prompt_cap] + \
+            [m.prompt_cap]
+
+    def warmup(self):
+        """Run every production step once at construction: one throwaway
+        request per prompt-length bucket runs the real admit+decode path,
+        then cache-hit prompts run the suffix prefill and the COW copy —
+        so the first served request pays no kernel build, allocator growth
+        or library autotuning inside its ``ttft_ms``."""
+        m, sched = self.m, self.sched
+        t0 = time.perf_counter()
+        widths = list(dict.fromkeys(self._warmup_widths()))
+        for wi, w in enumerate(widths):
+            # distinct fill per width: every bucket exercises the FRESH
+            # prefill path (a shared fill would prefix-match)
+            self._warmup_submit(w, fill=4 + wi)
+        while self.pending:
+            self.step()
+        # a fully-cached prompt runs the suffix prefill AND the COW copy
+        self._warmup_submit(widths[0], fill=4)
+        # partially-matched prompts run the remaining suffix widths
+        blk = m.block_tokens
+        prev = widths[0]
+        for wi, w in enumerate(widths[1:]):
+            tail = min(prev + 1, m.prompt_cap - blk)
+            if tail <= 0:
+                break
+            ids = np.concatenate([np.full((blk,), 4, np.int32),
+                                  np.full((tail,), 90 + wi, np.int32)])
+            self.sched.submit(ids, max_new=2)
+            prev = w
+        while self.pending:
+            self.step()
+        if sched.device.type == "cuda":
+            torch.cuda.synchronize(sched.device)
+        m.warmup_ms = (time.perf_counter() - t0) * 1e3
+        # warmup traffic must not pollute serving stats
+        m.tokens_out = m.prompts_in = 0
+        sched.admitted = sched.decode_steps = sched.slot_steps = 0
+        sched.masked_slot_steps = 0
+        sched.prefill_tokens = sched.cached_tokens = 0
+        sched.preempted = 0
+        sched.prefill.prefills = 0
+        sched.pool.stats = PoolStats()
+        sched._finished.clear()
+
+    def _warmup_submit(self, width: int, fill: int = 4):
+        self.sched.submit(np.full((width,), fill, np.int32), max_new=2)
+
+
+# ---------------------------------------------------------------------------
+# fleet
+# ---------------------------------------------------------------------------
+
+class LocalFleet:
+    def __init__(self, archs: List[str], *, reduced: bool = True,
+                 batch: int = 4, max_seq: int = 160, gen_tokens: int = 16,
+                 moe_impl: str = "ep", seed: int = 0, warmup: bool = True,
+                 model_axis: int = 1, paged: object = "auto",
+                 block_tokens: int = 16, kv_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefill_budget: Optional[int] = 1,
+                 prefill_lookahead: int = 0,
+                 decode_impl: Optional[str] = None,
+                 speculative: Optional[object] = None,
+                 arch_overrides: Optional[Dict[str, dict]] = None,
+                 device: DeviceLike = "cuda"):
+        """The reference's keywords, plus ``device`` ("cuda" by default;
+        raises without a GPU unless ``device="cpu"``).
+
+        ``paged`` "auto" and True page every member (the port's lanes are
+        all paged); ``kv_blocks`` overrides the physical pool size
+        (default: one full table per slot + headroom for retained prefix
+        blocks).  ``prefill_chunk`` caps the tokens per admission-prefill
+        call, ``prefill_budget`` caps prefill calls interleaved per decode
+        step while the batch is live (None = unbounded),
+        ``prefill_lookahead`` lets the prefill worker run that many
+        admissions ahead of free slots.  ``decode_impl="flash_paged"``
+        selects the CUDA block-table decode kernel and
+        ``arch_overrides={arch: {"attn_impl": "pallas"}}`` the CUDA
+        flash-attention prefill kernel (the reference's option names).
+        ``arch_overrides`` maps member archs to ModelConfig field
+        overrides (plus ``depth_mult``).  ``moe_impl`` is accepted and
+        unused (no ported config has experts); weights come from a CPU
+        ``torch.Generator`` seeded with ``seed`` — the same on every
+        device, but not the reference's ``jax.random`` draws.
+
+        Not ported yet: ``speculative``, ``model_axis > 1``,
+        ``paged=False``."""
+        if speculative is not None:
+            raise NotImplementedError("speculative decoding is not ported "
+                                      "yet")
+        if model_axis > 1:
+            raise NotImplementedError("model_axis > 1 (multi-device) is not "
+                                      "ported yet")
+        if paged is False:
+            raise NotImplementedError("the contiguous cache is not ported "
+                                      "yet: use paged='auto' or True")
+        _validate_decode_impl(decode_impl)
+        _validate_arch_overrides(arch_overrides, list(archs))
+        self.device = resolve_device(device)
+        self.gen_tokens = gen_tokens
+        self.seed = seed
+        self.members: Dict[str, FleetMember] = {}
+        self.lanes: Dict[str, BackendLane] = {}
+        self.schedulers: Dict[str, DecodeScheduler] = {}
+        # the fleet lock covers submission/bookkeeping ONLY; draining runs
+        # outside it (see _drain) so concurrent callers batch together
+        self._lock = threading.RLock()
+        self._step_locks: Dict[str, threading.Lock] = {}
+        self._done: "OrderedDict[Tuple[str, int], object]" = OrderedDict()
+        self._done_cv = threading.Condition()
+        self._done_cap = 4096
+        self._waiting: set = set()       # keys some drain is waiting on
+        self._build = dict(reduced=reduced, batch=batch, max_seq=max_seq,
+                           block_tokens=block_tokens,
+                           kv_blocks=kv_blocks, decode_impl=decode_impl,
+                           arch_overrides=arch_overrides or {})
+        self._sched_opts = dict(prefill_chunk=prefill_chunk,
+                                prefill_budget=prefill_budget,
+                                prefill_lookahead=prefill_lookahead)
+        self.archs = list(archs)
+        for arch in archs:
+            self.add_member(arch, warmup=warmup)
+
+    def _build_lane(self, arch: str) -> Tuple[FleetMember, BackendLane]:
+        """Construct one member + lane (params init, serving steps, paged
+        pool sizing).  Pure build — no registration, no warmup."""
+        b = self._build
+        batch, max_seq = b["batch"], b["max_seq"]
+        block_tokens, kv_blocks = b["block_tokens"], b["kv_blocks"]
+        cfg = get_reduced(arch) if b["reduced"] else get_config(arch)
+        if b["arch_overrides"].get(arch):
+            cfg = _apply_arch_overrides(cfg, b["arch_overrides"][arch])
+        if b["decode_impl"] is not None:
+            cfg = cfg.replace(decode_impl=b["decode_impl"])
+        MD.check_supported(cfg)
+        if not MD.paged_supported(cfg) or max_seq % block_tokens:
+            raise ValueError(
+                f"{arch}: paged KV unsupported (SSM/cross-attn state or "
+                f"max_seq % block_tokens != 0)")
+        # drawn by a CPU generator: one seed gives the same weights on the
+        # card and on the CPU
+        params = MD.init_params(cfg, torch.Generator().manual_seed(self.seed),
+                                self.device)
+        pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(cfg)
+        bpr = max_seq // block_tokens
+        # 1 trash + a full table per slot + retained-prefix headroom
+        # (~4 rows) for the cross-request hit rate
+        nblk = kv_blocks or (1 + (batch + 4) * bpr)
+        member = FleetMember(arch, cfg, params, dec, batch, max_seq,
+                             prompt_cap=max_seq - self.gen_tokens - 1,
+                             prefill_paged_fresh=pf,
+                             prefill_paged_suffix=ps,
+                             copy_block=cpb,
+                             block_tokens=block_tokens,
+                             num_blocks=nblk)
+        return member, ARLane(self, member)
+
+    def add_member(self, arch: str, *, warmup: bool = True) -> bool:
+        """Build, warm up, and register one member (the autoscaler's
+        scale-up hook).  Construction and warmup run OUTSIDE the fleet
+        lock; registration is atomic and race-checked."""
+        with self._lock:
+            if arch in self.members:
+                return False
+        member, lane = self._build_lane(arch)
+        if warmup:
+            lane.warmup()
+        with self._lock:
+            if arch in self.members:     # raced with a concurrent add
+                return False
+            self.members[arch] = member
+            self.lanes[arch] = lane
+            self.schedulers[arch] = lane.sched
+            self._step_locks[arch] = threading.Lock()
+        return True
+
+    def remove_member(self, arch: str) -> bool:
+        """Deregister an idle member (the autoscaler's scale-down hook).
+        Refuses while the lane has queued or in-flight work."""
+        with self._lock:
+            lane = self.lanes.get(arch)
+            if lane is None or lane.pending:
+                return False
+            del self.members[arch]
+            del self.lanes[arch]
+            self.schedulers.pop(arch, None)
+            self._step_locks.pop(arch, None)
+        return True
+
+    def _make_scheduler(self, m: FleetMember) -> DecodeScheduler:
+        init_cache = lambda b, cfg=m.cfg: MD.init_paged_cache(
+            cfg, m.batch, m.max_seq, m.num_blocks, m.block_tokens,
+            device=self.device)
+        return DecodeScheduler(m, gen_tokens=self.gen_tokens,
+                               init_cache_fn=init_cache, **self._sched_opts)
+
+    # -- generation ---------------------------------------------------------
+
+    def generate(self, arch: str, prompts: List[str],
+                 max_new: Optional[int] = None, priority: int = 0,
+                 slo: str = "") -> List[dict]:
+        """Greedy generation via the arch's lane.  Any number of prompts
+        is accepted: overflow beyond the slot count is queued and admitted
+        as slots free."""
+        with self._lock:
+            self.members[arch].calls += 1
+            rids = self._submit(arch, prompts, max_new,
+                                priority=priority, slo=slo)
+        seqs = self._drain({arch: rids})
+        lane = self.lanes[arch]
+        return [lane.result(seqs[(arch, r)]) for r in rids]
+
+    def _submit(self, arch: str, prompts: List[str],
+                max_new: Optional[int] = None, *, priority: int = 0,
+                slo: str = "") -> List[int]:
+        lane = self.lanes[arch]
+        return [lane.submit(p, max_new=max_new, priority=priority, slo=slo)
+                for p in prompts]
+
+    def _drain(self, rids_by_arch: Dict[str, List[int]]
+               ) -> Dict[Tuple[str, int], object]:
+        """Interleave steps across every involved lane until all request
+        ids have finished.  Runs WITHOUT the fleet lock: per-lane step
+        locks serialize the steps, and any thread stepping a lane
+        publishes every request it finishes to the shared results table,
+        waking waiters."""
+        all_keys = {(a, r) for a, rids in rids_by_arch.items() for r in rids}
+        want = set(all_keys)
+        seqs: Dict[Tuple[str, int], object] = {}
+        with self._done_cv:
+            self._waiting |= want
+        try:
+            while want:
+                stepped = False
+                for arch in rids_by_arch:
+                    if not any(k[0] == arch for k in want):
+                        continue
+                    lock = self._step_locks[arch]
+                    if not lock.acquire(blocking=False):
+                        continue    # another caller is stepping this lane
+                    try:
+                        lane = self.lanes[arch]
+                        if lane.pending:
+                            finished = lane.step()
+                            stepped = True
+                        else:
+                            finished = []
+                    finally:
+                        lock.release()
+                    if finished:
+                        with self._done_cv:
+                            for seq in finished:
+                                self._done[(arch, seq.rid)] = seq
+                            if len(self._done) > self._done_cap:
+                                for k in list(self._done):
+                                    if len(self._done) <= self._done_cap:
+                                        break
+                                    if k not in self._waiting:
+                                        del self._done[k]
+                            self._done_cv.notify_all()
+                with self._done_cv:
+                    ready = want & self._done.keys()
+                    for k in ready:
+                        seqs[k] = self._done.pop(k)
+                    want -= ready
+                    if want and not stepped and not ready:
+                        # another caller is stepping our lanes — wait for
+                        # it to publish our results
+                        self._done_cv.wait(0.002)
+        finally:
+            with self._done_cv:
+                self._waiting -= all_keys
+        return seqs
+
+    # -- router transport -----------------------------------------------------
+    def call_fn(self, model_to_arch: Dict[str, str]):
+        """Router transport over the lanes: the returned callable serves
+        single OpenAI-style requests; its ``batch_call`` attribute submits
+        every payload to its arch's lane up front and drains them
+        together, so same-arch requests share steps."""
+
+        def _resolve(payload):
+            model = payload.get("model") or payload.get("modelId", "")
+            arch = model_to_arch.get(model, model)
+            if arch not in self.members:
+                raise RuntimeError(f"fleet has no backend for {model!r}")
+            msgs = payload.get("messages") or \
+                payload.get("body", {}).get("messages") or []
+            # the WHOLE conversation feeds generation
+            prompt = "\n".join(m["content"] for m in msgs)
+            prio = int(payload.get("vsr_priority", 0) or 0)
+            slo = str(payload.get("vsr_slo", "") or "")
+            return model, arch, prompt, prio, slo
+
+        def _wrap(model, prompt, out):
+            return {"choices": [{"message": {"content": out["content"]},
+                                 "finish_reason": "stop"}],
+                    "model": model,
+                    "usage": {"prompt_tokens": len(prompt) // 4,
+                              "completion_tokens": len(out["tokens"]),
+                              "vsr_service_ms": round(out["service_ms"], 3),
+                              "vsr_ttft_ms": round(out["ttft_ms"], 3),
+                              "vsr_lane": out.get("lane", "text")}}
+
+        def call(ep, payload, headers):
+            model, arch, prompt, prio, slo = _resolve(payload)
+            out = self.generate(arch, [prompt], priority=prio, slo=slo)[0]
+            return _wrap(model, prompt, out)
+
+        def batch_call(ep, payloads, headers_list):
+            resolved = [_resolve(p) for p in payloads]
+            with self._lock:
+                rids_by_arch: Dict[str, List[int]] = {}
+                rid_of: List[int] = []
+                for model, arch, prompt, prio, slo in resolved:
+                    rid = self._submit(arch, [prompt],
+                                       priority=prio, slo=slo)[0]
+                    rids_by_arch.setdefault(arch, []).append(rid)
+                    rid_of.append(rid)
+                for arch in rids_by_arch:
+                    self.members[arch].calls += 1
+            seqs = self._drain(rids_by_arch)
+            return [_wrap(model, prompt,
+                          self.lanes[arch].result(seqs[(arch, rid)]))
+                    for (model, arch, prompt, _pr, _sl), rid
+                    in zip(resolved, rid_of)]
+
+        call.batch_call = batch_call
+        return call

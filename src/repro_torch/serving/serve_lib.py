@@ -1,0 +1,83 @@
+"""Serving-step builders of the port: paged prefill + decode.
+
+The reference jits each step and donates the cache; here every step is a
+plain callable that runs eagerly and updates the cache's KV pools in
+place, returning the same cache dict so callers keep the reference's
+``nxt, cache = step(...)`` shape.  Sampled token ids come back as a device
+tensor; the (B, vocab) logits never leave the device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import model as MD
+from repro_torch.models.config import ModelConfig
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Argmax over the logits (first maximum on ties, as ``jnp.argmax``)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_decode_fn(cfg: ModelConfig):
+    def serve_step(params, tokens, cache):
+        logits, cache = MD.decode_step(cfg, params, tokens, cache)
+        return greedy(logits), cache
+    return serve_step
+
+
+def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool):
+    """Paged admission prefill: writes go through the row's block table
+    into the shared block pool, so there is no separate merge step.
+    ``fresh=True`` is the no-cached-prefix variant (attention on local
+    K/V); ``fresh=False`` is the suffix variant (``start`` > 0): rope
+    offset by ``start``, attention over the gathered paged view — the
+    cached prefix is READ, never recomputed."""
+    def prefill_paged(params, tokens, lens, start, tbl_row, cache):
+        logits, cache = MD.prefill(cfg, params, tokens, cache, lens=lens,
+                                   start=start, tbl=tbl_row,
+                                   paged_fresh=fresh)
+        return greedy(logits), cache
+    return prefill_paged
+
+
+def make_copy_block_fn():
+    """Device-side copy-on-write: duplicate physical block ``src`` into
+    ``dst`` across every KV pool leaf (axis 1 — axis 0 is the layer-group
+    repeat dim), in place."""
+    @torch.no_grad()
+    def copy_block(cache, src, dst):
+        src, dst = int(src), int(dst)
+        for key, group in cache.items():
+            if not key.startswith("g"):
+                continue
+            for leaves in group.values():
+                for leaf in leaves.values():
+                    leaf[:, dst] = leaf[:, src]
+        return cache
+    return copy_block
+
+
+def build_paged_serve_steps(cfg: ModelConfig):
+    """Paged continuous-batching serving steps.
+
+    Returns ``(prefill_fresh, prefill_suffix, decode, copy_block)``:
+
+    * ``prefill_fresh(params, toks (1,W), lens (1,), start (1,),
+      tbl_row (1, max_blocks), cache)`` — admission with no cached
+      prefix; KV writes scattered through the table.
+    * ``prefill_suffix(...)`` — same signature, ``start > 0``: only the
+      unmatched suffix is computed, the matched prefix blocks are read
+      through the table.
+    * ``decode(params, tokens (B,1), cache)`` — the shared decode step;
+      ``cache["tbl"]`` routes each row's reads/writes (freed slots map to
+      the trash block).
+    * ``copy_block(cache, src, dst)`` — COW for shared blocks.
+
+    The cache (block pool) is updated in place everywhere.
+    """
+    prefill_fresh = make_prefill_paged_fn(cfg, fresh=True)
+    prefill_suffix = make_prefill_paged_fn(cfg, fresh=False)
+    decode = make_decode_fn(cfg)
+    return prefill_fresh, prefill_suffix, decode, make_copy_block_fn()

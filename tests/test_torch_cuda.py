@@ -1,0 +1,132 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; skipped without
+one — a CUDA kernel has no CPU mode).  Run on a machine with an NVIDIA
+card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel is held to its plain PyTorch version on the same inputs:
+float32 within 1e-4 (TF32 off; summation order only), bfloat16 within
+2e-2 as atol = rtol (``tests/test_kernels.py:_tol``).  No JAX here: the
+machine with the card need not have it.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
+from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
+                                                  paged_flash_decode_plain)
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(a, b, dtype):
+    tol = TOL[dtype]
+    torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+FLASH = [
+    # B, Sq, Skv, Hq, Hkv, hd, causal, window, lens, q_offset
+    (1, 479, 479, 15, 5, 64, True, 0, None, 0),
+    (2, 100, 100, 3, 1, 20, True, 0, None, 0),
+    (2, 128, 384, 6, 3, 32, False, 0, (300, 128), 0),
+    (1, 64, 200, 4, 2, 128, True, 0, None, 136),
+    (2, 256, 256, 8, 2, 64, True, 64, (256, 200), 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH, ids=[f"fa{i}" for i in range(len(FLASH))])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, lens, off = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q = torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype)
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, ln, causal=causal, sliding_window=window,
+                          q_offset=off)
+    ref = flash_attention_plain(q, k, v, ln, causal=causal,
+                                sliding_window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(15, 5, 64), (3, 1, 20), (8, 2, 128),
+                                       (4, 4, 64)])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, Hq, Hkv, hd):
+    B, nb, max_blocks, blk = 7, 40, 8, 16
+    rnd = random.Random(hd + Hq)
+    tbl = np.zeros((B, max_blocks), np.int32)
+    kv_len = np.zeros((B,), np.int32)
+    shared = rnd.randrange(1, nb)
+    for b in range(1, B):                       # row 0: kv_len == 0
+        live = rnd.randrange(1, max_blocks + 1)
+        kv_len[b] = rnd.randrange((live - 1) * blk + 1, live * blk + 1)
+        for i in range(live):
+            tbl[b, i] = shared if rnd.random() < 0.3 else rnd.randrange(1, nb)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    t, kl = torch.from_numpy(tbl).to(cuda), torch.from_numpy(kv_len).to(cuda)
+    out = paged_flash_decode(q, kp, vp, t, kl)
+    ref = paged_flash_decode_plain(q, kp, vp, t, kl)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 0).all())
+    _close(out, ref, dtype)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn((1, 8, 4, 16), device=cuda)
+    k = torch.randn((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), k.half())
+    pool = torch.randn((3, 4, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        paged_flash_decode(q[:, 0], pool, pool,
+                           torch.zeros((1, 2), dtype=torch.int64, device=cuda),
+                           torch.ones((1,), dtype=torch.int32, device=cuda))
+
+
+def test_reduced_fleet_on_card_equals_cpu(cuda):
+    """Reduced float32 fleet with both kernels on the card vs the same
+    fleet on the CPU (plain versions): identical tokens, and the kernels
+    really ran."""
+    from repro_torch.serving.fleet import LocalFleet
+    arch = "smollm-360m"
+    ov = {arch: {"dtype": "float32", "attn_impl": "pallas"}}
+    prompts = ["a b c d e f g h i j k l m n o p q r s t", "short one",
+               "a b c d e f g h i j k l m n o p different tail here"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        f = LocalFleet([arch], batch=2, gen_tokens=8, warmup=False,
+                       decode_impl="flash_paged", arch_overrides=ov,
+                       device=dev)
+        fa, pd = flash_attention.launches, paged_flash_decode.launches
+        outs[dev] = [o["tokens"] for o in f.generate(arch, prompts)]
+        if dev == "cuda":
+            assert flash_attention.launches > fa
+            assert paged_flash_decode.launches > pd
+        assert f.schedulers[arch].pool.live_refs() == 0
+    assert outs["cuda"] == outs["cpu"]

@@ -1,0 +1,63 @@
+"""The port stands alone: no module of ``src/repro_torch`` and no line of
+``chip_smoke.py`` imports JAX or the JAX package, and serving a request
+through the port loads neither."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [(ln, name) for ln, name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_serving_a_request_loads_no_jax():
+    code = (
+        "import sys\n"
+        "from repro_torch.serving.fleet import LocalFleet\n"
+        "f = LocalFleet(['smollm-360m'], batch=2, gen_tokens=3, "
+        "warmup=False, decode_impl='flash_paged', "
+        "arch_overrides={'smollm-360m': {'attn_impl': 'pallas'}}, "
+        "device='cpu')\n"
+        "out = f.call_fn({'m': 'smollm-360m'})(None, {'model': 'm', "
+        "'messages': [{'role': 'user', 'content': 'hello fleet'}]}, {})\n"
+        "assert out['usage']['completion_tokens'] == 3, out\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
