@@ -2,6 +2,7 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --phases kernels,mla_model   # a subset, no result
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -9,7 +10,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the CUDA kernels built from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) with their build seconds.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card at the fleet's shapes, float32 (TF32 off) and bfloat16.
+   card at the fleets' shapes, float32 (TF32 off) and bfloat16; the MLA
+   decode kernel also at a reduced shape with a masked head tile.
 3. model: full-width smollm-360m (random weights from a seeded
    ``torch.Generator``) through ``prefill`` + 16 ``decode_step``s on the
    kernel path and on the plain path, teacher-forced with the kernel
@@ -19,9 +21,17 @@ Phases, in order; any failure exits non-zero before the result line:
    launch counts are zeroed just before and read just after.  Then one
    batch under ``torch.profiler`` (the card's busy share, top kernels),
    and a reduced float32 fleet on the card held token-for-token against
-   the same fleet on the CPU (the plain path).
-5. times: kernel, plain version and one PyTorch library call at the
-   fleet's shapes (median of CUDA-event timings, L2 flushed before each
+   the same fleet on the CPU (the plain path).  The smollm fleet and
+   model are freed before the deepseek phases.
+5. mla_model: deepseek-v2-236b at its published widths (160 experts, top-6,
+   2 shared; MLA r 512, rope 64) with its depth cut to 1 dense + 7 MoE
+   layers of 60, bf16, through prefill + 16 teacher-forced decode steps on
+   ``decode_impl="flash_paged"`` (the MLA kernel) and ``"xla"``.
+6. mla_fleet: the same cut model served through ``batch_call`` (the same
+   12 requests, MLA kernel on, launches counted), the profiler batch, and
+   a reduced float32 deepseek fleet on the card against the CPU.
+7. times: kernel, plain version and one PyTorch library call at the
+   fleets' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound.
 
 The last two lines are one JSON object with a row per kernel, then
@@ -32,6 +42,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -44,6 +55,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ARCH = "smollm-360m"
+MLA_ARCH = "deepseek-v2-236b"
+MLA_MOE_LAYERS = 7                        # 1 dense + 7 MoE of the 60 layers
+MLA_LAYERS = 1 + MLA_MOE_LAYERS
 MAX_SEQ = 512
 BLOCK = 16
 BATCH = 8
@@ -55,7 +69,7 @@ NUM_BLOCKS = 1 + (BATCH + 4) * (MAX_SEQ // BLOCK)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
-PHASES = ("kernels", "model", "fleet", "times")
+PHASES = ("kernels", "model", "fleet", "mla_model", "mla_fleet", "times")
 
 
 def log(msg: str) -> None:
@@ -142,6 +156,25 @@ def decode_case(dtype, gen):
     return q, kpool, vpool, tbl, kv_len
 
 
+def mla_shapes(full=True):
+    """(H, r, rh, nope) of deepseek-v2's MLA decode: the published widths,
+    or the reduced config's (4 heads: one masked 16-head tile)."""
+    return (128, 512, 64, 128) if full else (4, 16, 8, 16)
+
+
+def mla_decode_case(dtype, gen, full=True):
+    """B=8 rows over the MLA fleet's latent pool (385 blocks of 16 tokens)
+    through a random permutation of physical blocks; kv_len covers 0, 1,
+    partial blocks and the full 512-token table.  Returns (q_lat, q_rope,
+    ckv_pool, krope_pool, tbl, kv_len, scale)."""
+    H, r, rh, nope = mla_shapes(full)
+    _, _, _, tbl, kv_len = decode_case(dtype, gen)
+    return (_rand((BATCH, H, r), dtype, gen), _rand((BATCH, H, rh), dtype, gen),
+            _rand((NUM_BLOCKS, BLOCK, r), dtype, gen),
+            _rand((NUM_BLOCKS, BLOCK, rh), dtype, gen), tbl, kv_len,
+            1.0 / math.sqrt(nope + rh))
+
+
 def _compare(out, ref, tol):
     """(max abs error, within |a - b| <= tol + tol * |b| everywhere)."""
     diff = (out.float() - ref.float()).abs()
@@ -156,7 +189,8 @@ def phase_kernels(errs):
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
-        paged_flash_decode, paged_flash_decode_plain)
+        paged_flash_decode, paged_flash_decode_mla,
+        paged_flash_decode_mla_plain, paged_flash_decode_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("kernels: float32 references with TF32 off "
@@ -191,6 +225,24 @@ def phase_kernels(errs):
         check(ok, f"paged_flash_decode {dname}: {err} zeros={zeros}")
         errs["paged_flash_decode"] = max(errs.get("paged_flash_decode", 0.0),
                                          err)
+        for full in (True, False):
+            *args, scale = mla_decode_case(dtype, gen, full)
+            out = paged_flash_decode_mla(*args, scale=scale)
+            ref = paged_flash_decode_mla_plain(*args, scale=scale)
+            torch.cuda.synchronize()
+            err, ok = _compare(out, ref, TOL[dname])
+            kv_len = args[-1]
+            zeros = bool((out[kv_len == 0] == 0).all().item())
+            ok = ok and zeros
+            H, r, rh, _ = mla_shapes(full)
+            log(f"  paged_flash_decode_mla {dname} B={BATCH} H={H} r={r} "
+                f"rh={rh} kv_len={kv_len.tolist()}: max_abs_err {err:.3e}, "
+                f"kv_len==0 rows exact zeros: {zeros} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"paged_flash_decode_mla {dname} H={H}: {err} "
+                  f"zeros={zeros}")
+            errs["paged_flash_decode_mla"] = max(
+                errs.get("paged_flash_decode_mla", 0.0), err)
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +255,83 @@ def phase_kernels(errs):
 MODEL_TOL = {"float32": 1e-3, "bfloat16": 0.25}
 
 
+def kernel_vs_plain(label, paths, params, toks, lens_l, tol, *,
+                    per_row=False, moe_impl="ep"):
+    """Prefill ``toks`` (B rows, real lengths ``lens_l``) then 16 decode
+    steps on the "kernel" and "plain" configs of ``paths``, teacher-forced
+    with the kernel path's greedy tokens; logs and checks the max |logit
+    difference| against ``tol`` and that any greedy divergence is a
+    near-tie.  ``per_row`` prefills one row per call, as the fleet does.
+    Returns the caches (for the caller to free)."""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.serving.serve_lib import greedy
+    B = len(lens_l)
+    max_blocks = MAX_SEQ // BLOCK
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    tbl = (1 + torch.arange(B * max_blocks, device="cuda")
+           .reshape(B, max_blocks)).to(torch.int32)
+    caches, logits = {}, {}
+    for name, c in paths.items():
+        caches[name] = MD.init_paged_cache(c, B, MAX_SEQ, 1 + B * max_blocks,
+                                           BLOCK, device="cuda")
+        if per_row:
+            logits[name] = torch.cat([
+                MD.prefill(c, params, toks[b:b + 1, :lens_l[b]],
+                           caches[name], moe_impl=moe_impl,
+                           tbl=tbl[b:b + 1], paged_fresh=True)[0]
+                for b in range(B)])
+        else:
+            logits[name], _ = MD.prefill(c, params, toks, caches[name],
+                                         moe_impl=moe_impl, lens=lens,
+                                         tbl=tbl, paged_fresh=True)
+        caches[name]["pos"] = lens.clone()
+        caches[name]["tbl"] = tbl
+    max_diff, agree, total, first_div, scale = 0.0, 0, 0, None, 0.0
+    diffs = []
+    for step in range(17):
+        lk, lp = logits["kernel"].float(), logits["plain"].float()
+        check(bool(torch.isfinite(lk).all()) and
+              bool(torch.isfinite(lp).all()),
+              f"{label}: non-finite logits at step {step}")
+        d = (lk - lp).abs().max().item()
+        diffs.append(d)
+        max_diff = max(max_diff, d)
+        scale = max(scale, lp.abs().max().item())
+        tk, tp = greedy(lk), greedy(lp)
+        same = tk == tp
+        agree += int(same.sum())
+        total += B
+        if first_div is None and not bool(same.all()):
+            r = int((~same).nonzero()[0, 0])
+            top2 = torch.topk(lp[r], 2).values
+            first_div = (step, r, (top2[0] - top2[1]).item(), d)
+        if step == 16:
+            break
+        nxt = greedy(logits["kernel"])[:, None]   # teacher forcing
+        for name, c in paths.items():
+            logits[name], _ = MD.decode_step(c, params, nxt, caches[name],
+                                             moe_impl=moe_impl)
+    torch.cuda.synchronize()
+    log(f"{label}: prefill lens {lens_l} + 16 decode steps, max |logit "
+        f"diff| kernel vs plain {max_diff:.4e} (limit {tol}; max |logit| "
+        f"{scale:.3f}), greedy tokens agree {agree}/{total}")
+    log(f"  max |logit diff| per call: "
+        f"{' '.join(f'{d:.2e}' for d in diffs)}")
+    check(max_diff <= tol, f"{label}: logit diff {max_diff}")
+    if first_div is not None:
+        step, r, gap, d = first_div
+        log(f"  first divergence: step {step} row {r}, top-2 logit gap "
+            f"{gap:.4e} vs logit diff {d:.4e} at that step")
+        check(gap < d, f"{label}: divergence is not a near-tie")
+    return caches
+
+
 def phase_model():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as MD
-    from repro_torch.serving.serve_lib import greedy
     B, lens_l = 4, [PROMPT_CAP, 300, 37, 128]
-    max_blocks = MAX_SEQ // BLOCK
     for dname in ("bfloat16", "float32"):
         cfg = get_config(ARCH).replace(dtype=dname)
         t0 = time.perf_counter()
@@ -220,66 +342,86 @@ def phase_model():
         toks = torch.randint(4, cfg.vocab_size, (B, PROMPT_CAP),
                              generator=tok_gen, device="cuda",
                              dtype=torch.int32)
-        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        tbl = (1 + torch.arange(B * max_blocks, device="cuda")
-               .reshape(B, max_blocks)).to(torch.int32)
         paths = {"kernel": cfg.replace(attn_impl="pallas",
                                        decode_impl="flash_paged"),
                  "plain": cfg.replace(attn_impl="einsum", decode_impl="xla")}
-        caches, logits = {}, {}
-        for name, c in paths.items():
-            caches[name] = MD.init_paged_cache(c, B, MAX_SEQ,
-                                               1 + B * max_blocks, BLOCK,
-                                               device="cuda")
-            logits[name], _ = MD.prefill(c, params, toks, caches[name],
-                                         lens=lens, tbl=tbl,
-                                         paged_fresh=True)
-            caches[name]["pos"] = lens.clone()
-            caches[name]["tbl"] = tbl
-        max_diff, agree, total, first_div = 0.0, 0, 0, None
-        for step in range(17):
-            lk, lp = logits["kernel"].float(), logits["plain"].float()
-            check(bool(torch.isfinite(lk).all()) and
-                  bool(torch.isfinite(lp).all()),
-                  f"model {dname}: non-finite logits at step {step}")
-            d = (lk - lp).abs().max().item()
-            max_diff = max(max_diff, d)
-            tk, tp = greedy(lk), greedy(lp)
-            same = tk == tp
-            agree += int(same.sum())
-            total += B
-            if first_div is None and not bool(same.all()):
-                r = int((~same).nonzero()[0, 0])
-                top2 = torch.topk(lp[r], 2).values
-                first_div = (step, r, (top2[0] - top2[1]).item(), d)
-            if step == 16:
-                break
-            nxt = greedy(logits["kernel"])[:, None]   # teacher forcing
-            for name, c in paths.items():
-                logits[name], _ = MD.decode_step(c, params, nxt,
-                                                 caches[name])
-        torch.cuda.synchronize()
-        log(f"model {ARCH} {dname}: {n_par} params, prefill lens {lens_l} + "
-            f"16 decode steps, max |logit diff| kernel vs plain "
-            f"{max_diff:.4e} (limit {MODEL_TOL[dname]}), greedy tokens "
-            f"agree {agree}/{total}, {time.perf_counter() - t0:.1f} s")
-        check(max_diff <= MODEL_TOL[dname],
-              f"model {dname}: logit diff {max_diff}")
-        if first_div is not None:
-            step, r, gap, d = first_div
-            log(f"  first divergence: step {step} row {r}, top-2 logit gap "
-                f"{gap:.4e} vs logit diff {d:.4e} at that step")
-            check(gap < d, f"model {dname}: divergence is not a near-tie")
+        caches = kernel_vs_plain(f"model {ARCH} {dname} ({n_par} params)",
+                                 paths, params, toks, lens_l, MODEL_TOL[dname])
+        log(f"  {time.perf_counter() - t0:.1f} s")
         del params, caches
+        gc.collect()
         torch.cuda.empty_cache()
+
+
+def mla_cut_groups(moe_layers=MLA_MOE_LAYERS):
+    """deepseek-v2's depth cut to fit one 80 GB card: its dense layer 0 and
+    ``moe_layers`` of its 59 MoE layers, every width kept."""
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    return (LayerGroup((BlockSpec("mla", "dense"),), 1),
+            LayerGroup((BlockSpec("mla", "moe"),), moe_layers))
+
+
+# max |logit difference| MLA kernel path vs plain path over prefill + 16
+# decode steps.  float32 (TF32 off): summation order only, as smollm's.
+# bfloat16: the kernel rounds P·ckv once from float32 where the plain
+# einsum's bf16 output differs by up to one bf16 ulp; across layers such a
+# difference can flip one of a token's top-6 of 160 near-tied experts,
+# which changes that token's FFN output outright, so the limit is loose
+# and any greedy divergence must also be a near-tie.  The float32 run
+# keeps 1 dense + 2 MoE layers (42.8 GB of weights) to fit the card.
+MLA_MODEL_TOL = {"float32": 1e-3, "bfloat16": 2.0}
+MLA_F32_MOE_LAYERS = 2
+
+
+def phase_mla_model():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    for dname, moe_layers in (("bfloat16", MLA_MOE_LAYERS),
+                              ("float32", MLA_F32_MOE_LAYERS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(MLA_ARCH).replace(groups=mla_cut_groups(moe_layers),
+                                           dtype=dname)
+        cfg = cfg.replace(moe_capacity_factor=max(
+            cfg.moe_capacity_factor, cfg.n_experts / cfg.moe_top_k))
+        t0 = time.perf_counter()
+        params = MD.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()            # the float32 draws of the init
+        n_par = sum(p.numel() for p in params.parameters())
+        free, total = torch.cuda.mem_get_info()
+        log(f"mla_model: {MLA_ARCH} at full width, {1 + moe_layers} of 60 "
+            f"layers (1 dense + {moe_layers} MoE, {cfg.n_experts} experts "
+            f"top-{cfg.moe_top_k}, {cfg.n_shared_experts} shared), {n_par} "
+            f"params {dname}, init {time.perf_counter() - t0:.1f} s, card "
+            f"memory free {free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+        tok_gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(4, cfg.vocab_size, (4, PROMPT_CAP),
+                             generator=tok_gen, device="cuda",
+                             dtype=torch.int32)
+        paths = {"kernel": cfg.replace(decode_impl="flash_paged"),
+                 "plain": cfg.replace(decode_impl="xla")}
+        t0 = time.perf_counter()
+        caches = kernel_vs_plain(f"mla_model {MLA_ARCH} {dname}", paths,
+                                 params, toks, [PROMPT_CAP, 300, 37, 128],
+                                 MLA_MODEL_TOL[dname], per_row=True,
+                                 moe_impl="ep")
+        log(f"  {time.perf_counter() - t0:.1f} s, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the served path
 # ---------------------------------------------------------------------------
 
-def payloads():
-    """12 OpenAI-style requests (more than the 8 slots).  Five share a
+def payloads(arch=ARCH):
+    """12 OpenAI-style requests to ``arch`` (more than the 8 slots).  Five share a
     32-word system prompt (two full 16-token blocks); one of those is the
     shared prompt alone, fully cached, so its admission copies a block
     (COW) and prefills a 1-token suffix."""
@@ -304,11 +446,11 @@ def payloads():
             msgs = [{"role": "system", "content": shared}]
         else:
             msgs = [{"role": "user", "content": u}]
-        out.append({"model": ARCH, "messages": msgs})
+        out.append({"model": arch, "messages": msgs})
     return out
 
 
-def profile_fleet(fleet, prompts, max_new=8):
+def profile_fleet(fleet, prompts, arch=ARCH, max_new=8):
     """Device busy share and the top kernels by device time while the
     fleet serves one batch (8 prompts, one per slot, ``max_new`` tokens)
     under torch.profiler.  Its overhead inflates the wall time, so the
@@ -320,7 +462,7 @@ def profile_fleet(fleet, prompts, max_new=8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fleet.generate(ARCH, prompts, max_new=max_new)
+        fleet.generate(arch, prompts, max_new=max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -335,71 +477,99 @@ def profile_fleet(fleet, prompts, max_new=8):
             f"{e.key[:90]}")
 
 
-def phase_fleet(launches, card):
+def serve_fleet(label, arch, overrides, small_overrides, kernels, launches,
+                card, per_step=None):
+    """The served path for ``arch`` at full width: 12 requests through
+    ``batch_call`` with ``kernels`` (name -> wrapper) counted from zero
+    just before and read into ``launches`` just after; then the profiler
+    batch, and a reduced float32 fleet on the card against the CPU.
+    ``per_step``: launches each kernel must make per decode step."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
     from repro_torch.serving.fleet import LocalFleet
     t0 = time.perf_counter()
-    fleet = LocalFleet([ARCH], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
+    fleet = LocalFleet([arch], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
                        gen_tokens=GEN, decode_impl="flash_paged",
-                       arch_overrides={ARCH: {"attn_impl": "pallas"}})
-    member = fleet.members[ARCH]
-    log(f"fleet: built + warmed up in {time.perf_counter() - t0:.1f} s "
-        f"(warmup {member.warmup_ms:.0f} ms), device {fleet.device}")
-    call = fleet.call_fn({ARCH: ARCH})
-    reqs = payloads()
+                       arch_overrides={arch: overrides})
+    member = fleet.members[arch]
+    log(f"{label}: built + warmed up in {time.perf_counter() - t0:.1f} s "
+        f"(warmup {member.warmup_ms:.0f} ms), device {fleet.device}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    call = fleet.call_fn({arch: arch})
+    reqs = payloads(arch)
     torch.cuda.synchronize()
-    flash_attention.launches = 0
-    paged_flash_decode.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     answers = call.batch_call(None, reqs, [{}] * len(reqs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches["flash_attention"] = flash_attention.launches
-    launches["paged_flash_decode"] = paged_flash_decode.launches
-    sched = fleet.schedulers[ARCH]
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    launches.update(counts)
+    sched = fleet.schedulers[arch]
     ntok = [a["usage"]["completion_tokens"] for a in answers]
     ttft = [a["usage"]["vsr_ttft_ms"] for a in answers]
     tpot = [(a["usage"]["vsr_service_ms"] - a["usage"]["vsr_ttft_ms"])
             / max(1, n - 1) for a, n in zip(answers, ntok)]
     stats = sched.pool.stats
-    log(f"fleet: {len(answers)} answers, tokens each {sorted(set(ntok))}, "
-        f"launches {json.dumps(launches)}, live_refs "
+    log(f"{label}: {len(answers)} answers, tokens each {sorted(set(ntok))}, "
+        f"launches {json.dumps(counts)}, live_refs "
         f"{sched.pool.live_refs()}, cached_tokens {stats.cached_tokens}, "
         f"cow_copies {stats.cow_copies}, prefill calls "
         f"{sched.prefill.prefills}, decode steps {sched.decode_steps}, "
         f"occupancy {sched.occupancy:.2f}")
-    log(f"fleet: wall {wall * 1e3:.1f} ms, decode tokens/s "
+    log(f"{label}: wall {wall * 1e3:.1f} ms, decode tokens/s "
         f"{sum(ntok) / wall:.1f}, TTFT ms p50 {statistics.median(ttft):.1f} "
         f"max {max(ttft):.1f}, TPOT ms p50 {statistics.median(tpot):.2f} "
         f"max {max(tpot):.2f} [{card}]")
     check(len(answers) == 12 and all(n == GEN for n in ntok),
-          f"fleet: expected 12 answers of {GEN} tokens, got {ntok}")
-    check(all(v > 0 for v in launches.values()),
-          f"fleet: a kernel was not launched on the main path: {launches}")
-    check(sched.pool.live_refs() == 0, "fleet: blocks leaked after drain")
+          f"{label}: expected 12 answers of {GEN} tokens, got {ntok}")
+    check(all(v > 0 for v in counts.values()),
+          f"{label}: a kernel was not launched on the main path: {counts}")
+    if per_step is not None:
+        check(all(v == per_step * sched.decode_steps for v in counts.values()),
+              f"{label}: launches {counts} != {per_step} x "
+              f"{sched.decode_steps} decode steps")
+    check(sched.pool.live_refs() == 0, f"{label}: blocks leaked after drain")
     check(stats.cached_tokens > 0 and stats.cow_copies > 0,
-          "fleet: the prefix-hit suffix prefill / COW copy did not run")
+          f"{label}: the prefix-hit suffix prefill / COW copy did not run")
     profile_fleet(fleet, [" ".join(m["content"] for m in r["messages"])
-                          for r in reqs[:BATCH]])
-    del fleet
+                          for r in reqs[:BATCH]], arch)
+    del fleet, member, sched, call
+    gc.collect()
     torch.cuda.empty_cache()
 
     # small input against the reference path: a reduced float32 fleet with
-    # both kernels on the card vs the same fleet's plain path on the CPU
-    ov = {ARCH: {"dtype": "float32", "attn_impl": "pallas"}}
+    # the kernels on the card vs the same fleet's plain path on the CPU
+    ov = {arch: dict(small_overrides, dtype="float32")}
     prompts = [" ".join(m["content"] for m in r["messages"]) for r in reqs]
     outs = {}
     for dev in ("cuda", "cpu"):
-        small = LocalFleet([ARCH], batch=4, gen_tokens=8, warmup=False,
+        small = LocalFleet([arch], batch=4, gen_tokens=8, warmup=False,
                            decode_impl="flash_paged", arch_overrides=ov,
                            device=dev)
-        outs[dev] = [o["tokens"] for o in small.generate(ARCH, prompts)]
+        outs[dev] = [o["tokens"] for o in small.generate(arch, prompts)]
     same = outs["cuda"] == outs["cpu"]
-    log(f"fleet: reduced float32 fleet, card kernels vs CPU plain path: "
+    log(f"{label}: reduced float32 fleet, card kernels vs CPU plain path: "
         f"tokens identical for {len(prompts)} prompts: {same}")
-    check(same, "fleet: reduced fleet tokens differ between card and CPU")
+    check(same, f"{label}: reduced fleet tokens differ between card and CPU")
+
+
+def phase_fleet(launches, card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    serve_fleet("fleet", ARCH, {"attn_impl": "pallas"}, {"attn_impl": "pallas"},
+                {"flash_attention": flash_attention,
+                 "paged_flash_decode": paged_flash_decode}, launches, card)
+
+
+def phase_mla_fleet(launches, card):
+    import torch
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode_mla
+    torch.cuda.reset_peak_memory_stats()
+    serve_fleet("mla_fleet", MLA_ARCH, {"groups": mla_cut_groups()}, {},
+                {"paged_flash_decode_mla": paged_flash_decode_mla}, launches,
+                card, per_step=MLA_LAYERS)
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +605,14 @@ def phase_times(rows, errs, launches, card):
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
-        gather_kv, paged_flash_decode, paged_flash_decode_plain)
+        gather_kv, paged_flash_decode, paged_flash_decode_mla,
+        paged_flash_decode_mla_plain, paged_flash_decode_plain)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     dt = torch.bfloat16
     esz = 2
-    saved = (flash_attention.launches, paged_flash_decode.launches)
+    saved = (flash_attention.launches, paged_flash_decode.launches,
+             paged_flash_decode_mla.launches)
 
     # flash attention at the fleet's longest prefill: B=1, S=479, causal
     for S in (16, 64, PROMPT_CAP):
@@ -467,8 +639,8 @@ def phase_times(rows, errs, launches, card):
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "replaces":
                      "src/repro/kernels/flash_attention/flash_attention.py:144",
-                 "launches": launches["flash_attention"],
-                 "max_abs_err": errs["flash_attention"], "ms": ms,
+                 "launches": launches.get("flash_attention", 0),
+                 "max_abs_err": errs.get("flash_attention"), "ms": ms,
                  "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
                  "bound_by": "operations" if t_ops > t_bytes else "bytes",
                  "library_ms": lib})
@@ -500,13 +672,56 @@ def phase_times(rows, errs, launches, card):
     rows.append({"name": "paged_flash_decode", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
                  "replaces": "src/repro/kernels/flash_decode/ops.py:193",
-                 "launches": launches["paged_flash_decode"],
-                 "max_abs_err": errs["paged_flash_decode"], "ms": ms,
+                 "launches": launches.get("paged_flash_decode", 0),
+                 "max_abs_err": errs.get("paged_flash_decode"), "ms": ms,
+                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                 "library_ms": lib})
+
+    # MLA decode at the MLA fleet's decode shapes (phase 2's full-width rows)
+    *args, scale = mla_decode_case(dt, gen)
+    q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len = args
+    H, r, rh, _ = mla_shapes()
+    ms = time_ms(lambda: paged_flash_decode_mla(*args, scale=scale), flush)
+    plain = time_ms(lambda: paged_flash_decode_mla_plain(*args, scale=scale),
+                    flush)
+    # library: SDPA over the gathered latent view, one KV head broadcast to
+    # all H query heads: q = [q_lat | q_rope], k = [ckv | krope], v = ckv
+    qs = torch.cat([q_lat, q_rope], -1)[:, :, None, :].contiguous()
+    ks = torch.cat([gather_kv(ckv_pool, tbl), gather_kv(krope_pool, tbl)],
+                   -1)[:, None].contiguous()
+    vs = gather_kv(ckv_pool, tbl)[:, None].contiguous()
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None] <
+            kv_len[:, None])[:, None, None, :]
+    try:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True), flush)
+    except RuntimeError as e:
+        log(f"times paged_flash_decode_mla: SDPA refused the latent shapes "
+            f"(q/k width {r + rh}, v width {r}): {e}")
+        lib = None
+    live = int(kv_len.sum())
+    nbytes = (live * (r + rh) + BATCH * H * (2 * r + rh)) * esz + \
+        (tbl.numel() + kv_len.numel()) * 4
+    flops = live * H * (2 * (r + rh) + 2 * r)
+    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times paged_flash_decode_mla bf16 B={BATCH} H={H} r={r} rh={rh} "
+        f"live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"over gathered view {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+        f"bound {max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    rows.append({"name": "paged_flash_decode_mla", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
+                 "replaces": "src/repro/kernels/flash_decode/ops.py:412",
+                 "launches": launches.get("paged_flash_decode_mla", 0),
+                 "max_abs_err": errs.get("paged_flash_decode_mla"), "ms": ms,
                  "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
                  "bound_by": "operations" if t_ops > t_bytes else "bytes",
                  "library_ms": lib})
     # timing launches are not main-path launches
-    flash_attention.launches, paged_flash_decode.launches = saved
+    (flash_attention.launches, paged_flash_decode.launches,
+     paged_flash_decode_mla.launches) = saved
 
 
 def main(argv=None) -> int:
@@ -539,6 +754,10 @@ def main(argv=None) -> int:
             phase_model()
         if "fleet" in phases:
             phase_fleet(launches, card)
+        if "mla_model" in phases:
+            phase_mla_model()
+        if "mla_fleet" in phases:
+            phase_mla_fleet(launches, card)
         if "times" in phases:
             phase_times(rows, errs, launches, card)
     except Failure as e:

@@ -25,9 +25,23 @@ def _tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(leaf, dtype=np.float32))
 
 
+def _block_leaves(prefix: str, tree: Mapping, r: int, state: dict) -> None:
+    """Repeat ``r`` of every leaf under ``tree``, nested keys joined with
+    dots (``moe.shared.w_gate``) as ``nn.ParameterDict`` names them."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            _block_leaves(f"{prefix}{name}.", leaf, r, state)
+        else:
+            state[prefix + name] = _tensor(leaf[r])
+
+
 def params_from_jax(tree: Mapping) -> dict:
     """Reference pytree -> ``Model.state_dict()``-keyed dict of float32
-    CPU tensors."""
+    CPU tensors.  Each group's blocks map leaf for leaf (``norm1``,
+    ``attn`` or ``mla``, ``norm2``, ``ffn`` or ``moe`` with its
+    ``shared`` experts), so groups of different kinds (deepseek's dense
+    layer 0 and its MoE layers) need nothing special; the float32 router
+    stays float32."""
     state = {"embed": _tensor(tree["embed"]),
              "final_norm": _tensor(tree["final_norm"])}
     if "lm_head" in tree:
@@ -40,14 +54,7 @@ def params_from_jax(tree: Mapping) -> dict:
         repeats = np.shape(gp["b0"]["norm1"])[0]
         for r in range(repeats):
             for j in range(period):
-                bp = gp[f"b{j}"]
-                pre = f"blocks.{n}."
-                state[pre + "norm1"] = _tensor(bp["norm1"][r])
-                state[pre + "norm2"] = _tensor(bp["norm2"][r])
-                for name, leaf in bp["attn"].items():
-                    state[pre + f"attn.{name}"] = _tensor(leaf[r])
-                for name, leaf in bp["ffn"].items():
-                    state[pre + f"ffn.{name}"] = _tensor(leaf[r])
+                _block_leaves(f"blocks.{n}.", gp[f"b{j}"], r, state)
                 n += 1
         i += 1
     return state

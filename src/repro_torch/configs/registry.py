@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 # arch id -> module name
 ARCHS = {
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "smollm-360m": "smollm_360m",
 }
 

@@ -1,5 +1,5 @@
-"""Float32 oracles for single-token GQA decode attention over a KV cache,
-the port of ``repro.kernels.flash_decode.ref`` (GQA part)."""
+"""Float32 oracles for single-token decode attention over a KV cache (GQA
+and absorbed-latent MLA), the port of ``repro.kernels.flash_decode.ref``."""
 
 from __future__ import annotations
 
@@ -40,3 +40,21 @@ def paged_decode_reference(q, kpool, vpool, tbl, kv_len):
     tbl: (B, max_blocks) int), then standard masked decode attention."""
     return decode_reference(q, _gather(kpool, tbl), _gather(vpool, tbl),
                             kv_len)
+
+
+def paged_mla_decode_reference(q_lat, q_rope, ckv_pool, krope_pool, tbl,
+                               kv_len, *, scale):
+    """Oracle for absorbed-latent MLA block-table decode.
+
+    q_lat: (B, H, r); q_rope: (B, H, rh); pools: (num_blocks, blk, r|rh);
+    returns the latent context ctx = softmax(scores) @ ckv, (B, H, r)."""
+    ckv = _gather(ckv_pool, tbl).float()                 # (B, S, r)
+    kr = _gather(krope_pool, tbl).float()                # (B, S, rh)
+    s = torch.einsum("bhr,bkr->bhk", q_lat.float(), ckv)
+    s = s + torch.einsum("bhr,bkr->bhk", q_rope.float(), kr)
+    s = s * scale
+    mask = torch.arange(ckv.shape[1], device=ckv.device)[None] < \
+        kv_len.to(ckv.device)[:, None]                   # (B, S)
+    s = torch.where(mask[:, None], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bkr->bhr", probs, ckv).to(q_lat.dtype)

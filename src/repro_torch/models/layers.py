@@ -1,4 +1,5 @@
-"""Layer primitives of the port (attention subset of ``repro.models.layers``).
+"""Layer primitives of the port (attention, MLA and FFN subset of
+``repro.models.layers``).
 
 Plain functions on tensors.  Parameters come in as mappings
 (``nn.ParameterDict``) keyed like the reference's pytree.  Matmuls run in
@@ -164,6 +165,86 @@ def attn_qkv(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
 def attn_out(p: Mapping[str, Tensor], out: Tensor) -> Tensor:
     B, S, H, hd = out.shape
     return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_q(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor, rope):
+    B, S, _ = x.shape
+    H, nh, rh = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, nh + rh)
+    q_nope, q_rope = q[..., :nh], q[..., nh:]
+    return q_nope, apply_rope(q_rope, *rope)
+
+
+def mla_kv_latent(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor, rope):
+    """Compressed KV: returns (c_kv (B,S,r), k_rope (B,S,rh)) — the cache."""
+    kv = x @ p["wkv_a"]
+    c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv[..., cfg.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[:, :, None, :], *rope)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+
+
+def mla_latent_core(q_lat: Tensor, q_rope: Tensor, c_kv: Tensor,
+                    k_rope: Tensor, *, scale: float, causal: bool,
+                    q_offset: IntOrTensor = 0,
+                    kv_len: Optional[IntOrTensor] = None) -> Tensor:
+    """Latent attention context, the reference's op order: float32 scores
+    ``(q_lat·c_kv + q_rope·k_rope) * scale``, the ``NEG_INF`` mask, a
+    float32 softmax, probabilities cast to ``c_kv.dtype``, ``ctx =
+    probs·c_kv``.
+
+    q_lat: (B,Sq,H,r); q_rope: (B,Sq,H,rh); c_kv: (B,Skv,r); k_rope:
+    (B,Skv,rh).  Returns ctx (B,Sq,H,r).  ``mla_attention`` and the plain
+    version of the paged MLA decode kernel both call it."""
+    B, Sq = q_lat.shape[:2]
+    Skv = c_kv.shape[1]
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c_kv.float())
+    s_rope = torch.einsum("bqhr,bkr->bhqk", q_rope.float(), k_rope.float())
+    logits = (s_lat + s_rope) * scale
+    mask, per_row = _attn_mask(B, Sq, Skv, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, device=q_lat.device)
+    mask = mask[:, None] if per_row else mask[None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+    return torch.einsum("bhqk,bkr->bqhr", probs, c_kv)
+
+
+def mla_absorb_q(p: Mapping[str, Tensor], q_nope: Tensor) -> Tensor:
+    """q_nope (B,Sq,H,nh) -> latent queries q_nope·Wk_b (B,Sq,H,r)."""
+    return torch.einsum("bqhn,hrn->bqhr", q_nope, p["wk_b"])
+
+
+def mla_out(p: Mapping[str, Tensor], cfg: ModelConfig, ctx: Tensor) -> Tensor:
+    """Latent context (B,Sq,H,r) -> ctx·Wv_b, then the output projection."""
+    B, Sq, H, _ = ctx.shape
+    out = torch.einsum("bqhr,hrv->bqhv", ctx, p["wv_b"])
+    return out.reshape(B, Sq, H * cfg.v_head_dim) @ p["wo"]
+
+
+def mla_attention(p: Mapping[str, Tensor], cfg: ModelConfig, q_nope, q_rope,
+                  c_kv, k_rope, *, causal: bool, q_offset: IntOrTensor = 0,
+                  kv_len: Optional[IntOrTensor] = None) -> Tensor:
+    """Absorbed-latent attention.
+
+    q_nope: (B,Sq,H,nh); q_rope: (B,Sq,H,rh); c_kv: (B,Skv,r); k_rope:
+    (B,Skv,rh).  score[h] = (q_nope[h] @ Wk_b[h]) . c_kv + q_rope . k_rope;
+    out[h] = (attn @ c_kv) @ Wv_b[h], then ``wo``."""
+    ctx = mla_latent_core(mla_absorb_q(p, q_nope), q_rope, c_kv, k_rope,
+                          scale=mla_scale(cfg), causal=causal,
+                          q_offset=q_offset, kv_len=kv_len)
+    return mla_out(p, cfg, ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Fleet-model stack of the port: init / paged prefill / decode for the
-attention + dense-FFN architectures (``repro.models.model``'s twin).
+attention and MLA mixers with dense or MoE FFNs (``repro.models.model``'s
+twin).
 
 The reference scans each layer group with ``lax.scan``; here the model is
 an ``nn.Module`` whose ``blocks`` ``ModuleList`` unrolls every group's
@@ -9,13 +10,13 @@ the other leaf for leaf.
 
 The serving cache is paged: ``init_paged_cache`` returns the reference's
 pytree as a dict of tensors (``cache["g{i}"]["b{j}"]["k"]`` is
-``(repeats, num_blocks, block_tokens, Hkv, hd)``).  Where the reference
-donates the cache to a jitted step and gets a new one back, the port
-writes the pools IN PLACE and returns the same dict.
+``(repeats, num_blocks, block_tokens, Hkv, hd)``; an MLA block holds
+``ckv`` and ``krope``).  Where the reference donates the cache to a jitted
+step and gets a new one back, the port writes the pools IN PLACE and
+returns the same dict.
 
-Contiguous caches, cross-attention, MLA, MoE, SSM blocks and speculative
-``verify`` are later slices: configs that need them raise
-``NotImplementedError``.
+Contiguous caches, cross-attention, SSM blocks and speculative ``verify``
+are later slices: configs that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
+                                                  paged_flash_decode_mla)
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import moe as M
+from repro_torch.models.config import BlockSpec, ModelConfig
 
 Tensor = torch.Tensor
 
@@ -42,10 +45,10 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
     for g in cfg.groups:
         for s in g.period:
-            if s.mixer != "attn" or s.ffn != "dense":
+            if s.mixer not in ("attn", "mla") or s.ffn not in ("dense", "moe"):
                 raise NotImplementedError(
                     f"{cfg.name}: block {s.mixer}/{s.ffn} is not ported yet "
-                    f"(the port serves attn + dense FFN)")
+                    f"(the port serves attn or mla with a dense or moe FFN)")
     if cfg.encoder_groups or cfg.cross_ctx_len:
         raise NotImplementedError(f"{cfg.name}: encoder / cross-attention "
                                   f"is not ported yet")
@@ -66,27 +69,68 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class Block(nn.Module):
-    """One attn + dense-FFN block; keys mirror the reference's
-    ``{"norm1", "attn": {...}, "norm2", "ffn": {...}}``."""
+def _mla_leaves(cfg: ModelConfig, dtype, device) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    nh, rh, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = _param((d, cfg.q_lora_rank), dtype, device)
+        p["q_norm"] = _param((cfg.q_lora_rank,), dtype, device)
+        p["wq_b"] = _param((cfg.q_lora_rank, H * (nh + rh)), dtype, device)
+    else:
+        p["wq"] = _param((d, H * (nh + rh)), dtype, device)
+    p["wkv_a"] = _param((d, cfg.kv_lora_rank + rh), dtype, device)
+    p["kv_norm"] = _param((cfg.kv_lora_rank,), dtype, device)
+    # up-projections, stored head-major for the absorbed decode path
+    p["wk_b"] = _param((H, cfg.kv_lora_rank, nh), dtype, device)
+    p["wv_b"] = _param((H, cfg.kv_lora_rank, vh), dtype, device)
+    p["wo"] = _param((H * vh, d), dtype, device)
+    return p
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+
+def _moe_leaves(cfg: ModelConfig, dtype, device) -> dict:
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    p = {"router": _param((d, E), torch.float32, device),   # float32 always
+         "w_gate": _param((E, d, f), dtype, device),
+         "w_up": _param((E, d, f), dtype, device),
+         "w_down": _param((E, f, d), dtype, device)}
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * f
+        p["shared"] = nn.ParameterDict({
+            "w_gate": _param((d, fs), dtype, device),
+            "w_up": _param((d, fs), dtype, device),
+            "w_down": _param((fs, d), dtype, device)})
+    return p
+
+
+class Block(nn.Module):
+    """One block built from its ``BlockSpec``; keys mirror the reference's
+    ``{"norm1", "attn" | "mla": {...}, "norm2", "ffn" | "moe": {...}}``."""
+
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device):
         super().__init__()
         d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.spec = spec
         self.norm1 = _param((d,), dtype, device)
-        attn = {"wq": _param((d, H * hd), dtype, device),
-                "wk": _param((d, Hkv * hd), dtype, device),
-                "wv": _param((d, Hkv * hd), dtype, device),
-                "wo": _param((H * hd, d), dtype, device)}
-        if cfg.qk_norm:
-            attn["q_norm"] = _param((hd,), dtype, device)
-            attn["k_norm"] = _param((hd,), dtype, device)
-        self.attn = nn.ParameterDict(attn)
+        if spec.mixer == "mla":
+            self.mla = nn.ParameterDict(_mla_leaves(cfg, dtype, device))
+        else:
+            attn = {"wq": _param((d, H * hd), dtype, device),
+                    "wk": _param((d, Hkv * hd), dtype, device),
+                    "wv": _param((d, Hkv * hd), dtype, device),
+                    "wo": _param((H * hd, d), dtype, device)}
+            if cfg.qk_norm:
+                attn["q_norm"] = _param((hd,), dtype, device)
+                attn["k_norm"] = _param((hd,), dtype, device)
+            self.attn = nn.ParameterDict(attn)
         self.norm2 = _param((d,), dtype, device)
-        self.ffn = nn.ParameterDict({
-            "w_gate": _param((d, cfg.d_ff), dtype, device),
-            "w_up": _param((d, cfg.d_ff), dtype, device),
-            "w_down": _param((cfg.d_ff, d), dtype, device)})
+        if spec.ffn == "moe":
+            self.moe = nn.ParameterDict(_moe_leaves(cfg, dtype, device))
+        else:
+            self.ffn = nn.ParameterDict({
+                "w_gate": _param((d, cfg.d_ff), dtype, device),
+                "w_up": _param((d, cfg.d_ff), dtype, device),
+                "w_down": _param((cfg.d_ff, d), dtype, device)})
 
 
 class Model(nn.Module):
@@ -104,8 +148,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab_size), dtype, dev)
         self.blocks = nn.ModuleList(
-            Block(cfg, dtype, dev)
-            for g in cfg.groups for _ in range(g.repeats * len(g.period)))
+            Block(cfg, spec, dtype, dev)
+            for g in cfg.groups for _ in range(g.repeats) for spec in g.period)
 
 
 def _dense_init(p: nn.Parameter, gen: torch.Generator, scale=None):
@@ -119,25 +163,25 @@ def _dense_init(p: nn.Parameter, gen: torch.Generator, scale=None):
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Model:
-    """Random weights with the reference's scheme (normal / sqrt(fan_in),
-    embedding 0.02, norms 1), drawn from ``generator`` — the draws differ
-    from ``jax.random``'s; tests that compare the packages bridge the
-    reference's weights instead (``bridge.params_from_jax``)."""
+    """Random weights with the reference's scheme (normal / sqrt(fan_in)
+    with fan_in = ``shape[-2]``, embedding and router 0.02, norms 1),
+    drawn on ``generator``'s device in registration order — the draws
+    differ from ``jax.random``'s; tests that compare the packages bridge
+    the reference's weights instead (``bridge.params_from_jax``)."""
     model = Model(cfg, device)
     _dense_init(model.embed, generator, scale=0.02)
     model.final_norm.fill_(1.0)
     if not cfg.tie_embeddings:
         _dense_init(model.lm_head, generator)
     for blk in model.blocks:
-        blk.norm1.fill_(1.0)
-        blk.norm2.fill_(1.0)
-        for name, p in blk.attn.items():
-            if name.endswith("_norm"):
+        for name, p in blk.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if "norm" in leaf:
                 p.fill_(1.0)
+            elif leaf == "router":
+                _dense_init(p, generator, scale=0.02)
             else:
                 _dense_init(p, generator)
-        for p in blk.ffn.values():
-            _dense_init(p, generator)
     return model
 
 
@@ -154,11 +198,26 @@ def paged_supported(cfg: ModelConfig) -> bool:
                 for g in cfg.groups for s in g.period))
 
 
+def _block_paged_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int,
+                       num_blocks: int, block_tokens: int, dtype, dev):
+    lead = (repeats, num_blocks, block_tokens)
+    if spec.mixer == "mla":
+        return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
+                                   device=dev),
+                "krope": torch.zeros(lead + (cfg.rope_head_dim,),
+                                     dtype=dtype, device=dev)}
+    kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=dtype, device=dev),
+            "v": torch.zeros(kv, dtype=dtype, device=dev)}
+
+
 def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
                      num_blocks: int, block_tokens: int,
                      device: DeviceLike = "cuda") -> dict:
     """Paged serving cache: KV leaves are physical block pools
-    ``(repeats, num_blocks, block_tokens, Hkv, hd)`` shared by every slot;
+    ``(repeats, num_blocks, block_tokens, Hkv, hd)`` shared by every slot
+    (MLA blocks: ``ckv`` ``(..., kv_lora_rank)`` and ``krope`` ``(...,
+    rope_head_dim)``);
     ``cache["tbl"]`` (slots, max_seq // block_tokens) int32 maps each
     slot's logical blocks to physical ones (0 = the reserved trash
     block); ``cache["pos"]`` (slots,) int32 holds each slot's depth."""
@@ -171,12 +230,10 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
              "tbl": torch.zeros((slots, max_seq // block_tokens),
                                 dtype=torch.int32, device=dev)}
     for i, g in enumerate(cfg.groups):
-        kv = (g.repeats, num_blocks, block_tokens, cfg.n_kv_heads,
-              cfg.head_dim)
         cache[f"g{i}"] = {
-            f"b{j}": {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                      "v": torch.zeros(kv, dtype=dtype, device=dev)}
-            for j in range(len(g.period))}
+            f"b{j}": _block_paged_cache(cfg, spec, g.repeats, num_blocks,
+                                        block_tokens, dtype, dev)
+            for j, spec in enumerate(g.period)}
     return cache
 
 
@@ -261,16 +318,80 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     return h + L.attn_out(p.attn, out)
 
 
+def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
+              paged_fresh=False):
+    """Paged MLA in prefill or decode mode.  ``bcache`` is ``{"ckv": pool,
+    "krope": pool}`` for this layer; pools are written in place.
+
+    Fresh prefill runs ``_mla_naive`` on the local latents.  A suffix
+    prefill runs the EXPANDED form over the gathered view, not the
+    absorbed one: absorption reassociates the latent matmul, and that
+    last-ulp logit difference flips greedy argmax on near-ties (the
+    reference's reason, model.py:385-389).  Decode is absorbed: under
+    ``decode_impl="flash_paged"`` the CUDA latent-decode kernel computes
+    the context from the pools through the table; otherwise
+    ``mla_attention`` runs over the gathered view."""
+    x = L.rms_norm(h, p.norm1, cfg.norm_eps)
+    mp = p.mla
+    q_nope, q_rope = L.mla_q(mp, cfg, x, rope)
+    c_kv, k_rope = L.mla_kv_latent(mp, cfg, x, rope)
+    ckv_p, krope_p = bcache["ckv"], bcache["krope"]
+    _paged_write(ckv_p, c_kv, tbl, pos)
+    _paged_write(krope_p, k_rope, tbl, pos)
+    if mode == "prefill":
+        if paged_fresh:
+            out = _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope)
+        else:
+            out = _mla_naive(cfg, mp, q_nope, q_rope, _paged_view(ckv_p, tbl),
+                             _paged_view(krope_p, tbl), q_offset=pos)
+    else:  # decode: pos (B,) per-row positions
+        kv_len = (pos + 1).to(torch.int32)
+        if cfg.decode_impl == "flash_paged":
+            q_lat = L.mla_absorb_q(mp, q_nope)
+            ctx = paged_flash_decode_mla(
+                q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv_p,
+                krope_p, tbl, kv_len, scale=L.mla_scale(cfg))
+            out = L.mla_out(mp, cfg, ctx[:, None])
+        else:
+            out = L.mla_attention(mp, cfg, q_nope, q_rope,
+                                  _paged_view(ckv_p, tbl),
+                                  _paged_view(krope_p, tbl), causal=False,
+                                  q_offset=pos, kv_len=kv_len)
+    return h + out
+
+
+def _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope, q_offset=None):
+    """Prefill MLA: expand latents to per-head K/V, standard SDPA.
+    ``q_offset`` ((B,) per-row start positions) is the paged-suffix case:
+    K/V come from the gathered block view, queries sit at an offset."""
+    B, Sq, H, _ = q_nope.shape
+    k_nope = torch.einsum("bsr,hrn->bshn", c_kv, mp["wk_b"])
+    v = torch.einsum("bsr,hrv->bshv", c_kv, mp["wv_b"])
+    k_rope_h = k_rope[:, :, None, :].expand(B, k_rope.shape[1], H,
+                                            cfg.rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h.to(k_nope.dtype)], dim=-1)
+    if q_offset is not None:
+        out = L.sdpa(q, k, v, causal=True, q_offset=q_offset)
+    else:
+        out = _sdpa_impl(cfg, q, k, v, causal=True, sliding_window=0)
+    return out.reshape(B, Sq, H * cfg.v_head_dim) @ mp["wo"]
+
+
 def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, mode: str,
-                 bcache, pos, tbl, paged_fresh=False) -> Tensor:
-    h = _self_attn(cfg, p, h, rope, mode, bcache, pos, tbl,
-                   paged_fresh=paged_fresh)
+                 bcache, pos, tbl, moe_impl: str,
+                 paged_fresh=False) -> Tensor:
+    mixer = _mla_attn if p.spec.mixer == "mla" else _self_attn
+    h = mixer(cfg, p, h, rope, mode, bcache, pos, tbl,
+              paged_fresh=paged_fresh)
     x = L.rms_norm(h, p.norm2, cfg.norm_eps)
+    if p.spec.ffn == "moe":
+        return h + M.moe_apply(p.moe, cfg, x, moe_impl)
     return h + L.ffn_apply(p.ffn, x)
 
 
 def _run_groups(cfg: ModelConfig, params: Model, h: Tensor, *, rope, mode,
-                cache, pos, tbl, paged_fresh=False) -> Tensor:
+                cache, pos, tbl, moe_impl: str, paged_fresh=False) -> Tensor:
     """The stack, unrolled: group i, repeat r, period slot j is block
     ``n``; its KV pools are ``cache["g{i}"]["b{j}"][leaf][r]`` (views,
     written in place)."""
@@ -282,9 +403,13 @@ def _run_groups(cfg: ModelConfig, params: Model, h: Tensor, *, rope, mode,
                 bc = {leaf: pool[r] for leaf, pool in gc[f"b{j}"].items()}
                 h = _apply_block(cfg, params.blocks[n], h, rope=rope,
                                  mode=mode, bcache=bc, pos=pos, tbl=tbl,
-                                 paged_fresh=paged_fresh)
+                                 moe_impl=moe_impl, paged_fresh=paged_fresh)
                 n += 1
     return h
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    return cfg.rope_head_dim if cfg.is_mla else cfg.head_dim
 
 
 def _logits(cfg: ModelConfig, params: Model, h: Tensor) -> Tensor:
@@ -300,8 +425,8 @@ def _logits(cfg: ModelConfig, params: Model, h: Tensor) -> Tensor:
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
-            *, lens: Optional[Tensor] = None, start: Optional[Tensor] = None,
-            tbl: Optional[Tensor] = None,
+            *, moe_impl: str = "gshard", lens: Optional[Tensor] = None,
+            start: Optional[Tensor] = None, tbl: Optional[Tensor] = None,
             paged_fresh: bool = False) -> Tuple[Tensor, dict]:
     """Paged prefill: returns (last-token logits (B,V), cache).
 
@@ -311,8 +436,10 @@ def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
     (B,) is the absolute position of ``tokens[:, 0]`` — for a prefix-cache
     hit only the unmatched suffix is passed in and attention reads the
     cached prefix blocks through the table (``paged_fresh=True`` marks a
-    no-prefix prefill).  The reference's ``cross_ctx`` and ``moe_impl``
-    arguments arrive with the slices that port cross-attention and MoE."""
+    no-prefix prefill).  ``moe_impl`` selects the MoE FFN as in the
+    reference (its default "gshard" is not ported: MoE configs pass "ep",
+    "ep_serve" or "sort"); the reference's ``cross_ctx`` arrives with the
+    slice that ports cross-attention."""
     check_supported(cfg)
     if tbl is None:
         raise NotImplementedError("the contiguous cache is not ported yet: "
@@ -323,9 +450,10 @@ def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
     pos = (torch.zeros((B,), dtype=torch.long, device=dev) if start is None
            else torch.as_tensor(start, device=dev).long())
     positions = pos[:, None] + torch.arange(Sq, device=dev)[None, :]
-    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     h = _run_groups(cfg, params, h, rope=rope, mode="prefill", cache=cache,
-                    pos=pos, tbl=tbl, paged_fresh=paged_fresh)
+                    pos=pos, tbl=tbl, moe_impl=moe_impl,
+                    paged_fresh=paged_fresh)
     if lens is None:
         h_last = h[:, -1:, :]
     else:
@@ -336,20 +464,22 @@ def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Model, tokens: Tensor,
-                cache: dict) -> Tuple[Tensor, dict]:
+                cache: dict, *, moe_impl: str = "gshard"
+                ) -> Tuple[Tensor, dict]:
     """One decode step: tokens (B,1) + paged cache -> (logits (B,V), cache).
 
     ``cache["pos"]`` (B,) holds per-row positions: each row writes, rotates
     and attends at its own depth; the KV pools are written in place and
-    ``cache["pos"]`` comes back advanced by one."""
+    ``cache["pos"]`` comes back advanced by one.  ``moe_impl`` as in
+    ``prefill``."""
     check_supported(cfg)
     if "tbl" not in cache:
         raise NotImplementedError("the contiguous cache is not ported yet")
     pos = cache["pos"]
     tbl = cache["tbl"]
     h = params.embed[tokens.long()]
-    rope = L.rope_tables(pos.long()[:, None], cfg.head_dim, cfg.rope_theta)
+    rope = L.rope_tables(pos.long()[:, None], _rope_dim(cfg), cfg.rope_theta)
     h = _run_groups(cfg, params, h, rope=rope, mode="decode", cache=cache,
-                    pos=pos.long(), tbl=tbl)
+                    pos=pos.long(), tbl=tbl, moe_impl=moe_impl)
     cache["pos"] = pos + 1
     return _logits(cfg, params, h)[:, 0, :], cache

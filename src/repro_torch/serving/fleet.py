@@ -10,7 +10,8 @@ per-row positions, per-request latency) is real and runs on the card
 through the port's CUDA kernels when ``decode_impl="flash_paged"`` and
 ``attn_impl="pallas"`` are selected.
 
-Serving is dropless and single-device: no mesh and no sharding rules.
+Serving is single-device (no mesh, no sharding rules) and MoE members are
+dropless: their capacity factor is raised to ``n_experts / top_k``.
 The audio and diffusion lanes, contiguous caches, speculative decoding
 and ``model_axis > 1`` are later slices and raise ``NotImplementedError``.
 
@@ -37,6 +38,7 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as MD
+from repro_torch.models import moe as M
 from repro_torch.serving import serve_lib
 from repro_torch.serving.paged import PoolStats
 from repro_torch.serving.scheduler import PREFILL_BUCKETS, DecodeScheduler
@@ -301,10 +303,16 @@ class LocalFleet:
         ``arch_overrides={arch: {"attn_impl": "pallas"}}`` the CUDA
         flash-attention prefill kernel (the reference's option names).
         ``arch_overrides`` maps member archs to ModelConfig field
-        overrides (plus ``depth_mult``).  ``moe_impl`` is accepted and
-        unused (no ported config has experts); weights come from a CPU
-        ``torch.Generator`` seeded with ``seed`` — the same on every
-        device, but not the reference's ``jax.random`` draws.
+        overrides (plus ``depth_mult``; ``groups`` cuts a member's depth).
+        ``moe_impl`` selects the MoE FFN of MoE members: on one device
+        "ep", "ep_serve" and "sort" all run the reference's single-device
+        sort/gather path; "gshard" is not ported.  Weights are drawn from a
+        ``torch.Generator`` seeded with ``seed`` — not the reference's
+        ``jax.random`` draws.  Reduced members draw on the CPU, so one seed
+        gives the same weights on every device; full-width members
+        (``reduced=False``) draw on the fleet's device, since a CPU
+        generator cannot make tens of billions of parameters in a smoke
+        run.
 
         Not ported yet: ``speculative``, ``model_axis > 1``,
         ``paged=False``."""
@@ -334,7 +342,7 @@ class LocalFleet:
         self._done_cap = 4096
         self._waiting: set = set()       # keys some drain is waiting on
         self._build = dict(reduced=reduced, batch=batch, max_seq=max_seq,
-                           block_tokens=block_tokens,
+                           moe_impl=moe_impl, block_tokens=block_tokens,
                            kv_blocks=kv_blocks, decode_impl=decode_impl,
                            arch_overrides=arch_overrides or {})
         self._sched_opts = dict(prefill_chunk=prefill_chunk,
@@ -355,16 +363,28 @@ class LocalFleet:
             cfg = _apply_arch_overrides(cfg, b["arch_overrides"][arch])
         if b["decode_impl"] is not None:
             cfg = cfg.replace(decode_impl=b["decode_impl"])
+        if cfg.n_experts:
+            M.check_impl(b["moe_impl"])
+            # serving is dropless: capacity >= the per-call token count, so
+            # expert keep/drop never depends on which other tokens share
+            # the dispatch (a 16-wide suffix prefill must match the same
+            # tokens inside a wider fresh prefill)
+            cfg = cfg.replace(moe_capacity_factor=max(
+                cfg.moe_capacity_factor,
+                cfg.n_experts / max(1, cfg.moe_top_k)))
         MD.check_supported(cfg)
         if not MD.paged_supported(cfg) or max_seq % block_tokens:
             raise ValueError(
                 f"{arch}: paged KV unsupported (SSM/cross-attn state or "
                 f"max_seq % block_tokens != 0)")
-        # drawn by a CPU generator: one seed gives the same weights on the
-        # card and on the CPU
-        params = MD.init_params(cfg, torch.Generator().manual_seed(self.seed),
-                                self.device)
-        pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(cfg)
+        # reduced members draw on the CPU (one seed, the same weights on the
+        # card and on the CPU); full-width ones on the fleet's device
+        gen_dev = "cpu" if b["reduced"] else self.device
+        params = MD.init_params(
+            cfg, torch.Generator(device=gen_dev).manual_seed(self.seed),
+            self.device)
+        pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(
+            cfg, moe_impl=b["moe_impl"])
         bpr = max_seq // block_tokens
         # 1 trash + a full table per slot + retained-prefix headroom
         # (~4 rows) for the cross-request hit rate

@@ -20,14 +20,16 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     def serve_step(params, tokens, cache):
-        logits, cache = MD.decode_step(cfg, params, tokens, cache)
+        logits, cache = MD.decode_step(cfg, params, tokens, cache,
+                                       moe_impl=moe_impl)
         return greedy(logits), cache
     return serve_step
 
 
-def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool):
+def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool,
+                          moe_impl: str = "ep"):
     """Paged admission prefill: writes go through the row's block table
     into the shared block pool, so there is no separate merge step.
     ``fresh=True`` is the no-cached-prefix variant (attention on local
@@ -35,9 +37,9 @@ def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool):
     offset by ``start``, attention over the gathered paged view — the
     cached prefix is READ, never recomputed."""
     def prefill_paged(params, tokens, lens, start, tbl_row, cache):
-        logits, cache = MD.prefill(cfg, params, tokens, cache, lens=lens,
-                                   start=start, tbl=tbl_row,
-                                   paged_fresh=fresh)
+        logits, cache = MD.prefill(cfg, params, tokens, cache,
+                                   moe_impl=moe_impl, lens=lens, start=start,
+                                   tbl=tbl_row, paged_fresh=fresh)
         return greedy(logits), cache
     return prefill_paged
 
@@ -59,8 +61,9 @@ def make_copy_block_fn():
     return copy_block
 
 
-def build_paged_serve_steps(cfg: ModelConfig):
-    """Paged continuous-batching serving steps.
+def build_paged_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep"):
+    """Paged continuous-batching serving steps (``moe_impl`` selects the
+    MoE FFN of MoE configs, as in the reference).
 
     Returns ``(prefill_fresh, prefill_suffix, decode, copy_block)``:
 
@@ -77,7 +80,8 @@ def build_paged_serve_steps(cfg: ModelConfig):
 
     The cache (block pool) is updated in place everywhere.
     """
-    prefill_fresh = make_prefill_paged_fn(cfg, fresh=True)
-    prefill_suffix = make_prefill_paged_fn(cfg, fresh=False)
-    decode = make_decode_fn(cfg)
+    prefill_fresh = make_prefill_paged_fn(cfg, fresh=True, moe_impl=moe_impl)
+    prefill_suffix = make_prefill_paged_fn(cfg, fresh=False,
+                                           moe_impl=moe_impl)
+    decode = make_decode_fn(cfg, moe_impl=moe_impl)
     return prefill_fresh, prefill_suffix, decode, make_copy_block_fn()

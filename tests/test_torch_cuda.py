@@ -18,8 +18,9 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
-from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
-                                                  paged_flash_decode_plain)
+from repro_torch.kernels.flash_decode.ops import (
+    paged_flash_decode, paged_flash_decode_mla, paged_flash_decode_mla_plain,
+    paged_flash_decode_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -95,6 +96,43 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, Hq, Hkv, hd):
     _close(out, ref, dtype)
 
 
+def _mla_case(cuda, dtype, *, B, H, r, rh, nb, max_blocks, seed):
+    """Random permutation of physical blocks per row; kv_len covers 0, 1,
+    a partial block and the full table."""
+    blk = 16
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(seed))
+    tbl = (perm[:B * max_blocks] + 1).reshape(B, max_blocks).to(torch.int32)
+    S = max_blocks * blk
+    lens = [0, 1, 7, S] + [random.Random(seed + b).randrange(1, S + 1)
+                           for b in range(B - 4)]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((B, H, r), generator=g, device=cuda).to(dtype),
+            torch.randn((B, H, rh), generator=g, device=cuda).to(dtype),
+            torch.randn((nb, blk, r), generator=g, device=cuda).to(dtype),
+            torch.randn((nb, blk, rh), generator=g, device=cuda).to(dtype),
+            tbl.to(cuda), torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,r,rh,nb,max_blocks", [
+    (8, 128, 512, 64, 385, 32),      # deepseek-v2 at full width, max_seq 512
+    (5, 4, 16, 8, 40, 4),            # reduced: one masked head tile
+    (6, 20, 64, 32, 60, 8)])         # a full tile plus a remainder tile
+def test_paged_mla_decode_kernel_matches_plain(cuda, dtype, B, H, r, rh, nb,
+                                               max_blocks):
+    args = _mla_case(cuda, dtype, B=B, H=H, r=r, rh=rh, nb=nb,
+                     max_blocks=max_blocks, seed=H + r)
+    scale = 1.0 / (2.0 * rh) ** 0.5
+    before = paged_flash_decode_mla.launches
+    out = paged_flash_decode_mla(*args, scale=scale)
+    ref = paged_flash_decode_mla_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_mla.launches == before + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    assert bool((out[0] == 0).all())                     # kv_len == 0
+    _close(out, ref, dtype)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn((1, 8, 4, 16), device=cuda)
     k = torch.randn((1, 8, 2, 16), device=cuda)
@@ -107,6 +145,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         paged_flash_decode(q[:, 0], pool, pool,
                            torch.zeros((1, 2), dtype=torch.int64, device=cuda),
                            torch.ones((1,), dtype=torch.int32, device=cuda))
+    ql, qr = torch.randn((2, 4, 16), device=cuda), torch.randn((2, 4, 8),
+                                                               device=cuda)
+    ckv, kr = torch.randn((5, 16, 16), device=cuda), torch.randn((5, 16, 8),
+                                                                 device=cuda)
+    tbl = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    kl = torch.ones((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        paged_flash_decode_mla(ql, qr, ckv, kr, tbl.long(), kl, scale=0.1)
+    with pytest.raises(TypeError):
+        paged_flash_decode_mla(ql.half(), qr.half(), ckv.half(), kr.half(),
+                               tbl, kl, scale=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_flash_decode_mla(ql.transpose(0, 1).contiguous().transpose(0, 1),
+                               qr, ckv, kr, tbl, kl, scale=0.1)
+    with pytest.raises(ValueError, match="shared memory"):
+        paged_flash_decode_mla(ql, qr, ckv, kr,
+                               torch.zeros((2, 1024), dtype=torch.int32,
+                                           device=cuda), kl, scale=0.1)
+    with pytest.raises(ValueError, match="disagree"):
+        paged_flash_decode_mla(ql, qr, ckv[..., :8].contiguous(), kr, tbl, kl,
+                               scale=0.1)
 
 
 def test_reduced_fleet_on_card_equals_cpu(cuda):
@@ -128,5 +187,28 @@ def test_reduced_fleet_on_card_equals_cpu(cuda):
         if dev == "cuda":
             assert flash_attention.launches > fa
             assert paged_flash_decode.launches > pd
+        assert f.schedulers[arch].pool.live_refs() == 0
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_reduced_mla_fleet_on_card_equals_cpu(cuda):
+    """Reduced float32 deepseek-v2 fleet (MLA + MoE) with the MLA decode
+    kernel on the card vs the same fleet on the CPU: identical tokens, and
+    the kernel ran once per MLA layer and decode step."""
+    from repro_torch.serving.fleet import LocalFleet
+    arch = "deepseek-v2-236b"
+    prompts = ["a b c d e f g h i j k l m n o p q r s t", "short one",
+               "a b c d e f g h i j k l m n o p different tail here"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        f = LocalFleet([arch], batch=2, gen_tokens=8, warmup=False,
+                       decode_impl="flash_paged",
+                       arch_overrides={arch: {"dtype": "float32"}},
+                       device=dev)
+        before = paged_flash_decode_mla.launches
+        outs[dev] = [o["tokens"] for o in f.generate(arch, prompts)]
+        if dev == "cuda":
+            steps = f.schedulers[arch].decode_steps
+            assert paged_flash_decode_mla.launches - before == 3 * steps > 0
         assert f.schedulers[arch].pool.live_refs() == 0
     assert outs["cuda"] == outs["cpu"]

@@ -1,7 +1,8 @@
 """The port's LocalFleet against the JAX LocalFleet on the CPU.
 
-Reduced smollm-360m at float32, the reference's weights bridged into the
-port, the JAX side on its XLA decode path.  Both fleets schedule the same
+Reduced smollm-360m (GQA) and reduced deepseek-v2 (MLA + MoE, the fleets'
+default ``moe_impl``) at float32, the reference's weights bridged into
+the port, the JAX side on its XLA decode path.  Both fleets schedule the same
 requests the same way (same buckets, chunks, prefix matches, COW copies,
 preemptions), so the tokens must be identical — float32 on both sides
 differs only in summation order, far below the logit gaps of these
@@ -17,6 +18,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.serving.fleet import LocalFleet
 
 ARCH = "smollm-360m"
+MLA_ARCH = "deepseek-v2-236b"
 F32 = {ARCH: {"dtype": "float32"}}
 KERNELS = {ARCH: {"dtype": "float32", "attn_impl": "pallas"}}
 SHARED = " ".join(f"sys{i}" for i in range(20))
@@ -27,13 +29,14 @@ PROMPTS = [SHARED + " question one", "a lone unshared prompt",
            " ".join(f"w{i}" for i in range(56))]
 
 
-def _pair(**kw):
-    jf = JaxFleet([ARCH], batch=2, gen_tokens=6, paged=True, warmup=False,
-                  decode_impl="xla", arch_overrides=F32, **kw)
-    tf = LocalFleet([ARCH], batch=2, gen_tokens=6, warmup=False,
-                    arch_overrides=F32, device="cpu", **kw)
-    tf.members[ARCH].params.load_state_dict(
-        params_from_jax(jf.members[ARCH].params))
+def _pair(arch=ARCH, **kw):
+    f32 = {arch: {"dtype": "float32"}}
+    jf = JaxFleet([arch], batch=2, gen_tokens=6, paged=True, warmup=False,
+                  decode_impl="xla", arch_overrides=f32, **kw)
+    tf = LocalFleet([arch], batch=2, gen_tokens=6, warmup=False,
+                    arch_overrides=f32, device="cpu", **kw)
+    tf.members[arch].params.load_state_dict(
+        params_from_jax(jf.members[arch].params))
     return jf, tf
 
 
@@ -145,7 +148,63 @@ def test_unported_keywords_and_device_rule(monkeypatch):
     with pytest.raises(ValueError, match="unknown ModelConfig field"):
         LocalFleet([ARCH], arch_overrides={ARCH: {"d_modle": 8}}, **kw)
     with pytest.raises(KeyError):
-        LocalFleet(["deepseek-v2-236b"], **kw)
+        LocalFleet(["jamba-v0.1-52b"], **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LocalFleet([ARCH], batch=2, warmup=False)
+
+
+# ---------------------------------------------------------------------------
+# reduced deepseek-v2: MLA + MoE (dropless: capacity factor E/k)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_mla_fleet_tokens_match_jax(chunk):
+    """Shared-prefix prompts (suffix prefill over the gathered view, in the
+    expanded form), more prompts than slots, and a 16-token chunked
+    variant: identical tokens, the same cache hits and prefill calls."""
+    jf, tf = _pair(MLA_ARCH, prefill_chunk=chunk)
+    a = jf.generate(MLA_ARCH, PROMPTS)
+    b = tf.generate(MLA_ARCH, PROMPTS)
+    assert [x["tokens"] for x in b] == [x["tokens"] for x in a]
+    sched = tf.schedulers[MLA_ARCH]
+    assert sched.pool.live_refs() == 0
+    assert sched.cached_tokens == jf.schedulers[MLA_ARCH].cached_tokens > 0
+    assert sched.prefill.prefills == jf.schedulers[MLA_ARCH].prefill.prefills
+    cfg = tf.members[MLA_ARCH].cfg
+    assert cfg.moe_capacity_factor == cfg.n_experts / cfg.moe_top_k
+
+
+def test_mla_preemption_park_resume_matches_jax():
+    outs = []
+    for fleet in _pair(MLA_ARCH, max_seq=64, kv_blocks=8):
+        sched = fleet.schedulers[MLA_ARCH]
+        sched.submit(np.arange(4, 44, dtype=np.int32), max_new=6)
+        sched.submit(np.arange(50, 90, dtype=np.int32), max_new=6)
+        sched.step()
+        sched.submit(np.arange(100, 157, dtype=np.int32), max_new=6,
+                     priority=10)
+        done = {s.rid: list(s.out) for s in sched.drain()}
+        assert sched.preempted == 1 and sched.pool.live_refs() == 0
+        outs.append(done)
+    assert outs[0] == outs[1]
+
+
+def test_mla_kernel_option_equals_plain_tokens_on_cpu():
+    kw = dict(batch=2, gen_tokens=6, warmup=False, device="cpu",
+              arch_overrides={MLA_ARCH: {"dtype": "float32"}})
+    plain = LocalFleet([MLA_ARCH], **kw)
+    kern = LocalFleet([MLA_ARCH], decode_impl="flash_paged", **kw)
+    a = [x["tokens"] for x in plain.generate(MLA_ARCH, PROMPTS)]
+    b = [x["tokens"] for x in kern.generate(MLA_ARCH, PROMPTS)]
+    assert a == b
+
+
+def test_mla_fleet_moe_impl_rule():
+    kw = dict(batch=2, warmup=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="gshard"):
+        LocalFleet([MLA_ARCH], moe_impl="gshard", **kw)
+    with pytest.raises(ValueError, match="unknown moe impl"):
+        LocalFleet([MLA_ARCH], moe_impl="bogus", **kw)
+    f = LocalFleet([MLA_ARCH], moe_impl="ep_serve", gen_tokens=3, **kw)
+    assert len(f.generate(MLA_ARCH, ["hello there"])[0]["tokens"]) == 3

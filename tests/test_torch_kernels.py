@@ -19,6 +19,7 @@ import torch
 from repro.kernels.flash_attention import (attention_reference as j_attn_ref,
                                            flash_attention as j_flash)
 from repro.kernels.flash_decode import paged_decode_reference as j_paged_ref
+from repro.kernels.flash_decode import paged_mla_decode_reference as j_mla_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention,
@@ -26,7 +27,10 @@ from repro_torch.kernels.flash_attention import (attention_reference,
 from repro_torch.kernels.flash_decode import (gather_kv,
                                               paged_decode_reference,
                                               paged_flash_decode,
-                                              paged_flash_decode_plain)
+                                              paged_flash_decode_mla,
+                                              paged_flash_decode_mla_plain,
+                                              paged_flash_decode_plain,
+                                              paged_mla_decode_reference)
 from test_kernels import FLASH_CASES, _tol
 
 
@@ -120,6 +124,37 @@ def test_paged_decode_plain_vs_jax_oracle(dt, seed):
     np.testing.assert_allclose(mine, ref, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", range(3))
+def test_paged_mla_decode_plain_vs_jax_oracle(dt, seed):
+    """``test_disagg.py``'s MLA sweep shapes (B 4, nb 10, 4 blocks of 16,
+    H 8, r 64, rh 32) over random tables vs the JAX gather oracle;
+    kv_len == 0 rows are exact zeros."""
+    jd = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    td = _tdtype(jd)
+    B, nb, max_blocks, blk, H, r, rh = 4, 10, 4, 16, 8, 64, 32
+    scale = 1.0 / np.sqrt(96.0)
+    g = np.random.default_rng(100 + seed)
+    ckv = g.standard_normal((nb, blk, r))
+    kr = g.standard_normal((nb, blk, rh))
+    ql = g.standard_normal((B, H, r))
+    qr = g.standard_normal((B, H, rh))
+    tbl, kv_len = _rand_case(random.Random(100 + seed), B=B, nb=nb,
+                             max_blocks=max_blocks, blk=blk)
+    targs = (_t(ql, td), _t(qr, td), _t(ckv, td), _t(kr, td),
+             torch.from_numpy(tbl), torch.from_numpy(kv_len))
+    out = paged_flash_decode_mla_plain(*targs, scale=scale).float().numpy()
+    ref = np.asarray(j_mla_ref(_j(ql, jd), _j(qr, jd), _j(ckv, jd), _j(kr, jd),
+                               jnp.asarray(tbl), jnp.asarray(kv_len),
+                               scale=scale), np.float32)
+    live = kv_len > 0
+    tol = _tol(jd)
+    np.testing.assert_allclose(out[live], ref[live], atol=tol, rtol=tol)
+    assert (out[~live] == 0.0).all()
+    mine = paged_mla_decode_reference(*targs, scale=scale).float().numpy()
+    np.testing.assert_allclose(mine, ref, atol=tol, rtol=tol)
+
+
 def test_gather_kv_layout():
     pool = torch.arange(5 * 4 * 2 * 3, dtype=torch.float32).reshape(5, 4, 2, 3)
     tbl = torch.tensor([[3, 0], [1, 4]], dtype=torch.int32)
@@ -154,6 +189,24 @@ def test_wrappers_take_plain_version_on_cpu():
         paged_flash_decode(qd.to("meta"), pool, pool, tbl, kl)
 
 
+def test_mla_wrapper_takes_plain_version_on_cpu():
+    r = np.random.default_rng(1)
+    ql = _t(r.standard_normal((2, 4, 16)), torch.float32)
+    qr = _t(r.standard_normal((2, 4, 8)), torch.float32)
+    ckv = _t(r.standard_normal((3, 4, 16)), torch.float32)
+    kr = _t(r.standard_normal((3, 4, 8)), torch.float32)
+    tbl = torch.tensor([[1, 2], [2, 0]], dtype=torch.int32)
+    kl = torch.tensor([6, 0], dtype=torch.int32)
+    before = paged_flash_decode_mla.launches
+    out = paged_flash_decode_mla(ql, qr, ckv, kr, tbl, kl, scale=0.2)
+    assert torch.equal(out, paged_flash_decode_mla_plain(ql, qr, ckv, kr, tbl,
+                                                         kl, scale=0.2))
+    assert bool((out[1] == 0).all())
+    assert paged_flash_decode_mla.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_flash_decode_mla(ql.to("meta"), qr, ckv, kr, tbl, kl, scale=0.2)
+
+
 def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
     """Importing the kernel modules builds nothing; the library name
     carries the source hash; a missing nvcc is a clear error."""
@@ -161,6 +214,8 @@ def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
     assert _build._lib_path("paged_decode") == _build._lib_path("paged_decode")
     assert _build._lib_path("paged_decode") != \
         _build._lib_path("flash_attention")
+    assert len({_build._lib_path(n) for n in _build.SOURCES}) == \
+        len(_build.SOURCES) == 3
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

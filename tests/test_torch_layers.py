@@ -162,3 +162,85 @@ def test_ffn_apply(dt):
 
 def test_neg_inf_matches_reference():
     assert TL.NEG_INF == JL.NEG_INF
+
+
+# ---------------------------------------------------------------------------
+# MLA (reduced deepseek-v2: d 64, 4 heads, q_lora 32, r 16, nope 16, rope 8)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-236b"
+
+
+def _mla_params(r, dt, cfg):
+    d, H = cfg.d_model, cfg.n_heads
+    nh, rh, vh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    rk = cfg.kv_lora_rank
+    p = {"wq_a": r.standard_normal((d, cfg.q_lora_rank)) / 8,
+         "q_norm": 1 + 0.1 * r.standard_normal(cfg.q_lora_rank),
+         "wq_b": r.standard_normal((cfg.q_lora_rank, H * (nh + rh))) / 6,
+         "wkv_a": r.standard_normal((d, rk + rh)) / 8,
+         "kv_norm": 1 + 0.1 * r.standard_normal(rk),
+         "wk_b": r.standard_normal((H, rk, nh)) / 4,
+         "wv_b": r.standard_normal((H, rk, vh)) / 4,
+         "wo": r.standard_normal((H * vh, d)) / 8}
+    pairs = {k: _pair(v, dt) for k, v in p.items()}
+    return ({k: a for k, (a, _) in pairs.items()},
+            {k: b for k, (_, b) in pairs.items()})
+
+
+def _mla_setup(dt, seed, S=6, per_row=False):
+    from repro.configs import get_reduced as j_get_reduced
+    from repro_torch.configs import get_reduced
+    cfg_j, cfg_t = j_get_reduced(MLA_ARCH), get_reduced(MLA_ARCH)
+    r = np.random.default_rng(seed)
+    jp, tp = _mla_params(r, dt, cfg_t)
+    jx, tx = _pair(r.standard_normal((2, S, cfg_t.d_model)), dt)
+    pos = r.integers(0, 40, (2, S)) if per_row else np.arange(S)
+    jrope = JL.rope_tables(jnp.asarray(pos, jnp.int32), cfg_t.rope_head_dim,
+                           cfg_t.rope_theta)
+    trope = TL.rope_tables(torch.from_numpy(pos), cfg_t.rope_head_dim,
+                           cfg_t.rope_theta)
+    return cfg_j, cfg_t, jp, tp, jx, tx, jrope, trope
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("per_row", [False, True])
+def test_mla_q_and_kv_latent(dt, per_row):
+    cfg_j, cfg_t, jp, tp, jx, tx, jrope, trope = _mla_setup(dt, 9,
+                                                            per_row=per_row)
+    for a, b in zip(JL.mla_q(jp, cfg_j, jx, jrope),
+                    TL.mla_q(tp, cfg_t, tx, trope)):
+        _close(a, b, dt)
+    for a, b in zip(JL.mla_kv_latent(jp, cfg_j, jx, jrope),
+                    TL.mla_kv_latent(tp, cfg_t, tx, trope)):
+        _close(a, b, dt)
+
+
+MLA_CASES = [
+    dict(causal=True),                                   # prefill
+    dict(causal=False, q_offset="vec", kv_len="vec"),    # per-row decode
+    dict(causal=True, q_offset="vec"),                   # suffix prefill
+]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("ci", range(len(MLA_CASES)))
+def test_mla_attention(dt, ci):
+    """Absorbed attention from the same latents: q from ``mla_q``, the
+    cache from ``mla_kv_latent`` over 9 positions."""
+    cfg_j, cfg_t, jp, tp, jx, tx, jrope, trope = _mla_setup(dt, 10 + ci, S=9)
+    jc, jk = JL.mla_kv_latent(jp, cfg_j, jx, jrope)
+    tc, tk = TL.mla_kv_latent(tp, cfg_t, tx, trope)
+    Sq = 9 if MLA_CASES[ci] == dict(causal=True) else 3
+    jq = [a[:, -Sq:] for a in JL.mla_q(jp, cfg_j, jx, jrope)]
+    tq = [a[:, -Sq:] for a in TL.mla_q(tp, cfg_t, tx, trope)]
+    vec = np.asarray([2, 6 - Sq + 3])
+    jkw, tkw = {}, {}
+    for key, val in MLA_CASES[ci].items():
+        if val == "vec":
+            v = vec + (Sq if key == "kv_len" else 0)
+            jkw[key], tkw[key] = jnp.asarray(v, jnp.int32), torch.from_numpy(v)
+        else:
+            jkw[key] = tkw[key] = val
+    _close(JL.mla_attention(jp, cfg_j, *jq, jc, jk, **jkw),
+           TL.mla_attention(tp, cfg_t, *tq, tc, tk, **tkw), dt)

@@ -1,4 +1,5 @@
-"""The port's model against the JAX model: reduced smollm-360m with the
+"""The port's model against the JAX model: reduced smollm-360m (GQA) and
+reduced deepseek-v2 (MLA + MoE, dropless, ``moe_impl="sort"``) with the
 reference's ``init_params`` weights bridged over, through paged fresh
 prefill, a prefix-hit suffix prefill and 8 decode steps.
 
@@ -25,6 +26,7 @@ from repro_torch.models import model as MD
 from repro_torch.serving.serve_lib import greedy
 
 ARCH = "smollm-360m"
+MLA_ARCH = "deepseek-v2-236b"
 MAX_SEQ, BLK, NB, STEPS = 64, 16, 9, 8
 ROWS = np.asarray([[1, 2, 3, 4], [1, 2, 5, 6]], np.int32)
 
@@ -44,15 +46,23 @@ def _inputs():
     return [(ta, [40], [0], ROWS[:1], True), (tb, [13], [32], ROWS[1:], False)]
 
 
-def _jax_run(dtype):
+def _dropless(cfg):
+    """The fleet's MoE capacity rule (no-op without experts)."""
+    if not cfg.n_experts:
+        return cfg
+    return cfg.replace(moe_capacity_factor=max(
+        cfg.moe_capacity_factor, cfg.n_experts / cfg.moe_top_k))
+
+
+def _jax_run(dtype, arch=ARCH):
     """The reference: both prefills, then STEPS greedy decode steps.
     Returns (params, logits per call, tokens fed at each decode step)."""
-    cfg = j_get_reduced(ARCH).replace(dtype=dtype)
+    cfg = _dropless(j_get_reduced(arch).replace(dtype=dtype))
     params = JMD.init_params(cfg, jax.random.PRNGKey(0))
     cache = JMD.init_paged_cache(cfg, 2, MAX_SEQ, NB, BLK)
-    pre = jax.jit(functools.partial(JMD.prefill, cfg),
+    pre = jax.jit(functools.partial(JMD.prefill, cfg, moe_impl="sort"),
                   static_argnames=("paged_fresh",))
-    dec = jax.jit(functools.partial(JMD.decode_step, cfg))
+    dec = jax.jit(functools.partial(JMD.decode_step, cfg, moe_impl="sort"))
     logits, feeds = [], []
     for toks, lens, start, trow, fresh in _inputs():
         lg, cache = pre(params, jnp.asarray(toks), cache,
@@ -71,18 +81,20 @@ def _jax_run(dtype):
     return params, logits, feeds
 
 
-def _port_run(dtype, jparams, attn_impl, decode_impl, feeds=None):
+def _port_run(dtype, jparams, attn_impl, decode_impl, feeds=None,
+              arch=ARCH):
     """The port on the same inputs; greedy on its own tokens unless
     ``feeds`` (teacher forcing) is given.  Returns (logits per call,
     tokens fed at each decode step, cache)."""
-    cfg = get_reduced(ARCH).replace(dtype=dtype, attn_impl=attn_impl,
-                                    decode_impl=decode_impl)
+    cfg = _dropless(get_reduced(arch).replace(
+        dtype=dtype, attn_impl=attn_impl, decode_impl=decode_impl))
     model = model_from_jax(jparams, cfg, device="cpu")
     cache = MD.init_paged_cache(cfg, 2, MAX_SEQ, NB, BLK, device="cpu")
     logits, fed = [], []
     for toks, lens, start, trow, fresh in _inputs():
         lg, cache = MD.prefill(cfg, model, torch.from_numpy(toks), cache,
-                               lens=torch.tensor(lens), start=torch.tensor(start),
+                               moe_impl="sort", lens=torch.tensor(lens),
+                               start=torch.tensor(start),
                                tbl=torch.from_numpy(trow), paged_fresh=fresh)
         logits.append(lg.float().numpy())
     cache["pos"] = torch.tensor([40, 45], dtype=torch.int32)
@@ -93,7 +105,7 @@ def _port_run(dtype, jparams, attn_impl, decode_impl, feeds=None):
             tok = feeds[i]
         fed.append(tok)
         lg, cache = MD.decode_step(cfg, model, torch.tensor(tok[:, None]),
-                                   cache)
+                                   cache, moe_impl="sort")
         logits.append(lg.float().numpy())
         tok = greedy(lg).numpy()
     return logits, fed, cache
@@ -168,3 +180,86 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="contiguous"):
         MD.prefill(get_reduced(ARCH), None,
                    torch.zeros((1, 4), dtype=torch.int32), {})
+
+
+# ---------------------------------------------------------------------------
+# reduced deepseek-v2: MLA + MoE (1 dense + 2 MoE layers, 8 experts top-2)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mla32():
+    return _jax_run("float32", MLA_ARCH)
+
+
+@pytest.mark.parametrize("decode_impl", ["xla", "flash_paged"])
+def test_mla_float32_logits_and_tokens_match_jax(mla32, decode_impl):
+    """Fresh prefill, a suffix prefill over the gathered view (expanded
+    form) and 8 absorbed decode steps: logits within 1e-4, greedy tokens
+    identical."""
+    jparams, jlogits, jfeeds = mla32
+    logits, fed, cache = _port_run("float32", jparams, "einsum", decode_impl,
+                                   arch=MLA_ARCH)
+    for i, (a, b) in enumerate(zip(logits, jlogits)):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0,
+                                   err_msg=f"call {i}")
+    assert [t.tolist() for t in fed] == [t.tolist() for t in jfeeds]
+    assert cache["pos"].tolist() == [40 + STEPS, 45 + STEPS]
+
+
+def test_mla_kernel_option_equals_plain_path_bitwise_on_cpu(mla32):
+    plain, _, _ = _port_run("float32", mla32[0], "einsum", "xla",
+                            arch=MLA_ARCH)
+    kern, _, _ = _port_run("float32", mla32[0], "einsum", "flash_paged",
+                           arch=MLA_ARCH)
+    for a, b in zip(plain, kern):
+        assert np.array_equal(a, b)
+
+
+def test_mla_bridge_maps_every_leaf(mla32):
+    """Layer 0 (MLA + dense FFN) and the MoE layers map leaf for leaf; the
+    router stays float32 in a bf16 model."""
+    jparams = mla32[0]
+    state = params_from_jax(jparams)
+    model = MD.Model(get_reduced(MLA_ARCH), "cpu")
+    assert set(state) == set(model.state_dict())
+    assert "blocks.0.ffn.w_gate" in state and "blocks.0.moe.router" not in state
+    np.testing.assert_array_equal(
+        state["blocks.2.moe.shared.w_up"].numpy(),
+        np.asarray(jparams["g1"]["b0"]["moe"]["shared"]["w_up"][1]))
+    np.testing.assert_array_equal(
+        state["blocks.1.mla.wk_b"].numpy(),
+        np.asarray(jparams["g1"]["b0"]["mla"]["wk_b"][0]))
+    assert model.blocks[1].moe["router"].dtype == torch.float32
+    assert model.blocks[1].moe["w_gate"].dtype == torch.bfloat16
+    model.load_state_dict(state)
+    assert model.blocks[2].moe["router"].dtype == torch.float32
+
+
+def test_mla_init_params_scheme_and_cache_leaves():
+    cfg = get_reduced(MLA_ARCH)
+    m = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert len(m.blocks) == 3 and m.blocks[0].spec.ffn == "dense"
+    assert m.blocks[1].moe["router"].dtype == torch.float32
+    assert abs(m.blocks[1].moe["router"].std().item() - 0.02) < 0.005
+    assert torch.all(m.blocks[0].mla["kv_norm"] == 1)
+    wk_b = m.blocks[0].mla["wk_b"].float()            # fan_in = kv_lora_rank
+    assert abs(wk_b.std().item() * np.sqrt(cfg.kv_lora_rank) - 1) < 0.1
+    wg = m.blocks[1].moe["w_gate"].float()             # fan_in = d_model
+    assert abs(wg.std().item() * np.sqrt(cfg.d_model) - 1) < 0.1
+    cache = MD.init_paged_cache(cfg, 2, MAX_SEQ, NB, BLK, device="cpu")
+    assert cache["g0"]["b0"]["ckv"].shape == (1, NB, BLK, cfg.kv_lora_rank)
+    assert cache["g1"]["b0"]["krope"].shape == (2, NB, BLK, cfg.rope_head_dim)
+
+
+def test_mla_unported_options_raise():
+    cfg = get_reduced(MLA_ARCH).replace(dtype="float32")
+    model = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cache = MD.init_paged_cache(cfg, 1, MAX_SEQ, NB, BLK, device="cpu")
+    toks = torch.full((1, 4), 5, dtype=torch.int32)
+    tbl = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="gshard"):
+        MD.prefill(cfg, model, toks, cache, tbl=tbl, paged_fresh=True)
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    mamba = cfg.replace(groups=(LayerGroup((BlockSpec("mamba", "moe"),), 1),))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        MD.check_supported(mamba)
