@@ -11,26 +11,41 @@ Phases, in order; any failure exits non-zero before the result line:
    ``nvcc`` per source, in parallel) with their build seconds.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the fleets' shapes, float32 (TF32 off) and bfloat16; the MLA
-   decode kernel also at a reduced shape with a masked head tile.
+   kernels also at a reduced shape with a masked head tile.
+   The verify kernels are also held to the decode kernels bitwise
+   (position t of a W = 5 verify == a decode launch at its frontier;
+   W = 1 == decode) with dead positions (frontier <= 0) exact zeros.
 3. model: full-width smollm-360m (random weights from a seeded
    ``torch.Generator``) through ``prefill`` + 16 ``decode_step``s on the
    kernel path and on the plain path, teacher-forced with the kernel
-   path's greedy tokens; logits and tokens compared.
+   path's greedy tokens; logits and tokens compared.  Then 5 random
+   tokens per row through ``verify`` (W = 5) and through 5 successive
+   ``decode_step``s on the same cache, on both paths.
 4. fleet: the served path — ``LocalFleet(...).call_fn(...).batch_call``
    answering 12 OpenAI-style requests at full width with both kernels on;
    launch counts are zeroed just before and read just after.  Then one
    batch under ``torch.profiler`` (the card's busy share, top kernels),
    and a reduced float32 fleet on the card held token-for-token against
-   the same fleet on the CPU (the plain path).  The smollm fleet and
-   model are freed before the deepseek phases.
-5. mla_model: deepseek-v2-236b at its published widths (160 experts, top-6,
+   the same fleet on the CPU (the plain path).
+5. spec_fleet: the same 12 requests through the full-width smollm fleet
+   with ``speculative=SpecConfig("smollm-360m", k=4)`` (an aligned draft:
+   the registry config, the same seeded weights): verify kernel launches
+   == 32 layers x speculative rounds; tokens against the fleet phase's,
+   any divergence shown to be a near-tie; the profiler batch; then
+   reduced float32 speculative fleets (smollm and deepseek, aligned
+   drafts) on the card against the CPU plain fleets, token for token.
+   The smollm fleets and model are freed before the deepseek phases.
+6. mla_model: deepseek-v2-236b at its published widths (160 experts, top-6,
    2 shared; MLA r 512, rope 64) with its depth cut to 1 dense + 7 MoE
    layers of 60, bf16, through prefill + 16 teacher-forced decode steps on
-   ``decode_impl="flash_paged"`` (the MLA kernel) and ``"xla"``.
-6. mla_fleet: the same cut model served through ``batch_call`` (the same
+   ``decode_impl="flash_paged"`` (the MLA kernels) and ``"xla"``, then the
+   W = 5 verify against 5 decode steps.  (A full-width deepseek
+   speculative fleet cannot run: its draft takes the registry depth, 60
+   layers, ~471 GB.)
+7. mla_fleet: the same cut model served through ``batch_call`` (the same
    12 requests, MLA kernel on, launches counted), the profiler batch, and
    a reduced float32 deepseek fleet on the card against the CPU.
-7. times: kernel, plain version and one PyTorch library call at the
+8. times: kernel, plain version and one PyTorch library call at the
    fleets' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound.
 
@@ -69,7 +84,9 @@ NUM_BLOCKS = 1 + (BATCH + 4) * (MAX_SEQ // BLOCK)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
-PHASES = ("kernels", "model", "fleet", "mla_model", "mla_fleet", "times")
+W_SPEC = 5                                # verify width: pending token + k = 4
+PHASES = ("kernels", "model", "fleet", "spec_fleet", "mla_model",
+          "mla_fleet", "times")
 
 
 def log(msg: str) -> None:
@@ -175,6 +192,59 @@ def mla_decode_case(dtype, gen, full=True):
             1.0 / math.sqrt(nope + rh))
 
 
+def verify_case(dtype, gen, full=True, mla=False):
+    """decode_case's / mla_decode_case's table and pools with W = 5 query
+    positions per row.  kv_len (the TOTAL length, the 5 new entries
+    included) covers dead positions (kv_len 1 and 3: the first positions'
+    frontiers kv_len - 5 + t + 1 are <= 0; row 0's table is all trash),
+    5 (first frontier 1), partial blocks and the full 512-token table.
+    Returns (query tensors, rest of the arguments, kv_len, kwargs)."""
+    import torch
+    kv_len = torch.tensor([1, 3, W_SPEC, 16, 100, 257, 511, 512],
+                          dtype=torch.int32, device="cuda")
+    if mla:
+        H, r, rh, _ = mla_shapes(full)
+        _, _, ckv, krope, tbl, _, scale = mla_decode_case(dtype, gen, full)
+        tbl[0] = 0
+        return ((_rand((BATCH, W_SPEC, H, r), dtype, gen),
+                 _rand((BATCH, W_SPEC, H, rh), dtype, gen)),
+                (ckv, krope, tbl), kv_len, {"scale": scale})
+    _, kpool, vpool, tbl, _ = decode_case(dtype, gen)
+    tbl[0] = 0
+    return ((_rand((BATCH, W_SPEC, 15, 64), dtype, gen),), (kpool, vpool, tbl),
+            kv_len, {})
+
+
+def hold_verify(label, verify, plain, decode, qs, rest, kv_len, kw, dname):
+    """The verify kernel against its plain version within the tolerance;
+    position t against the decode kernel at its frontier kv_len - W + t + 1
+    bitwise; a W = 1 verify against decode bitwise; positions whose
+    frontier is <= 0 exact zeros.  Returns the max abs error."""
+    import torch
+    out = verify(*qs, *rest, kv_len, **kw)
+    ref = plain(*qs, *rest, kv_len, **kw)
+    W = qs[0].shape[1]
+    steps = [decode(*(q[:, t].contiguous() for q in qs), *rest,
+                    kv_len - (W - 1 - t), **kw) for t in range(W)]
+    one = verify(*(q[:, :1].contiguous() for q in qs), *rest, kv_len, **kw)
+    dec = decode(*(q[:, 0].contiguous() for q in qs), *rest, kv_len, **kw)
+    torch.cuda.synchronize()
+    err, ok = _compare(out, ref, TOL[dname])
+    frontier = kv_len[:, None] - W + 1 + \
+        torch.arange(W, device=kv_len.device)[None]
+    zeros = bool((out[frontier <= 0] == 0).all().item())
+    bitwise = all(torch.equal(out[:, t], steps[t]) for t in range(W))
+    w1 = torch.equal(one[:, 0], dec)
+    ok = ok and zeros and bitwise and w1
+    log(f"  {label} {dname} q {tuple(qs[0].shape)} kv_len "
+        f"{kv_len.tolist()}: max_abs_err {err:.3e}, each position == decode "
+        f"kernel at its frontier bitwise: {bitwise}, W=1 == decode: {w1}, "
+        f"dead positions exact zeros: {zeros} {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label} {dname}: err {err} bitwise={bitwise} w1={w1} "
+          f"zeros={zeros}")
+    return err
+
+
 def _compare(out, ref, tol):
     """(max abs error, within |a - b| <= tol + tol * |b| everywhere)."""
     diff = (out.float() - ref.float()).abs()
@@ -190,7 +260,9 @@ def phase_kernels(errs):
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
         paged_flash_decode, paged_flash_decode_mla,
-        paged_flash_decode_mla_plain, paged_flash_decode_plain)
+        paged_flash_decode_mla_plain, paged_flash_decode_plain,
+        paged_flash_verify, paged_flash_verify_mla,
+        paged_flash_verify_mla_plain, paged_flash_verify_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("kernels: float32 references with TF32 off "
@@ -243,6 +315,21 @@ def phase_kernels(errs):
                   f"zeros={zeros}")
             errs["paged_flash_decode_mla"] = max(
                 errs.get("paged_flash_decode_mla", 0.0), err)
+        qs, rest, kv_len, kw = verify_case(dtype, gen)
+        err = hold_verify("paged_flash_verify", paged_flash_verify,
+                          paged_flash_verify_plain, paged_flash_decode, qs,
+                          rest, kv_len, kw, dname)
+        errs["paged_flash_verify"] = max(errs.get("paged_flash_verify", 0.0),
+                                         err)
+        for full in (True, False):
+            qs, rest, kv_len, kw = verify_case(dtype, gen, full, mla=True)
+            err = hold_verify("paged_flash_verify_mla",
+                              paged_flash_verify_mla,
+                              paged_flash_verify_mla_plain,
+                              paged_flash_decode_mla, qs, rest, kv_len, kw,
+                              dname)
+            errs["paged_flash_verify_mla"] = max(
+                errs.get("paged_flash_verify_mla", 0.0), err)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +414,63 @@ def kernel_vs_plain(label, paths, params, toks, lens_l, tol, *,
     return caches
 
 
-def phase_model():
+def verify_vs_decode(label, paths, params, caches, tol, *, moe_impl="ep"):
+    """The speculative verify at full width: 5 random tokens per row
+    through ``model.verify`` (W = 5) on each path's cache, then the same
+    tokens through 5 successive ``decode_step``s on that cache.  Compares
+    verify vs decode on each path and kernel vs plain verify: max |logit
+    difference| against ``tol``, greedy agreement, any greedy divergence
+    a near-tie (top-2 gap of the second logits below the pair's logit
+    difference at that position).  Returns the largest difference."""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.serving.serve_lib import greedy
+    B = caches["kernel"]["pos"].shape[0]
+    vocab = paths["kernel"].vocab_size
+    toks = torch.randint(4, vocab, (B, W_SPEC), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+    logits = {}
+    for name, c in paths.items():
+        cache = caches[name]
+        pos0 = cache["pos"].clone()
+        logits[f"{name} verify"], _ = MD.verify(c, params, toks, cache,
+                                                moe_impl=moe_impl)
+        check(torch.equal(cache["pos"], pos0), f"{label}: verify moved pos")
+        steps = []
+        for t in range(W_SPEC):
+            lg, _ = MD.decode_step(c, params, toks[:, t:t + 1], cache,
+                                   moe_impl=moe_impl)
+            steps.append(lg)
+        logits[f"{name} decode"] = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, b in (("kernel verify", "kernel decode"),
+                 ("plain verify", "plain decode"),
+                 ("kernel verify", "plain verify")):
+        la, lb = logits[a].float(), logits[b].float()
+        check(bool(torch.isfinite(la).all()) and
+              bool(torch.isfinite(lb).all()), f"{label}: non-finite logits")
+        diff = (la - lb).abs()
+        d = diff.max().item()
+        worst = max(worst, d)
+        same = greedy(la) == greedy(lb)
+        log(f"{label}: W={W_SPEC} {a} vs {b}: max |logit diff| {d:.4e} "
+            f"(limit {tol}), greedy agree {int(same.sum())}/{same.numel()}")
+        check(d <= tol, f"{label}: {a} vs {b} logit diff {d}")
+        for r, t in (~same).nonzero().tolist():
+            top2 = torch.topk(lb[r, t], 2).values
+            gap = (top2[0] - top2[1]).item()
+            dt = diff[r, t].max().item()
+            log(f"  divergence row {r} position {t}: top-2 gap {gap:.4e} vs "
+                f"max logit diff {d:.4e} (there {dt:.4e})")
+            check(gap < d, f"{label}: {a} vs {b} divergence is not a "
+                  f"near-tie")
+    return worst
+
+
+def phase_model(ctx):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as MD
@@ -347,6 +490,8 @@ def phase_model():
                  "plain": cfg.replace(attn_impl="einsum", decode_impl="xla")}
         caches = kernel_vs_plain(f"model {ARCH} {dname} ({n_par} params)",
                                  paths, params, toks, lens_l, MODEL_TOL[dname])
+        ctx[f"{ARCH} {dname} verify err"] = verify_vs_decode(
+            f"model {ARCH} {dname}", paths, params, caches, MODEL_TOL[dname])
         log(f"  {time.perf_counter() - t0:.1f} s")
         del params, caches
         gc.collect()
@@ -409,6 +554,8 @@ def phase_mla_model():
                                  params, toks, [PROMPT_CAP, 300, 37, 128],
                                  MLA_MODEL_TOL[dname], per_row=True,
                                  moe_impl="ep")
+        verify_vs_decode(f"mla_model {MLA_ARCH} {dname}", paths, params,
+                         caches, MLA_MODEL_TOL[dname])
         log(f"  {time.perf_counter() - t0:.1f} s, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params, caches
@@ -477,26 +624,16 @@ def profile_fleet(fleet, prompts, arch=ARCH, max_new=8):
             f"{e.key[:90]}")
 
 
-def serve_fleet(label, arch, overrides, small_overrides, kernels, launches,
-                card, per_step=None):
-    """The served path for ``arch`` at full width: 12 requests through
-    ``batch_call`` with ``kernels`` (name -> wrapper) counted from zero
-    just before and read into ``launches`` just after; then the profiler
-    batch, and a reduced float32 fleet on the card against the CPU.
-    ``per_step``: launches each kernel must make per decode step."""
+def served_batch(label, fleet, arch, kernels, card):
+    """The 12 requests through ``batch_call`` with ``kernels`` (name ->
+    wrapper) counted from zero just before and read just after.  Logs
+    answers, launches, pool and latency numbers and checks 12 answers of
+    32 tokens, every kernel launched and a clean pool.  Returns (launch
+    counts, tokens per request, prompt ids per request)."""
     import torch
-    from repro_torch.serving.fleet import LocalFleet
-    t0 = time.perf_counter()
-    fleet = LocalFleet([arch], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
-                       gen_tokens=GEN, decode_impl="flash_paged",
-                       arch_overrides={arch: overrides})
-    member = fleet.members[arch]
-    log(f"{label}: built + warmed up in {time.perf_counter() - t0:.1f} s "
-        f"(warmup {member.warmup_ms:.0f} ms), device {fleet.device}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
     call = fleet.call_fn({arch: arch})
     reqs = payloads(arch)
+    sched = fleet.schedulers[arch]
     torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
@@ -505,8 +642,9 @@ def serve_fleet(label, arch, overrides, small_overrides, kernels, launches,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in kernels.items()}
-    launches.update(counts)
-    sched = fleet.schedulers[arch]
+    # the scheduler's bounded results table holds the finished sequences
+    # (the answers' content carries only their first 10 tokens)
+    seqs = [sched._finished[r] for r in sorted(sched._finished)][-len(reqs):]
     ntok = [a["usage"]["completion_tokens"] for a in answers]
     ttft = [a["usage"]["vsr_ttft_ms"] for a in answers]
     tpot = [(a["usage"]["vsr_service_ms"] - a["usage"]["vsr_ttft_ms"])
@@ -524,43 +662,203 @@ def serve_fleet(label, arch, overrides, small_overrides, kernels, launches,
         f"max {max(tpot):.2f} [{card}]")
     check(len(answers) == 12 and all(n == GEN for n in ntok),
           f"{label}: expected 12 answers of {GEN} tokens, got {ntok}")
+    check([len(s.out) for s in seqs] == ntok,
+          f"{label}: results table out of step with the answers")
+    check(sched.pool.live_refs() == 0, f"{label}: blocks leaked after drain")
+    check(stats.cached_tokens > 0 and stats.cow_copies > 0,
+          f"{label}: the prefix-hit suffix prefill / COW copy did not run")
+    return counts, [list(s.out) for s in seqs], [s.ids for s in seqs]
+
+
+def prompts_of(arch=ARCH):
+    return [" ".join(m["content"] for m in r["messages"])
+            for r in payloads(arch)]
+
+
+def reduced_card_vs_cpu(label, arch, overrides, card_kernels=None,
+                        speculative=None, per_round=None):
+    """Small input against the reference path: a reduced float32 fleet with
+    the kernels on the card (speculative when ``speculative`` is given)
+    vs the plain fleet on the CPU, token for token.  ``card_kernels``
+    (name -> wrapper) are counted on the card run; each must launch, and
+    ``per_round`` times the speculative rounds when given."""
+    from repro_torch.serving.fleet import LocalFleet
+    ov = {arch: dict(overrides, dtype="float32")}
+    prompts = prompts_of(arch)
+    outs, counts = {}, {}
+    for dev, spec in (("cuda", speculative), ("cpu", None)):
+        small = LocalFleet([arch], batch=4, gen_tokens=8, warmup=False,
+                           decode_impl="flash_paged", arch_overrides=ov,
+                           speculative=spec, device=dev)
+        for fn in (card_kernels or {}).values():
+            fn.launches = 0
+        outs[dev] = [o["tokens"] for o in small.generate(arch, prompts)]
+        sched = small.schedulers[arch]
+        if dev == "cuda":
+            counts = {n: fn.launches for n, fn in (card_kernels or {}).items()}
+            spec_rounds = sched.spec_rounds
+        check(sched.pool.live_refs() == 0, f"{label}: reduced fleet leaked")
+    same = outs["cuda"] == outs["cpu"]
+    what = "speculative " if speculative is not None else ""
+    log(f"{label}: reduced float32 {what}fleet, card kernels vs CPU plain "
+        f"path: tokens identical for {len(prompts)} prompts: {same}"
+        + (f"; card launches {json.dumps(counts)}, spec rounds "
+           f"{spec_rounds}" if counts else ""))
+    check(same, f"{label}: reduced fleet tokens differ between card and CPU")
+    check(all(v > 0 for v in counts.values()),
+          f"{label}: a kernel was not launched on the reduced card fleet: "
+          f"{counts}")
+    if per_round is not None:
+        check(all(v == per_round * spec_rounds for v in counts.values()),
+              f"{label}: launches {counts} != {per_round} x {spec_rounds} "
+              f"speculative rounds")
+    return counts
+
+
+def serve_fleet(label, arch, overrides, small_overrides, kernels, launches,
+                card, per_step=None):
+    """The served path for ``arch`` at full width: 12 requests through
+    ``batch_call`` (``served_batch``), launches read into ``launches``;
+    then the profiler batch, and a reduced float32 fleet on the card
+    against the CPU.  ``per_step``: launches each kernel must make per
+    decode step.  Returns the served tokens and prompt ids."""
+    import torch
+    from repro_torch.serving.fleet import LocalFleet
+    t0 = time.perf_counter()
+    fleet = LocalFleet([arch], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
+                       gen_tokens=GEN, decode_impl="flash_paged",
+                       arch_overrides={arch: overrides})
+    member = fleet.members[arch]
+    log(f"{label}: built + warmed up in {time.perf_counter() - t0:.1f} s "
+        f"(warmup {member.warmup_ms:.0f} ms), device {fleet.device}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    counts, toks, ids = served_batch(label, fleet, arch, kernels, card)
+    launches.update(counts)
+    sched = fleet.schedulers[arch]
     check(all(v > 0 for v in counts.values()),
           f"{label}: a kernel was not launched on the main path: {counts}")
     if per_step is not None:
         check(all(v == per_step * sched.decode_steps for v in counts.values()),
               f"{label}: launches {counts} != {per_step} x "
               f"{sched.decode_steps} decode steps")
-    check(sched.pool.live_refs() == 0, f"{label}: blocks leaked after drain")
-    check(stats.cached_tokens > 0 and stats.cow_copies > 0,
-          f"{label}: the prefix-hit suffix prefill / COW copy did not run")
-    profile_fleet(fleet, [" ".join(m["content"] for m in r["messages"])
-                          for r in reqs[:BATCH]], arch)
-    del fleet, member, sched, call
+    profile_fleet(fleet, prompts_of(arch)[:BATCH], arch)
+    del fleet, member, sched
     gc.collect()
     torch.cuda.empty_cache()
-
-    # small input against the reference path: a reduced float32 fleet with
-    # the kernels on the card vs the same fleet's plain path on the CPU
-    ov = {arch: dict(small_overrides, dtype="float32")}
-    prompts = [" ".join(m["content"] for m in r["messages"]) for r in reqs]
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        small = LocalFleet([arch], batch=4, gen_tokens=8, warmup=False,
-                           decode_impl="flash_paged", arch_overrides=ov,
-                           device=dev)
-        outs[dev] = [o["tokens"] for o in small.generate(arch, prompts)]
-    same = outs["cuda"] == outs["cpu"]
-    log(f"{label}: reduced float32 fleet, card kernels vs CPU plain path: "
-        f"tokens identical for {len(prompts)} prompts: {same}")
-    check(same, f"{label}: reduced fleet tokens differ between card and CPU")
+    reduced_card_vs_cpu(label, arch, small_overrides)
+    return toks, ids
 
 
-def phase_fleet(launches, card):
+def phase_fleet(launches, card, ctx):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_decode.ops import paged_flash_decode
-    serve_fleet("fleet", ARCH, {"attn_impl": "pallas"}, {"attn_impl": "pallas"},
-                {"flash_attention": flash_attention,
-                 "paged_flash_decode": paged_flash_decode}, launches, card)
+    ctx["fleet tokens"] = serve_fleet(
+        "fleet", ARCH, {"attn_impl": "pallas"}, {"attn_impl": "pallas"},
+        {"flash_attention": flash_attention,
+         "paged_flash_decode": paged_flash_decode}, launches, card)
+
+
+def near_tie(label, params, cfg, ids, common, tok_a, tok_b, err):
+    """Show a token divergence to be a near-tie: recompute the logits that
+    chose between ``tok_a`` and ``tok_b`` (a fresh prefill of the prompt
+    plus the common generated prefix, kernel path) and require both tokens
+    within twice the measured logit error of the top logit — each path's
+    logits may sit ``err`` from this recompute's."""
+    import torch
+    from repro_torch.models import model as MD
+    seq = list(ids) + list(common)
+    nblk = -(-len(seq) // BLOCK)
+    cache = MD.init_paged_cache(cfg, 1, MAX_SEQ, 1 + nblk, BLOCK,
+                                device="cuda")
+    tbl = torch.zeros((1, MAX_SEQ // BLOCK), dtype=torch.int32, device="cuda")
+    tbl[0, :nblk] = torch.arange(1, nblk + 1, dtype=torch.int32)
+    logits, _ = MD.prefill(cfg, params,
+                           torch.tensor([seq], dtype=torch.int32,
+                                        device="cuda"),
+                           cache, moe_impl="ep", tbl=tbl, paged_fresh=True)
+    lg = logits[0].float()
+    top = lg.max().item()
+    off_a, off_b = top - lg[tok_a].item(), top - lg[tok_b].item()
+    ok = max(off_a, off_b) <= 2 * err
+    log(f"  {label}: divergence at token {len(common)}: {tok_a} vs {tok_b}, "
+        f"below the top logit by {off_a:.4e} / {off_b:.4e} (near-tie limit "
+        f"2 x {err:.4e}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: divergence at token {len(common)} is not a near-tie")
+
+
+def phase_spec_fleet(launches, card, ctx):
+    """The speculative served path at full width: smollm-360m with an
+    aligned smollm-360m draft (k = 4), the same 12 requests."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode, paged_flash_verify, paged_flash_verify_mla)
+    from repro_torch.serving.fleet import LocalFleet
+    from repro_torch.serving.scheduler import SpecConfig
+    label = "spec_fleet"
+    t0 = time.perf_counter()
+    fleet = LocalFleet([ARCH], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
+                       gen_tokens=GEN, decode_impl="flash_paged",
+                       arch_overrides={ARCH: {"attn_impl": "pallas"}},
+                       speculative=SpecConfig(ARCH, k=W_SPEC - 1))
+    member = fleet.members[ARCH]
+    sched = fleet.schedulers[ARCH]
+    log(f"{label}: target {ARCH} + draft {sched.drafter.rt.cfg.name} "
+        f"({sched.drafter.rt.cfg.dtype}, decode_impl "
+        f"{sched.drafter.rt.cfg.decode_impl}), k = {W_SPEC - 1}, built + "
+        f"warmed up in {time.perf_counter() - t0:.1f} s (warmup "
+        f"{member.warmup_ms:.0f} ms), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    kernels = {"flash_attention": flash_attention,
+               "paged_flash_decode": paged_flash_decode,
+               "paged_flash_verify": paged_flash_verify}
+    counts, toks, ids = served_batch(label, fleet, ARCH, kernels, card)
+    launches["paged_flash_verify"] = counts["paged_flash_verify"]
+    layers = len(member.params.blocks)
+    plain_steps = sched.decode_steps - sched.spec_rounds
+    acc = sched.spec_accepted / max(1, sched.spec_offered)
+    log(f"{label}: spec rounds {sched.spec_rounds}, plain steps "
+        f"{plain_steps}, offered {sched.spec_offered}, accepted "
+        f"{sched.spec_accepted} (acceptance {acc:.3f}), emitted "
+        f"{sched.spec_emitted}, spec_tokens_per_round "
+        f"{sched.spec_tokens_per_round:.2f} (over {BATCH} slots), draft "
+        f"catch-up prefills {sched.drafter.catchup_prefills}")
+    check(counts["flash_attention"] > 0 and sched.spec_rounds > 0,
+          f"{label}: prefill kernel or speculation did not run: {counts}")
+    check(counts["paged_flash_verify"] == layers * sched.spec_rounds,
+          f"{label}: verify launches {counts['paged_flash_verify']} != "
+          f"{layers} x {sched.spec_rounds} speculative rounds")
+    check(counts["paged_flash_decode"] == layers * plain_steps,
+          f"{label}: decode launches {counts['paged_flash_decode']} != "
+          f"{layers} x {plain_steps} plain steps")
+    # speculative == plain: compare with the fleet phase's tokens
+    if "fleet tokens" in ctx:
+        plain_toks, plain_ids = ctx["fleet tokens"]
+        check([list(i) for i in ids] == [list(i) for i in plain_ids],
+              f"{label}: prompts differ from the fleet phase's")
+        same = sum(a == b for a, b in zip(toks, plain_toks))
+        log(f"{label}: tokens identical to the plain fleet's for {same}/"
+            f"{len(toks)} requests")
+        err = ctx.get(f"{ARCH} bfloat16 verify err", MODEL_TOL["bfloat16"])
+        for i, (a, b) in enumerate(zip(plain_toks, toks)):
+            if a != b:
+                j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+                near_tie(f"{label} request {i}", member.params, member.cfg,
+                         ids[i], a[:j], a[j], b[j], err)
+        ctx["spec divergences"] = len(toks) - same
+    profile_fleet(fleet, prompts_of(ARCH)[:BATCH], ARCH)
+    del fleet, member, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(label, ARCH, {"attn_impl": "pallas"},
+                        {"paged_flash_verify": paged_flash_verify},
+                        speculative=SpecConfig(ARCH, k=W_SPEC - 1),
+                        per_round=2)
+    launches["paged_flash_verify_mla"] = reduced_card_vs_cpu(
+        label, MLA_ARCH, {}, {"paged_flash_verify_mla": paged_flash_verify_mla},
+        speculative=SpecConfig(MLA_ARCH, k=W_SPEC - 1),
+        per_round=3)["paged_flash_verify_mla"]
 
 
 def phase_mla_fleet(launches, card):
@@ -606,13 +904,25 @@ def phase_times(rows, errs, launches, card):
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
         gather_kv, paged_flash_decode, paged_flash_decode_mla,
-        paged_flash_decode_mla_plain, paged_flash_decode_plain)
+        paged_flash_decode_mla_plain, paged_flash_decode_plain,
+        paged_flash_verify, paged_flash_verify_mla,
+        paged_flash_verify_mla_plain, paged_flash_verify_plain)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     dt = torch.bfloat16
     esz = 2
-    saved = (flash_attention.launches, paged_flash_decode.launches,
-             paged_flash_decode_mla.launches)
+    wrappers = (flash_attention, paged_flash_decode, paged_flash_verify,
+                paged_flash_decode_mla, paged_flash_verify_mla)
+    saved = [fn.launches for fn in wrappers]
+
+    def row(name, source, replaces, ms, plain, lib, t_ops, t_bytes):
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": launches.get(name, 0),
+                     "max_abs_err": errs.get(name), "ms": ms,
+                     "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "library_ms": lib})
 
     # flash attention at the fleet's longest prefill: B=1, S=479, causal
     for S in (16, 64, PROMPT_CAP):
@@ -635,15 +945,9 @@ def phase_times(rows, errs, launches, card):
             f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound "
             f"{max(t_ops, t_bytes):.6f} ms "
             f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                 "replaces":
-                     "src/repro/kernels/flash_attention/flash_attention.py:144",
-                 "launches": launches.get("flash_attention", 0),
-                 "max_abs_err": errs.get("flash_attention"), "ms": ms,
-                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                 "library_ms": lib})
+    row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:144", ms, plain,
+        lib, t_ops, t_bytes)
 
     # paged decode at the fleet's decode shapes (phase 2's rows)
     q, kpool, vpool, tbl, kv_len = decode_case(dt, gen)
@@ -669,14 +973,42 @@ def phase_times(rows, errs, launches, card):
         f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa over gathered view "
         f"{lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
         f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    rows.append({"name": "paged_flash_decode", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-                 "replaces": "src/repro/kernels/flash_decode/ops.py:193",
-                 "launches": launches.get("paged_flash_decode", 0),
-                 "max_abs_err": errs.get("paged_flash_decode"), "ms": ms,
-                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                 "library_ms": lib})
+    row("paged_flash_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/flash_decode/ops.py:193", ms, plain, lib, t_ops,
+        t_bytes)
+
+    # GQA verify at the spec fleet's shapes: W = 5 over phase 2's pool
+    (q,), (kpool, vpool, tbl), kv_len, _ = verify_case(dt, gen)
+    B, W, Hq, hd = q.shape
+    ms = time_ms(lambda: paged_flash_verify(q, kpool, vpool, tbl, kv_len),
+                 flush)
+    plain = time_ms(
+        lambda: paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len), flush)
+    frontier = (kv_len[:, None] - W + 1 + torch.arange(W, device="cuda")
+                [None]).clamp(0, MAX_SEQ)                     # (B, W)
+    # library: SDPA over the gathered view with an explicit per-position
+    # mask (rows whose frontier is 0 come out NaN there; timing only)
+    kg = gather_kv(kpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
+    vg = gather_kv(vpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None, None] <
+            frontier[:, :, None])[:, None]                    # (B,1,W,S)
+    qt = q.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask), flush)
+    live = int(frontier[:, -1].sum())            # keys of the last position
+    nbytes = (2 * live * 5 * hd + 2 * B * W * Hq * hd) * esz + \
+        (tbl.numel() + kv_len.numel()) * 4
+    flops = 4 * Hq * hd * int(frontier.sum())
+    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times paged_flash_verify bf16 B={B} W={W} live keys {live}: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa over gathered view "
+        f"(per-position mask) {lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} "
+        f"ms ({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    row("paged_flash_verify", "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/flash_decode/ops.py:306", ms, plain, lib, t_ops,
+        t_bytes)
 
     # MLA decode at the MLA fleet's decode shapes (phase 2's full-width rows)
     *args, scale = mla_decode_case(dt, gen)
@@ -711,17 +1043,53 @@ def phase_times(rows, errs, launches, card):
         f"over gathered view {'n/a' if lib is None else f'{lib:.4f} ms'}, "
         f"bound {max(t_ops, t_bytes):.6f} ms "
         f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    rows.append({"name": "paged_flash_decode_mla", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
-                 "replaces": "src/repro/kernels/flash_decode/ops.py:412",
-                 "launches": launches.get("paged_flash_decode_mla", 0),
-                 "max_abs_err": errs.get("paged_flash_decode_mla"), "ms": ms,
-                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                 "library_ms": lib})
+    row("paged_flash_decode_mla",
+        "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
+        "src/repro/kernels/flash_decode/ops.py:412", ms, plain, lib, t_ops,
+        t_bytes)
+
+    # MLA verify at deepseek's widths: W = 5 over phase 2's latent pool
+    (q_lat, q_rope), (ckv_pool, krope_pool, tbl), kv_len, kw = \
+        verify_case(dt, gen, mla=True)
+    B, W, H, r = q_lat.shape
+    rh = q_rope.shape[3]
+    args = (q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
+    ms = time_ms(lambda: paged_flash_verify_mla(*args, **kw), flush)
+    plain = time_ms(lambda: paged_flash_verify_mla_plain(*args, **kw), flush)
+    frontier = (kv_len[:, None] - W + 1 + torch.arange(W, device="cuda")
+                [None]).clamp(0, MAX_SEQ)
+    qs = torch.cat([q_lat, q_rope], -1).transpose(1, 2).contiguous()
+    ks = torch.cat([gather_kv(ckv_pool, tbl), gather_kv(krope_pool, tbl)],
+                   -1)[:, None].contiguous()
+    vs = gather_kv(ckv_pool, tbl)[:, None].contiguous()
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None, None] <
+            frontier[:, :, None])[:, None]
+    try:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True, **kw), flush)
+    except RuntimeError as e:
+        log(f"times paged_flash_verify_mla: SDPA refused the latent shapes: "
+            f"{e}")
+        lib = None
+    live = int(frontier[:, -1].sum())
+    nbytes = (live * (r + rh) + B * W * H * (2 * r + rh)) * esz + \
+        (tbl.numel() + kv_len.numel()) * 4
+    flops = int(frontier.sum()) * H * (2 * (r + rh) + 2 * r)
+    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times paged_flash_verify_mla bf16 B={B} W={W} H={H} r={r} rh={rh} "
+        f"live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"over gathered view (per-position mask) "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    row("paged_flash_verify_mla",
+        "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
+        "src/repro/kernels/flash_decode/ops.py:521", ms, plain, lib, t_ops,
+        t_bytes)
     # timing launches are not main-path launches
-    (flash_attention.launches, paged_flash_decode.launches,
-     paged_flash_decode_mla.launches) = saved
+    for fn, n in zip(wrappers, saved):
+        fn.launches = n
 
 
 def main(argv=None) -> int:
@@ -745,15 +1113,17 @@ def main(argv=None) -> int:
     log(f"card: {card} | torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    errs, launches, rows = {}, {}, []
+    errs, launches, rows, ctx = {}, {}, [], {}
     try:
         phase_build()
         if "kernels" in phases:
             phase_kernels(errs)
         if "model" in phases:
-            phase_model()
+            phase_model(ctx)
         if "fleet" in phases:
-            phase_fleet(launches, card)
+            phase_fleet(launches, card, ctx)
+        if "spec_fleet" in phases:
+            phase_spec_fleet(launches, card, ctx)
         if "mla_model" in phases:
             phase_mla_model()
         if "mla_fleet" in phases:

@@ -1,47 +1,61 @@
-// Paged (block-table) absorbed-latent MLA decode attention for Hopper
-// (sm_90a): one new query token per row against that row's compressed
-// latent cache (c_kv and the shared rope key) in the block pool.
+// Paged (block-table) absorbed-latent MLA attention for Hopper (sm_90a):
+// W new query positions per row (W = 1: a decode step; W = 1 + k: the
+// speculative verify of a pending token and k draft proposals) against
+// that row's compressed latent cache (c_kv and the shared rope key) in
+// the block pool.
 //
-// Replaces: the Pallas TPU kernel paged_flash_decode_mla
-//   (src/repro/kernels/flash_decode/ops.py:367, kernel body
-//   _paged_mla_kernel at :322, pallas_call at :412).
+// Replaces two Pallas TPU kernels, with one kernel body:
+//   paged_flash_decode_mla (src/repro/kernels/flash_decode/ops.py:367,
+//   kernel body _paged_mla_kernel at :322, pallas_call at :412), and
+//   paged_flash_verify_mla (ops.py:473, kernel body
+//   _paged_mla_verify_kernel at :428, pallas_call at :521).
 //
-// Computes, for each row b and query head h over the live keys t < kv_len:
-//   s[h][t] = (dot(q_lat[h], ckv[t]) + dot(q_rope[h], krope[t])) * scale
+// Computes, for each row b, position t and query head h over the keys
+// k < kv_len - W + t + 1 (position t's causal frontier):
+//   s[h][k] = (dot(q_lat[t][h], ckv[k]) + dot(q_rope[t][h], krope[k])) * scale
 //   p[h][:] = softmax(s[h][:]) in float32, rounded to the cache dtype
-//   ctx[h][:] = sum_t p[h][t] * ckv[t][:]
+//   ctx[t][h][:] = sum_k p[h][k] * ckv[k][:]
 // the reference's op order (ops.py:343-363, layers.py:294-307).  The
 // caller applies Wv_b and wo.
 //
 // What bounds it on an H100: at full width (128 heads, r = 512, rh = 64)
-// a key costs 128 * (2 * 576 + 2 * 512) ~ 279 KFLOP against 1152 B of
-// latent in bf16: ~242 FLOP/B, near the card's ~295 FLOP/B bf16 ridge.  The
-// least time is therefore the larger of the bytes (live latent + q + out)
-// over 3.35 TB/s and the FLOPs over 989 TFLOP/s.  This first kernel runs
-// float32 FMAs on the CUDA cores, not the tensor cores, so it is far from
-// that bound; mma/wgmma and TMA are later work.
+// a key costs 128 * (2 * 576 + 2 * 512) ~ 279 KFLOP per position against
+// 1152 B of latent in bf16: ~242 FLOP/B, near the card's ~295 FLOP/B bf16
+// ridge (W = 5 positions: ~1200 FLOP/B, above it).  The least time is
+// therefore the larger of the bytes (live latent once + q + out) over
+// 3.35 TB/s and the FLOPs over 989 TFLOP/s.  This kernel runs float32 FMAs
+// on the CUDA cores, not the tensor cores, so it is far from that bound;
+// mma/wgmma and TMA are later work.
 //
 // Why the TPU layout is not copied: the TPU kernel keeps all (padded)
 // heads' scores and a float32 copy of the whole latent cache in VMEM,
 // (Hp, max_seq) + (max_seq, r) float32 = 256 KB + 1 MB at max_seq 512,
-// beyond the 227 KB of shared memory a Hopper block may use.
+// beyond the 227 KB of shared memory a Hopper block may use.  Its verify
+// puts all W positions in one tile; here a 16-head tile of one position
+// already takes ~70 KB, W = 5 of them ~348 KB.
 //
-// Design: one thread block per (row b, tile of HT = 16 query heads); the
-// last tile of a row is masked when H is not a multiple of HT.  The block
-// loads its row's kv_len and table entries itself (the TPU kernel took
-// them through scalar prefetch), clamps table entries into the pool, and
-// walks only the live blocks: nothing builds the gathered (B, max_seq, r)
-// view.  Shared memory holds the tile's float32 queries (HT x (r + rh))
-// and its float32 scores (HT x max_seq): 36 KB + 32 KB at full width.
-// Pass 1: one warp per key; each lane keeps r/32 latent and rh/32 rope
-// values of the key in registers and the warp reduces one dot product per
-// head.  Softmax: one warp per head, exact max and sum, probabilities
-// rounded to the cache dtype.  Pass 2: re-read the live c_kv rows (the
-// tiles of a row share them through L2); each thread owns latent columns
-// and keeps HT float32 accumulators per column, so each latent value is
-// loaded once per block.  kv_len == 0 writes exact zeros.  Freed scheduler
-// slots decode at kv_len 1 against an all-zero table row and read the
-// trash block 0, which always exists.
+// Design: one thread block per (row b, position t, tile of HT = 16 query
+// heads); the last tile of a position is masked when H is not a multiple
+// of HT.  Decode is the W = 1 case: every block runs the same body at its
+// position's frontier, so verify position t equals a decode step at
+// kv_len - W + t + 1 bitwise.  The cost of that simplicity: the W blocks of
+// a row each re-read the live latent (through L2); sharing each streamed
+// block across the W positions, as the TPU kernel does, is later work.
+// The block loads its row's kv_len and table entries itself (the TPU
+// kernel took them through scalar prefetch), clamps table entries into the
+// pool, and walks only the live blocks: nothing builds the gathered
+// (B, max_seq, r) view.  Shared memory holds the tile's float32 queries
+// (HT x (r + rh)) and its float32 scores (HT x max_seq): 36 KB + 32 KB at
+// full width.  Pass 1: one warp per key; each lane keeps r/32 latent and
+// rh/32 rope values of the key in registers and the warp reduces one dot
+// product per head.  Softmax: one warp per head, exact max and sum,
+// probabilities rounded to the cache dtype.  Pass 2: re-read the live c_kv
+// rows (the tiles of a row share them through L2); each thread owns latent
+// columns and keeps HT float32 accumulators per column, so each latent
+// value is loaded once per block.  A frontier <= 0 writes exact zeros; a
+// frontier beyond the table is clamped to it.  Freed scheduler slots run at
+// pos 0 against an all-zero table row and read the trash block 0, which
+// always exists.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +103,7 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat,
                         const T* __restrict__ krope,
                         const int* __restrict__ tbl,
                         const int* __restrict__ kv_len, T* __restrict__ out,
-                        int H, int r, int rh, int num_blocks, int blk,
+                        int W, int H, int r, int rh, int num_blocks, int blk,
                         int max_blocks, float scale) {
   extern __shared__ float smem[];
   const int S = max_blocks * blk;          // table capacity in tokens
@@ -98,16 +112,20 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat,
   float* ps = qr + HT * rh;                // [HT][S]  scores, then probs
 
   const int tiles = (H + HT - 1) / HT;
-  const int b = blockIdx.x / tiles;
+  const int bt = blockIdx.x / tiles;       // (row b, position t) = bt
+  const int b = bt / W;
+  const int t_pos = bt % W;
   const int h0 = (blockIdx.x % tiles) * HT;
   const int nh = min(HT, H - h0);          // live heads of this tile
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const size_t head0 = (size_t)b * H + h0;
+  const size_t head0 = (size_t)bt * H + h0;  // q/out are (B, W, H, r|rh)
   T* o = out + head0 * r;
 
-  const int L = min(max(kv_len[b], 0), S);
+  // position t attends to keys < kv_len - W + t + 1 (decode, W = 1:
+  // keys < kv_len), clamped into the table
+  const int L = min(max(kv_len[b] - W + t_pos + 1, 0), S);
   if (L == 0) {
     for (int i = tid; i < nh * r; i += THREADS) o[i] = from_f<T>(0.f);
     return;
@@ -215,7 +233,7 @@ paged_mla_decode_kernel(const T* __restrict__ q_lat,
 template <typename T>
 int launch(const void* q_lat, const void* q_rope, const void* ckv,
            const void* krope, const void* tbl, const void* kv_len, void* out,
-           int B, int H, int r, int rh, int num_blocks, int blk,
+           int B, int W, int H, int r, int rh, int num_blocks, int blk,
            int max_blocks, float scale, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -224,28 +242,31 @@ int launch(const void* q_lat, const void* q_rope, const void* ckv,
     if (e != cudaSuccess) return (int)e;
   }
   const int tiles = (H + HT - 1) / HT;
-  paged_mla_decode_kernel<T><<<B * tiles, THREADS, smem, stream>>>(
+  paged_mla_decode_kernel<T><<<B * W * tiles, THREADS, smem, stream>>>(
       static_cast<const T*>(q_lat), static_cast<const T*>(q_rope),
       static_cast<const T*>(ckv), static_cast<const T*>(krope),
       static_cast<const int*>(tbl), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), H, r, rh, num_blocks, blk, max_blocks, scale);
+      static_cast<T*>(out), W, H, r, rh, num_blocks, blk, max_blocks, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q_lat: (B, H, r); q_rope: (B, H, rh); ckv: (num_blocks, blk, r); krope:
-// (num_blocks, blk, rh); tbl: (B, max_blocks) int32; kv_len: (B,) int32;
-// out: (B, H, r).  All contiguous; queries, pools and out share one dtype
+// q_lat: (B, W, H, r); q_rope: (B, W, H, rh) — W = 1 is a decode step,
+// W > 1 the speculative verify of W new positions whose latents are
+// already in the pool at kv_len - W .. kv_len - 1; ckv: (num_blocks, blk,
+// r); krope: (num_blocks, blk, rh); tbl: (B, max_blocks) int32; kv_len:
+// (B,) int32, the TOTAL length including the W new entries; out:
+// (B, W, H, r).  All contiguous; queries, pools and out share one dtype
 // (is_bf16: bfloat16, else float32).  Returns cudaGetLastError() after the
 // launch.
-extern "C" int paged_mla_decode_fwd(const void* q_lat, const void* q_rope,
-                                    const void* ckv, const void* krope,
-                                    const void* tbl, const void* kv_len,
-                                    void* out, int B, int H, int r, int rh,
-                                    int num_blocks, int blk, int max_blocks,
-                                    int is_bf16, float scale, void* stream) {
-  if (H <= 0 || r <= 0 || r > MAX_R || rh <= 0 || rh > MAX_RH ||
+extern "C" int paged_mla_fwd(const void* q_lat, const void* q_rope,
+                             const void* ckv, const void* krope,
+                             const void* tbl, const void* kv_len, void* out,
+                             int B, int W, int H, int r, int rh,
+                             int num_blocks, int blk, int max_blocks,
+                             int is_bf16, float scale, void* stream) {
+  if (W <= 0 || H <= 0 || r <= 0 || r > MAX_R || rh <= 0 || rh > MAX_RH ||
       num_blocks <= 0 || blk <= 0 || max_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
@@ -254,8 +275,8 @@ extern "C" int paged_mla_decode_fwd(const void* q_lat, const void* q_rope,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(q_lat, q_rope, ckv, krope, tbl, kv_len, out,
-                                 B, H, r, rh, num_blocks, blk, max_blocks,
+                                 B, W, H, r, rh, num_blocks, blk, max_blocks,
                                  scale, smem, s);
-  return launch<float>(q_lat, q_rope, ckv, krope, tbl, kv_len, out, B, H, r,
-                       rh, num_blocks, blk, max_blocks, scale, smem, s);
+  return launch<float>(q_lat, q_rope, ckv, krope, tbl, kv_len, out, B, W, H,
+                       r, rh, num_blocks, blk, max_blocks, scale, smem, s);
 }

@@ -1,10 +1,14 @@
-"""Paged decode attention: the CUDA kernels' wrappers and plain versions.
+"""Paged decode and speculative-verify attention: the CUDA kernels'
+wrappers and plain versions.
 
-``paged_flash_decode`` launches ``csrc/paged_decode.cu`` (the port of the
-Pallas kernel ``paged_flash_decode``, GQA) and ``paged_flash_decode_mla``
-launches ``csrc/paged_mla_decode.cu`` (the port of
-``paged_flash_decode_mla``, absorbed-latent MLA) for CUDA tensors; each
-runs its ``*_plain`` version for CPU tensors, and any other device raises.
+``paged_flash_decode`` and ``paged_flash_verify`` launch
+``csrc/paged_decode.cu`` (the port of the Pallas kernels
+``paged_flash_decode`` and ``paged_flash_verify``, GQA: one kernel body,
+decode is its W = 1 case); ``paged_flash_decode_mla`` and
+``paged_flash_verify_mla`` launch ``csrc/paged_mla_decode.cu`` (the port of
+``paged_flash_decode_mla`` and ``paged_flash_verify_mla``, absorbed-latent
+MLA) for CUDA tensors.  Each runs its ``*_plain`` version for CPU tensors,
+and any other device raises.  Each wrapper counts its own ``launches``.
 The kernels stream each row's live blocks straight out of the pool through
 the block table; only the plain versions build the gathered view.
 """
@@ -18,8 +22,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.layers import mla_latent_core, sdpa
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-_MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
+_ATTN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 +
+                  [ctypes.c_void_p])
+_MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
                  [ctypes.c_float, ctypes.c_void_p])
 MLA_HEAD_TILE = 16            # query heads per thread block (paged_mla_decode.cu)
 MLA_MAX_R, MLA_MAX_RH = 512, 128
@@ -46,6 +51,24 @@ def _zero_dead_rows(out, kv_len):
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
+def _zero_dead_positions(out, kv_len):
+    """Verify outputs (B, W, H, d): zeros where position t's frontier
+    ``kv_len - W + t + 1`` is <= 0, as from the kernels."""
+    W = out.shape[1]
+    frontier = kv_len.long().to(out.device)[:, None] - W + 1 + \
+        torch.arange(W, device=out.device)[None]
+    return torch.where((frontier > 0)[:, :, None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# GQA decode and speculative verify (one kernel: csrc/paged_decode.cu)
+# ---------------------------------------------------------------------------
+
 def paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len):
     """The same function in plain PyTorch: gather, then ``layers.sdpa``
     with ``kv_len`` masking — exactly the model's ``decode_impl="xla"``
@@ -56,34 +79,70 @@ def paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len):
     return _zero_dead_rows(out, kv_len)
 
 
-def _check(q, kpool, vpool, tbl, kv_len):
-    if q.dim() != 3 or kpool.dim() != 4 or kpool.shape != vpool.shape:
-        raise ValueError(f"paged_flash_decode: q (B,Hq,hd), pools (nb,blk,"
-                         f"Hkv,hd) expected, got {tuple(q.shape)}, "
+def paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len):
+    """The verify in plain PyTorch: gather, then ``layers.sdpa`` with
+    ``causal=True, q_offset=kv_len - W, kv_len=kv_len`` — exactly the
+    model's ``decode_impl="xla"`` verify program, so the two verify paths
+    agree bitwise on the CPU.  Position t's mask is a decode step's at
+    ``kv_len - W + t + 1``; positions whose frontier is <= 0 are zeros, as
+    from the kernel."""
+    W = q.shape[1]
+    out = sdpa(q, gather_kv(kpool, tbl), gather_kv(vpool, tbl), causal=True,
+               q_offset=kv_len - W, kv_len=kv_len)
+    return _zero_dead_positions(out, kv_len)
+
+
+def _check(name, q, kpool, vpool, tbl, kv_len):
+    """q: (B, W, Hq, hd) — decode passes its (B, Hq, hd) query as W = 1."""
+    if q.dim() != 4 or kpool.dim() != 4 or kpool.shape != vpool.shape:
+        raise ValueError(f"{name}: q (B,[W,]Hq,hd), pools (nb,blk,Hkv,hd) "
+                         f"expected, got {tuple(q.shape)}, "
                          f"{tuple(kpool.shape)}, {tuple(vpool.shape)}")
-    B, Hq, hd = q.shape
+    B, W, Hq, hd = q.shape
     nb, blk, Hkv, hd_k = kpool.shape
     if hd_k != hd or Hq % Hkv:
-        raise ValueError("paged_flash_decode: head_dim mismatch or Hq not a "
-                         "multiple of Hkv")
+        raise ValueError(f"{name}: head_dim mismatch or Hq not a multiple of "
+                         f"Hkv")
     if hd > 128:
-        raise ValueError(f"paged_flash_decode: head_dim {hd} > 128")
+        raise ValueError(f"{name}: head_dim {hd} > 128")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             kpool.dtype != q.dtype or vpool.dtype != q.dtype:
-        raise TypeError(f"paged_flash_decode: float32 or bfloat16 q/pools of "
-                        f"one dtype expected, got {q.dtype}/{kpool.dtype}/"
+        raise TypeError(f"{name}: float32 or bfloat16 q/pools of one dtype "
+                        f"expected, got {q.dtype}/{kpool.dtype}/"
                         f"{vpool.dtype}")
     if tbl.dim() != 2 or tbl.shape[0] != B or tbl.dtype != torch.int32 or \
             kv_len.shape != (B,) or kv_len.dtype != torch.int32:
-        raise ValueError("paged_flash_decode: tbl (B, max_blocks) and kv_len "
-                         "(B,) must be int32")
-    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool),
-                    ("tbl", tbl), ("kv_len", kv_len)):
+        raise ValueError(f"{name}: tbl (B, max_blocks) and kv_len (B,) must "
+                         f"be int32")
+    for arg, t in (("q", q), ("kpool", kpool), ("vpool", vpool),
+                   ("tbl", tbl), ("kv_len", kv_len)):
         if t.device != q.device:
-            raise ValueError(f"paged_flash_decode: {name} on {t.device}, q on "
-                             f"{q.device}")
+            raise ValueError(f"{name}: {arg} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_flash_decode: {name} must be contiguous")
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    smem = W * (Hq // Hkv) * (hd + tbl.shape[1] * blk) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: {smem} B of queries and scores exceed the "
+                         f"{SMEM_LIMIT} B of shared memory a block may use "
+                         f"(W {W}, max_seq {tbl.shape[1] * blk} too long)")
+
+
+def _launch_attn(name, q, kpool, vpool, tbl, kv_len):
+    """Check and launch ``csrc/paged_decode.cu`` on q (B, W, Hq, hd);
+    returns the (B, W, Hq, hd) output."""
+    _check(name, q, kpool, vpool, tbl, kv_len)
+    B, W, Hq, hd = q.shape
+    nb, blk, Hkv, _ = kpool.shape
+    out = torch.empty_like(q)
+    fn = _build.c_function("paged_decode", "paged_attn_fwd", _ATTN_ARGTYPES)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+                tbl.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                B, W, Hq, Hkv, hd, nb, blk, tbl.shape[1],
+                int(q.dtype == torch.bfloat16), _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
@@ -99,26 +158,11 @@ def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
         return paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
-    _check(q, kpool, vpool, tbl, kv_len)
-    B, Hq, hd = q.shape
-    nb, blk, Hkv, _ = kpool.shape
-    max_blocks = tbl.shape[1]
-    smem = (Hq // Hkv) * (hd + max_blocks * blk) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"paged_flash_decode: {smem} B of scores exceed the "
-                         f"{SMEM_LIMIT} B of shared memory a block may use "
-                         f"(max_seq {max_blocks * blk} too long)")
-    out = torch.empty_like(q)
-    fn = _build.c_function("paged_decode", "paged_decode_fwd", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-                tbl.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, hd, nb, blk, max_blocks,
-                int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_flash_decode kernel launch failed: CUDA "
-                           f"error {rc}")
+    if q.dim() != 3:
+        raise ValueError(f"paged_flash_decode: q (B,Hq,hd) expected, got "
+                         f"{tuple(q.shape)}")
+    out = _launch_attn("paged_flash_decode", q[:, None], kpool, vpool, tbl,
+                       kv_len)[:, 0]
     paged_flash_decode.launches += 1
     return out
 
@@ -126,8 +170,33 @@ def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
 paged_flash_decode.launches = 0
 
 
+def paged_flash_verify(q, kpool, vpool, tbl, kv_len):
+    """Speculative-verify attention over the paged pool, no gather.
+
+    q: (B, W, Hq, hd) — W = 1 + k positions per row (the pending token and
+    k draft proposals), whose K/V the caller has already written at
+    ``kv_len - W .. kv_len - 1``; kpool/vpool: (num_blocks, block_tokens,
+    Hkv, hd); tbl: (B, max_blocks) int32; kv_len: (B,) int32, the TOTAL
+    length including the W new entries.  Returns (B, W, Hq, hd); position
+    t equals ``paged_flash_decode`` at ``kv_len - W + t + 1``.  CUDA
+    tensors launch the hand-written kernel (the decode kernel's body with
+    W query positions in its tile); CPU tensors take
+    ``paged_flash_verify_plain``."""
+    if q.device.type == "cpu":
+        return paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_verify: unsupported device {q.device}")
+    out = _launch_attn("paged_flash_verify", q, kpool, vpool, tbl, kv_len)
+    paged_flash_verify.launches += 1
+    return out
+
+
+paged_flash_verify.launches = 0
+
+
 # ---------------------------------------------------------------------------
-# absorbed-latent MLA decode
+# absorbed-latent MLA decode and speculative verify (one kernel:
+# csrc/paged_mla_decode.cu)
 # ---------------------------------------------------------------------------
 
 def paged_flash_decode_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, tbl,
@@ -143,23 +212,39 @@ def paged_flash_decode_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, tbl,
     return _zero_dead_rows(ctx, kv_len)
 
 
+def paged_flash_verify_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, tbl,
+                                 kv_len, *, scale):
+    """The MLA verify in plain PyTorch: gather the latent views, then
+    ``layers.mla_latent_core`` with ``causal=True, q_offset=kv_len - W,
+    kv_len=kv_len`` — the core of the model's ``decode_impl="xla"`` MLA
+    verify program.  Positions whose frontier is <= 0 are zeros, as from
+    the kernel."""
+    W = q_lat.shape[1]
+    ctx = mla_latent_core(q_lat, q_rope, gather_kv(ckv_pool, tbl),
+                          gather_kv(krope_pool, tbl), scale=scale, causal=True,
+                          q_offset=kv_len - W, kv_len=kv_len)
+    return _zero_dead_positions(ctx, kv_len)
+
+
 def mla_smem_bytes(r: int, rh: int, max_seq: int) -> int:
     """Shared memory one block of the MLA kernel needs: its head tile's
-    float32 queries and float32 scores over the whole table."""
+    float32 queries and float32 scores over the whole table (whatever W:
+    each block serves one position)."""
     return MLA_HEAD_TILE * (r + rh + max_seq) * 4
 
 
-def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len):
-    name = "paged_flash_decode_mla"
-    if q_lat.dim() != 3 or q_rope.dim() != 3 or ckv_pool.dim() != 3 or \
+def _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len):
+    """q_lat: (B, W, H, r); q_rope: (B, W, H, rh) — decode passes W = 1."""
+    if q_lat.dim() != 4 or q_rope.dim() != 4 or ckv_pool.dim() != 3 or \
             krope_pool.dim() != 3:
-        raise ValueError(f"{name}: q_lat (B,H,r), q_rope (B,H,rh), pools "
-                         f"(nb,blk,r|rh) expected, got {tuple(q_lat.shape)}, "
-                         f"{tuple(q_rope.shape)}, {tuple(ckv_pool.shape)}, "
+        raise ValueError(f"{name}: q_lat (B,[W,]H,r), q_rope (B,[W,]H,rh), "
+                         f"pools (nb,blk,r|rh) expected, got "
+                         f"{tuple(q_lat.shape)}, {tuple(q_rope.shape)}, "
+                         f"{tuple(ckv_pool.shape)}, "
                          f"{tuple(krope_pool.shape)}")
-    B, H, r = q_lat.shape
-    rh = q_rope.shape[2]
-    if q_rope.shape[:2] != (B, H) or ckv_pool.shape[2] != r or \
+    B, W, H, r = q_lat.shape
+    rh = q_rope.shape[3]
+    if q_rope.shape[:3] != (B, W, H) or ckv_pool.shape[2] != r or \
             krope_pool.shape[2] != rh or \
             krope_pool.shape[:2] != ckv_pool.shape[:2]:
         raise ValueError(f"{name}: shapes disagree: q_lat {tuple(q_lat.shape)}"
@@ -185,6 +270,34 @@ def _check_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len):
                              f"{q_lat.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+    smem = mla_smem_bytes(r, rh, tbl.shape[1] * ckv_pool.shape[1])
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: {smem} B of queries and scores exceed the "
+                         f"{SMEM_LIMIT} B of shared memory a block may use "
+                         f"(max_seq {tbl.shape[1] * ckv_pool.shape[1]} too "
+                         f"long)")
+
+
+def _launch_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
+                scale):
+    """Check and launch ``csrc/paged_mla_decode.cu`` on (B, W, H, r|rh)
+    queries; returns the (B, W, H, r) latent context."""
+    _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
+    B, W, H, r = q_lat.shape
+    rh = q_rope.shape[3]
+    nb, blk = ckv_pool.shape[:2]
+    out = torch.empty_like(q_lat)
+    fn = _build.c_function("paged_mla_decode", "paged_mla_fwd",
+                           _MLA_ARGTYPES)
+    with torch.cuda.device(q_lat.device):
+        rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+                krope_pool.data_ptr(), tbl.data_ptr(), kv_len.data_ptr(),
+                out.data_ptr(), B, W, H, r, rh, nb, blk, tbl.shape[1],
+                int(q_lat.dtype == torch.bfloat16), float(scale),
+                _stream(q_lat.device))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
@@ -207,31 +320,43 @@ def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
     if q_lat.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_mla: unsupported device "
                          f"{q_lat.device}")
-    _check_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
-    B, H, r = q_lat.shape
-    rh = q_rope.shape[2]
-    nb, blk = ckv_pool.shape[:2]
-    max_blocks = tbl.shape[1]
-    smem = mla_smem_bytes(r, rh, max_blocks * blk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"paged_flash_decode_mla: {smem} B of queries and "
-                         f"scores exceed the {SMEM_LIMIT} B of shared memory "
-                         f"a block may use (max_seq {max_blocks * blk} too "
-                         f"long)")
-    out = torch.empty_like(q_lat)
-    fn = _build.c_function("paged_mla_decode", "paged_mla_decode_fwd",
-                           _MLA_ARGTYPES)
-    with torch.cuda.device(q_lat.device):
-        stream = torch.cuda.current_stream(q_lat.device).cuda_stream
-        rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
-                krope_pool.data_ptr(), tbl.data_ptr(), kv_len.data_ptr(),
-                out.data_ptr(), B, H, r, rh, nb, blk, max_blocks,
-                int(q_lat.dtype == torch.bfloat16), float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_flash_decode_mla kernel launch failed: "
-                           f"CUDA error {rc}")
+    if q_lat.dim() != 3 or q_rope.dim() != 3:
+        raise ValueError(f"paged_flash_decode_mla: q_lat (B,H,r), q_rope "
+                         f"(B,H,rh) expected, got {tuple(q_lat.shape)}, "
+                         f"{tuple(q_rope.shape)}")
+    out = _launch_mla("paged_flash_decode_mla", q_lat[:, None],
+                      q_rope[:, None], ckv_pool, krope_pool, tbl, kv_len,
+                      scale)[:, 0]
     paged_flash_decode_mla.launches += 1
     return out
 
 
 paged_flash_decode_mla.launches = 0
+
+
+def paged_flash_verify_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
+                           *, scale):
+    """Absorbed-latent MLA speculative verify over the paged pool, no
+    gather.
+
+    q_lat: (B, W, H, r); q_rope: (B, W, H, rh); pools/tbl as in
+    ``paged_flash_decode_mla``; kv_len: (B,) int32, the TOTAL length
+    including the W freshly written latents.  Returns the latent context
+    (B, W, H, r); position t equals ``paged_flash_decode_mla`` at
+    ``kv_len - W + t + 1``.  CUDA tensors launch the hand-written kernel
+    (the decode kernel's body, one block per row, position and head tile);
+    CPU tensors take ``paged_flash_verify_mla_plain``."""
+    if q_lat.device.type == "cpu":
+        return paged_flash_verify_mla_plain(q_lat, q_rope, ckv_pool,
+                                            krope_pool, tbl, kv_len,
+                                            scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_flash_verify_mla: unsupported device "
+                         f"{q_lat.device}")
+    out = _launch_mla("paged_flash_verify_mla", q_lat, q_rope, ckv_pool,
+                      krope_pool, tbl, kv_len, scale)
+    paged_flash_verify_mla.launches += 1
+    return out
+
+
+paged_flash_verify_mla.launches = 0

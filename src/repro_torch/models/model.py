@@ -15,8 +15,10 @@ pytree as a dict of tensors (``cache["g{i}"]["b{j}"]["k"]`` is
 step and gets a new one back, the port writes the pools IN PLACE and
 returns the same dict.
 
-Contiguous caches, cross-attention, SSM blocks and speculative ``verify``
-are later slices: configs that need them raise ``NotImplementedError``.
+``verify`` is the speculative-decoding forward: W tokens per row through
+one wide pass, logits at every position, each equal to a decode step's.
+Contiguous caches, cross-attention and SSM blocks are later slices:
+configs that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
-                                                  paged_flash_decode_mla)
+                                                  paged_flash_decode_mla,
+                                                  paged_flash_verify,
+                                                  paged_flash_verify_mla)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.config import BlockSpec, ModelConfig
@@ -284,8 +288,9 @@ def _sdpa_impl(cfg: ModelConfig, q, k, v, *, causal: bool,
 
 def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
                paged_fresh=False):
-    """Paged self-attention in prefill or decode mode.  ``bcache`` is
-    ``{"k": pool, "v": pool}`` for this layer; pools are written in place.
+    """Paged self-attention in prefill, decode or verify mode.  ``bcache``
+    is ``{"k": pool, "v": pool}`` for this layer; pools are written in
+    place.
 
     ``paged_fresh`` marks a from-scratch prefill (no cached prefix):
     attention then runs on the local K/V — right-padded rows rely on
@@ -306,6 +311,19 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
             out = L.sdpa(q, _paged_view(kpool, tbl), _paged_view(vpool, tbl),
                          causal=True, sliding_window=cfg.sliding_window,
                          q_offset=pos)
+    elif mode == "verify":
+        # speculative verify: W tokens per row at pos..pos+W-1, attended
+        # exactly like W successive decode steps — position t's mask set
+        # (ik <= pos+t) is the decode step's kv_len = pos+t+1 set
+        W = q.shape[1]
+        kv_len = (pos + W).to(torch.int32)
+        if cfg.decode_impl == "flash_paged":
+            out = paged_flash_verify(q.contiguous(), kpool, vpool, tbl,
+                                     kv_len)
+        else:
+            out = L.sdpa(q, _paged_view(kpool, tbl), _paged_view(vpool, tbl),
+                         causal=True, q_offset=pos, kv_len=kv_len,
+                         sliding_window=0)
     else:  # decode: pos (B,) per-row positions
         kv_len = (pos + 1).to(torch.int32)
         if cfg.decode_impl == "flash_paged":
@@ -320,8 +338,9 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
 
 def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
               paged_fresh=False):
-    """Paged MLA in prefill or decode mode.  ``bcache`` is ``{"ckv": pool,
-    "krope": pool}`` for this layer; pools are written in place.
+    """Paged MLA in prefill, decode or verify mode.  ``bcache`` is
+    ``{"ckv": pool, "krope": pool}`` for this layer; pools are written in
+    place.
 
     Fresh prefill runs ``_mla_naive`` on the local latents.  A suffix
     prefill runs the EXPANDED form over the gathered view, not the
@@ -330,7 +349,9 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     reference's reason, model.py:385-389).  Decode is absorbed: under
     ``decode_impl="flash_paged"`` the CUDA latent-decode kernel computes
     the context from the pools through the table; otherwise
-    ``mla_attention`` runs over the gathered view."""
+    ``mla_attention`` runs over the gathered view.  Verify runs the SAME
+    absorbed program as decode over W positions (never ``_mla_naive``), so
+    position t equals a decode step at ``kv_len = pos + t + 1``."""
     x = L.rms_norm(h, p.norm1, cfg.norm_eps)
     mp = p.mla
     q_nope, q_rope = L.mla_q(mp, cfg, x, rope)
@@ -344,6 +365,19 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
         else:
             out = _mla_naive(cfg, mp, q_nope, q_rope, _paged_view(ckv_p, tbl),
                              _paged_view(krope_p, tbl), q_offset=pos)
+    elif mode == "verify":
+        W = q_nope.shape[1]
+        kv_len = (pos + W).to(torch.int32)
+        if cfg.decode_impl == "flash_paged":
+            ctx = paged_flash_verify_mla(
+                L.mla_absorb_q(mp, q_nope).contiguous(), q_rope.contiguous(),
+                ckv_p, krope_p, tbl, kv_len, scale=L.mla_scale(cfg))
+            out = L.mla_out(mp, cfg, ctx)
+        else:
+            out = L.mla_attention(mp, cfg, q_nope, q_rope,
+                                  _paged_view(ckv_p, tbl),
+                                  _paged_view(krope_p, tbl), causal=True,
+                                  q_offset=pos, kv_len=kv_len)
     else:  # decode: pos (B,) per-row positions
         kv_len = (pos + 1).to(torch.int32)
         if cfg.decode_impl == "flash_paged":
@@ -483,3 +517,33 @@ def decode_step(cfg: ModelConfig, params: Model, tokens: Tensor,
                     pos=pos.long(), tbl=tbl, moe_impl=moe_impl)
     cache["pos"] = pos + 1
     return _logits(cfg, params, h)[:, 0, :], cache
+
+
+@torch.no_grad()
+def verify(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
+           *, moe_impl: str = "gshard") -> Tuple[Tensor, dict]:
+    """Speculative-decoding verify: tokens (B,W) + paged cache ->
+    (logits (B,W,V), cache).
+
+    Feeds W tokens per row (the pending token followed by W-1 draft
+    proposals) at positions ``pos..pos+W-1``, writing all W KV entries
+    through the block table (in place) and returning logits at EVERY
+    position.  Attention at position t masks to ``kv <= pos+t`` — the set
+    a decode step sees at depth pos+t — through the decode program
+    (absorbed MLA, no sliding window).  KV written past the accepted
+    prefix sits beyond the row's next ``pos`` and is overwritten before it
+    can be attended to, so rollback costs nothing.  ``cache["pos"]`` and
+    ``cache["tbl"]`` are scheduler-owned and left unchanged.  ``moe_impl``
+    as in ``prefill``."""
+    check_supported(cfg)
+    if "tbl" not in cache:
+        raise NotImplementedError("speculative verify needs the paged cache")
+    pos = cache["pos"].long()
+    tbl = cache["tbl"]
+    W = tokens.shape[1]
+    h = params.embed[tokens.long()]
+    positions = pos[:, None] + torch.arange(W, device=pos.device)[None, :]
+    rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
+    h = _run_groups(cfg, params, h, rope=rope, mode="verify", cache=cache,
+                    pos=pos, tbl=tbl, moe_impl=moe_impl)
+    return _logits(cfg, params, h), cache

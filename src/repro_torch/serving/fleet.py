@@ -12,8 +12,10 @@ through the port's CUDA kernels when ``decode_impl="flash_paged"`` and
 
 Serving is single-device (no mesh, no sharding rules) and MoE members are
 dropless: their capacity factor is raised to ``n_experts / top_k``.
-The audio and diffusion lanes, contiguous caches, speculative decoding
-and ``model_axis > 1`` are later slices and raise ``NotImplementedError``.
+``speculative=SpecConfig(...)`` puts a draft model in front of every lane
+(draft proposal, one wide verify per round, greedy acceptance, adaptive
+k).  The audio and diffusion lanes, contiguous caches and
+``model_axis > 1`` are later slices and raise ``NotImplementedError``.
 
 Concurrency: the fleet lock covers ONLY submission and bookkeeping.
 Draining happens outside it — per-lane step locks serialize the steps
@@ -35,13 +37,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as MD
 from repro_torch.models import moe as M
 from repro_torch.serving import serve_lib
 from repro_torch.serving.paged import PoolStats
-from repro_torch.serving.scheduler import PREFILL_BUCKETS, DecodeScheduler
+from repro_torch.serving.scheduler import (PREFILL_BUCKETS, DecodeScheduler,
+                                           SpecConfig, SpecRuntime)
 
 
 def _validate_decode_impl(decode_impl: Optional[str]):
@@ -52,6 +55,53 @@ def _validate_decode_impl(decode_impl: Optional[str]):
         raise ValueError(
             f"unknown decode_impl {decode_impl!r}; valid: "
             + ", ".join(MD.DECODE_IMPLS))
+
+
+def _spec_draft_archs() -> List[str]:
+    """Archs usable as a speculative draft: AR text models the paged cache
+    supports (pure attention/MLA stacks)."""
+    return [a for a in list_archs()
+            if (cfg := get_reduced(a)).family != "audio"
+            and MD.paged_supported(cfg)]
+
+
+def _validate_speculative(spec: Optional[SpecConfig], *, paged: object):
+    if spec is None:
+        return
+    if not isinstance(spec, SpecConfig):
+        raise ValueError(
+            f"speculative= expects a SpecConfig, got {type(spec).__name__}")
+    if paged is False:
+        raise ValueError("speculative decoding requires the paged KV "
+                         "cache (paged='auto' or True)")
+    valid = _spec_draft_archs()
+    if spec.draft_arch not in valid:
+        raise ValueError(
+            f"unknown/unsupported speculative draft_arch "
+            f"{spec.draft_arch!r}; valid: " + ", ".join(sorted(valid)))
+    if spec.k < 1:
+        raise ValueError(f"speculative k must be >= 1, got {spec.k}")
+    if spec.probe_every < 1:
+        raise ValueError(
+            f"speculative probe_every must be >= 1, got {spec.probe_every}")
+    if not (0.0 < spec.alpha <= 1.0):
+        raise ValueError(
+            f"speculative alpha must be in (0, 1], got {spec.alpha}")
+    if not (0.0 <= spec.min_accept <= 1.0):
+        raise ValueError(
+            f"speculative min_accept must be in [0, 1], "
+            f"got {spec.min_accept}")
+
+
+def _dropless(cfg):
+    """Serving MoE is dropless: capacity >= the per-call token count, so
+    expert keep/drop never depends on which other tokens share the
+    dispatch (a 16-wide suffix prefill must match the same tokens inside a
+    wider fresh prefill).  No-op without experts."""
+    if not cfg.n_experts:
+        return cfg
+    return cfg.replace(moe_capacity_factor=max(
+        cfg.moe_capacity_factor, cfg.n_experts / max(1, cfg.moe_top_k)))
 
 
 def _validate_arch_overrides(overrides, archs: List[str]):
@@ -135,6 +185,7 @@ class FleetMember(MemberStats):
     copy_block: object = None            # COW block copy
     block_tokens: int = 16
     num_blocks: int = 0                  # physical blocks incl. trash block
+    spec: object = None                  # SpecRuntime (speculative decoding)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +305,27 @@ class ARLane(BackendLane):
             prev = w
         while self.pending:
             self.step()
+        if sched.drafter is not None:
+            # the drains above ran the wide verify, the draft proposal loop
+            # and the FRESH draft catch-up prefills; a lane that backs off
+            # accumulates draft lag and its probe rounds catch up through
+            # SUFFIX prefills at any width bucket — run that ladder now
+            # against the trash block, then the plain decode step a
+            # backed-off lane falls back to
+            dw = sched.drafter
+            trow = sched._dev(np.zeros((1, sched.max_blocks), np.int32))
+            for fn, start in ((dw.rt.prefill_fresh, 0),
+                              (dw.rt.prefill_suffix, m.block_tokens)):
+                for w in widths:
+                    _, dw.cache = fn(
+                        dw.rt.params, sched._dev(np.zeros((1, w), np.int32)),
+                        sched._dev([min(2, w)]), sched._dev([start]), trow,
+                        dw.cache)
+            sched.spec_enabled = False
+            self._warmup_submit(4, fill=7)
+            while self.pending:
+                self.step()
+            sched.spec_enabled = True
         if sched.device.type == "cuda":
             torch.cuda.synchronize(sched.device)
         m.warmup_ms = (time.perf_counter() - t0) * 1e3
@@ -265,6 +337,11 @@ class ARLane(BackendLane):
         sched.preempted = 0
         sched.prefill.prefills = 0
         sched.pool.stats = PoolStats()
+        if sched.drafter is not None:
+            sched.drafter.reset_stats()
+            sched.spec_rounds = sched.spec_offered = 0
+            sched.spec_accepted = sched.spec_emitted = 0
+            sched.spec_acceptance_ewma = 0.0
         sched._finished.clear()
 
     def _warmup_submit(self, width: int, fill: int = 4):
@@ -285,7 +362,7 @@ class LocalFleet:
                  prefill_budget: Optional[int] = 1,
                  prefill_lookahead: int = 0,
                  decode_impl: Optional[str] = None,
-                 speculative: Optional[object] = None,
+                 speculative: Optional[SpecConfig] = None,
                  arch_overrides: Optional[Dict[str, dict]] = None,
                  device: DeviceLike = "cuda"):
         """The reference's keywords, plus ``device`` ("cuda" by default;
@@ -304,6 +381,13 @@ class LocalFleet:
         flash-attention prefill kernel (the reference's option names).
         ``arch_overrides`` maps member archs to ModelConfig field
         overrides (plus ``depth_mult``; ``groups`` cuts a member's depth).
+        ``speculative`` enables draft-model speculative decoding on every
+        lane: ``SpecConfig.draft_arch`` (its registry config, reduced or
+        full as the fleet, with no ``arch_overrides``) proposes ``k`` tokens
+        per round, the member verifies all k+1 positions in one wide forward
+        (``decode_impl="flash_paged"``: the CUDA verify kernels), and greedy
+        acceptance keeps the output token-exact vs the non-speculative path
+        (``DecodeScheduler._decode_spec``).
         ``moe_impl`` selects the MoE FFN of MoE members: on one device
         "ep", "ep_serve" and "sort" all run the reference's single-device
         sort/gather path; "gshard" is not ported.  Weights are drawn from a
@@ -314,18 +398,15 @@ class LocalFleet:
         generator cannot make tens of billions of parameters in a smoke
         run.
 
-        Not ported yet: ``speculative``, ``model_axis > 1``,
-        ``paged=False``."""
-        if speculative is not None:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet")
+        Not ported yet: ``model_axis > 1``, ``paged=False``."""
         if model_axis > 1:
             raise NotImplementedError("model_axis > 1 (multi-device) is not "
                                       "ported yet")
+        _validate_decode_impl(decode_impl)
+        _validate_speculative(speculative, paged=paged)
         if paged is False:
             raise NotImplementedError("the contiguous cache is not ported "
                                       "yet: use paged='auto' or True")
-        _validate_decode_impl(decode_impl)
         _validate_arch_overrides(arch_overrides, list(archs))
         self.device = resolve_device(device)
         self.gen_tokens = gen_tokens
@@ -344,6 +425,7 @@ class LocalFleet:
         self._build = dict(reduced=reduced, batch=batch, max_seq=max_seq,
                            moe_impl=moe_impl, block_tokens=block_tokens,
                            kv_blocks=kv_blocks, decode_impl=decode_impl,
+                           speculative=speculative,
                            arch_overrides=arch_overrides or {})
         self._sched_opts = dict(prefill_chunk=prefill_chunk,
                                 prefill_budget=prefill_budget,
@@ -365,38 +447,75 @@ class LocalFleet:
             cfg = cfg.replace(decode_impl=b["decode_impl"])
         if cfg.n_experts:
             M.check_impl(b["moe_impl"])
-            # serving is dropless: capacity >= the per-call token count, so
-            # expert keep/drop never depends on which other tokens share
-            # the dispatch (a 16-wide suffix prefill must match the same
-            # tokens inside a wider fresh prefill)
-            cfg = cfg.replace(moe_capacity_factor=max(
-                cfg.moe_capacity_factor,
-                cfg.n_experts / max(1, cfg.moe_top_k)))
+        cfg = _dropless(cfg)
         MD.check_supported(cfg)
         if not MD.paged_supported(cfg) or max_seq % block_tokens:
             raise ValueError(
                 f"{arch}: paged KV unsupported (SSM/cross-attn state or "
                 f"max_seq % block_tokens != 0)")
-        # reduced members draw on the CPU (one seed, the same weights on the
-        # card and on the CPU); full-width ones on the fleet's device
-        gen_dev = "cpu" if b["reduced"] else self.device
-        params = MD.init_params(
-            cfg, torch.Generator(device=gen_dev).manual_seed(self.seed),
-            self.device)
-        pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(
-            cfg, moe_impl=b["moe_impl"])
         bpr = max_seq // block_tokens
         # 1 trash + a full table per slot + retained-prefix headroom
         # (~4 rows) for the cross-request hit rate
         nblk = kv_blocks or (1 + (batch + 4) * bpr)
+        spec_rt = None
+        if b["speculative"] is not None:
+            spec_rt = self._build_spec_runtime(b["speculative"], cfg, nblk)
+        params = self._init_params(cfg)
+        pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(
+            cfg, moe_impl=b["moe_impl"])
         member = FleetMember(arch, cfg, params, dec, batch, max_seq,
                              prompt_cap=max_seq - self.gen_tokens - 1,
                              prefill_paged_fresh=pf,
                              prefill_paged_suffix=ps,
                              copy_block=cpb,
                              block_tokens=block_tokens,
-                             num_blocks=nblk)
+                             num_blocks=nblk,
+                             spec=spec_rt)
         return member, ARLane(self, member)
+
+    def _init_params(self, cfg) -> MD.Model:
+        """Weights from the fleet's seed.  Reduced members draw on the CPU
+        (one seed, the same weights on the card and on the CPU); full-width
+        ones on the fleet's device."""
+        gen_dev = "cpu" if self._build["reduced"] else self.device
+        return MD.init_params(
+            cfg, torch.Generator(device=gen_dev).manual_seed(self.seed),
+            self.device)
+
+    def _build_spec_runtime(self, spec: SpecConfig, target_cfg,
+                            num_blocks: int) -> SpecRuntime:
+        """Draft model + speculative steps for one lane.
+
+        The draft draws its weights from the fleet's OWN seed on the same
+        generator device as every member, so a ``draft_arch`` that names a
+        fleet member proposes with identical weights to that member.  Its
+        config is the registry config (reduced or full, as the fleet's),
+        dropless, with no ``arch_overrides``.  Its paged cache reuses the
+        TARGET pool's geometry (same slots, table and blocks), so the
+        scheduler's one block table indexes both pools and speculation adds
+        no BlockPool state.  The draft decodes through the plain (``xla``)
+        path — its tokens only seed proposals — while the target's verify
+        follows the target's ``decode_impl``."""
+        b = self._build
+        draft_cfg = (get_reduced(spec.draft_arch) if b["reduced"]
+                     else get_config(spec.draft_arch))
+        draft_cfg = _dropless(draft_cfg.replace(decode_impl="xla"))
+        if draft_cfg.vocab_size != target_cfg.vocab_size:
+            raise ValueError(
+                f"speculative draft_arch {spec.draft_arch!r} vocab "
+                f"({draft_cfg.vocab_size}) != target vocab "
+                f"({target_cfg.vocab_size})")
+        steps = serve_lib.build_spec_steps(target_cfg, draft_cfg,
+                                           moe_impl=b["moe_impl"])
+        init_cache = lambda slots, c=draft_cfg: MD.init_paged_cache(
+            c, slots, b["max_seq"], num_blocks, b["block_tokens"],
+            device=self.device)
+        return SpecRuntime(cfg=draft_cfg, params=self._init_params(draft_cfg),
+                           verify=steps["verify"],
+                           draft_propose=steps["draft_propose"],
+                           prefill_fresh=steps["draft_prefill_fresh"],
+                           prefill_suffix=steps["draft_prefill_suffix"],
+                           init_cache_fn=init_cache, spec=spec)
 
     def add_member(self, arch: str, *, warmup: bool = True) -> bool:
         """Build, warm up, and register one member (the autoscaler's
@@ -435,7 +554,8 @@ class LocalFleet:
             cfg, m.batch, m.max_seq, m.num_blocks, m.block_tokens,
             device=self.device)
         return DecodeScheduler(m, gen_tokens=self.gen_tokens,
-                               init_cache_fn=init_cache, **self._sched_opts)
+                               init_cache_fn=init_cache, spec=m.spec,
+                               **self._sched_opts)
 
     # -- generation ---------------------------------------------------------
 

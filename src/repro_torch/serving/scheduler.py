@@ -39,10 +39,15 @@ if the victim's releasable blocks make the admission fit.  Parked rows
 release their blocks WITH chain hashes and re-enter the queue ahead of
 same-priority waiters.
 
+Speculative decoding (``spec=``): a :class:`DraftWorker` proposes k
+tokens per row with a draft model over the SAME block table, the member
+verifies all k+1 positions in one wide forward, and greedy acceptance keeps
+the output identical to plain decode (``DecodeScheduler._decode_spec``).
+
 Host state (positions, tables, last tokens) lives in numpy; each step
 copies positions (int32) and tables (int32, the kernels' index type) to
-the device.  The contiguous cache, speculative decoding and the overload
-probes (TTFT EWMA, queue depth) are later slices of the port.
+the device.  The contiguous cache and the overload probes (TTFT EWMA,
+queue depth) are later slices of the port.
 """
 
 from __future__ import annotations
@@ -73,6 +78,39 @@ def bucket_len(n: int, cap: int) -> int:
         if n <= b <= cap:
             return b
     return cap
+
+
+@dataclass(frozen=True)
+class SpecConfig:
+    """Draft-model speculative decoding for one text lane.
+
+    ``draft_arch`` names the registry arch whose model proposes ``k``
+    tokens per round; the lane's own member verifies all k+1 positions in
+    ONE wide forward, and greedy acceptance keeps output identical to the
+    non-speculative path.  ``adaptive`` backs a lane off to plain decode
+    when the per-slot acceptance EWMA (weight ``alpha`` per round) falls
+    below ``min_accept``; ``probe_every`` is the BASE cadence of full-k
+    probe rounds while backed off — each consecutive failed probe doubles
+    the interval (capped at 8x) and one successful probe snaps it back."""
+    draft_arch: str
+    k: int = 4
+    adaptive: bool = True
+    probe_every: int = 16
+    alpha: float = 0.6
+    min_accept: float = 0.35
+
+
+@dataclass
+class SpecRuntime:
+    """Steps + draft state the fleet hands a speculative lane."""
+    cfg: object                      # draft ModelConfig
+    params: object                   # draft MD.Model
+    verify: object                   # target-side W-wide paged verify
+    draft_propose: object            # k chained draft decode steps
+    prefill_fresh: object            # draft paged admission prefills
+    prefill_suffix: object           # (lazy draft-KV catch-up)
+    init_cache_fn: object            # slots -> draft paged cache
+    spec: SpecConfig = None
 
 
 @dataclass
@@ -275,6 +313,147 @@ class PrefillWorker:
             q.insert(i, job)
 
 
+class DraftWorker:
+    """Draft-model side of speculative decoding for one decode lane.
+
+    Owns the draft model's OWN paged cache over the same slot/block-table
+    geometry as the target: the scheduler's ``tbl`` indexes both pools, so
+    draft KV rides the blocks the target's pool already allocated — no
+    extra BlockPool accounting, no extra refcounts.
+
+    ``dpos[slot]`` counts how many CORRECT draft KV entries exist, and
+    ``catch_up`` lazily prefills the missing token range through the
+    draft's own paged prefill right before a speculative round — a freshly
+    bound, resumed, or long-backed-off row pays one bucketed draft prefill
+    instead of shadowing every admission.  After a round the draft trails
+    the target by at most one token (``lag`` in {0, 1}), which the proposal
+    loop absorbs by feeding the known-true token at step 1.
+
+    Acceptance is tracked per SLOT (EWMA), deliberately persisting across
+    the requests that flow through it: a lane under a homogeneous
+    adversarial workload stays backed off to plain decode and only the
+    periodic probe rounds re-test the draft."""
+
+    def __init__(self, sched: "DecodeScheduler", rt: SpecRuntime):
+        self.sched = sched
+        self.rt = rt
+        self.spec = rt.spec
+        self.cache = rt.init_cache_fn(sched.slots)
+        self.dpos = np.zeros((sched.slots,), np.int64)
+        self.ewma = np.ones((sched.slots,), np.float64)  # optimistic start
+        self.rounds_total = 0       # spec-eligible rounds (probe cadence)
+        self.proposals = 0          # draft proposal dispatches
+        self.catchup_prefills = 0   # draft catch-up prefill calls
+        self.probe_scale = 1        # backoff multiplier on probe_every
+        self.next_probe = 0         # rounds_total of the next probe round
+
+    def reset_slot(self, slot: int):
+        """Slot re-bound or parked: its draft KV no longer matches the
+        sequence; the next round's catch_up rebuilds it.  The acceptance
+        EWMA intentionally survives (see class docstring)."""
+        self.dpos[slot] = 0
+
+    def reset_stats(self):
+        self.dpos[:] = 0
+        self.ewma[:] = 1.0
+        self.rounds_total = 0
+        self.proposals = 0
+        self.catchup_prefills = 0
+        self.probe_scale = 1
+        self.next_probe = 0
+
+    def _full(self, seq: SequenceState) -> np.ndarray:
+        """All known-true tokens of ``seq``: indices 0..pos (the last one
+        is the pending token whose target KV is not yet written)."""
+        if len(seq.out) > seq.folded:
+            return np.concatenate(
+                [seq.ids, np.asarray(seq.out[seq.folded:], np.int32)])
+        return seq.ids
+
+    # -- adaptive width ------------------------------------------------------
+
+    def k_eff(self, slot: int) -> int:
+        if not self.spec.adaptive:
+            return self.spec.k
+        return self.spec.k if self.ewma[slot] >= self.spec.min_accept else 0
+
+    def round_width(self, live: List[int]) -> int:
+        """Verify width W for this round: 1 + max k_eff over live rows
+        (W == 1 means the scheduler falls through to plain decode).  While
+        every live row is backed off, full-k probe rounds re-test the draft
+        at ``probe_every`` cadence with exponential backoff: each
+        consecutive backed-off probe doubles the interval (cap 8x), and
+        any round that speculates at all resets the cadence."""
+        round_no = self.rounds_total
+        self.rounds_total += 1
+        if not self.spec.adaptive:
+            return 1 + self.spec.k
+        W = 1 + max(self.k_eff(i) for i in live)
+        if W > 1:
+            self.probe_scale = 1
+            return W
+        if round_no >= self.next_probe:
+            self.next_probe = round_no + \
+                max(1, self.spec.probe_every) * self.probe_scale
+            self.probe_scale = min(self.probe_scale * 2, 8)
+            return 1 + self.spec.k
+        return 1
+
+    # -- draft KV maintenance + proposal ------------------------------------
+
+    def catch_up(self, live: List[int]):
+        """Bring every live row's draft KV to within one token of the
+        target (``lag`` <= 1) via the draft's own chunked paged prefill
+        over the known-true tokens."""
+        s = self.sched
+        m = s.m
+        for i in live:
+            end = int(s.pos[i])
+            start = int(self.dpos[i])
+            if end - start <= 1:
+                continue
+            full = self._full(s.active[i])
+            trow = s._dev(s.tbl[i][None])
+            while start < end:
+                clen = min(end - start, m.prompt_cap)
+                width = bucket_len(clen, m.prompt_cap)
+                toks = np.zeros((1, width), np.int32)
+                toks[0, :clen] = full[start:start + clen]
+                fn = self.rt.prefill_fresh if start == 0 \
+                    else self.rt.prefill_suffix
+                _, self.cache = fn(self.rt.params, s._dev(toks),
+                                   s._dev([clen]), s._dev([start]), trow,
+                                   self.cache)
+                start += clen
+                self.catchup_prefills += 1
+            self.dpos[i] = end
+
+    def propose(self, live: List[int], W: int) -> np.ndarray:
+        """One draft dispatch: W autoregressive draft steps for all slots,
+        returning each row's W-1 proposals for target positions
+        pos+1..pos+W-1.  Requires ``catch_up`` first (lag <= 1)."""
+        s = self.sched
+        buf = np.zeros((s.slots, 2), np.int32)
+        lag = np.zeros((s.slots,), np.int32)
+        for i in live:
+            d = int(self.dpos[i])
+            lag[i] = int(s.pos[i]) - d
+            full = self._full(s.active[i])
+            buf[i, 0] = full[d]
+            buf[i, 1] = full[d + 1] if d + 1 < len(full) else full[d]
+        self.cache["pos"] = s._dev(self.dpos)
+        self.cache["tbl"] = s._dev(s.tbl)
+        props, self.cache = self.rt.draft_propose(
+            self.rt.params, s._dev(buf), s._dev(lag), self.cache, steps=W)
+        self.proposals += 1
+        return props.cpu().numpy()
+
+    def commit(self, slot: int, W: int):
+        """After a verify round: the draft wrote W entries from its old
+        dpos; the correct prefix is bounded by the target's new pos."""
+        self.dpos[slot] = min(self.dpos[slot] + W, self.sched.pos[slot])
+
+
 class DecodeScheduler:
     """Slot-based continuous-batching scheduler for one paged member.
 
@@ -287,7 +466,8 @@ class DecodeScheduler:
     def __init__(self, member, *, gen_tokens: int, init_cache_fn,
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = 1,
-                 prefill_lookahead: int = 0):
+                 prefill_lookahead: int = 0,
+                 spec: Optional[SpecRuntime] = None):
         self.m = member
         self.gen_tokens = gen_tokens
         self.slots = member.batch
@@ -318,6 +498,16 @@ class DecodeScheduler:
         self.prefill_tokens = 0          # prompt tokens actually prefilled
         self.cached_tokens = 0           # prompt tokens served from cache
         self.preempted = 0               # rows parked by priority preemption
+        # speculative decoding
+        self.drafter: Optional[DraftWorker] = None
+        self.spec_enabled = True
+        if spec is not None:
+            self.drafter = DraftWorker(self, spec)
+        self.spec_rounds = 0             # wide verify dispatches
+        self.spec_offered = 0            # draft tokens offered to verify
+        self.spec_accepted = 0           # draft tokens accepted
+        self.spec_emitted = 0            # tokens emitted by spec rounds
+        self.spec_acceptance_ewma = 0.0  # mean acceptance, EWMA over rounds
 
     def _dev(self, a) -> torch.Tensor:
         """Host int32 data -> device int32 tensor."""
@@ -423,6 +613,8 @@ class DecodeScheduler:
             self.pos[slot] = job.plen
             self.last_tok[slot] = job.first
             self.active[slot] = seq
+            if self.drafter is not None:
+                self.drafter.reset_slot(slot)
             self.admitted += 1
             if seq.parks == 0:       # a resume is not a new prompt
                 m.prompts_in += 1
@@ -470,6 +662,8 @@ class DecodeScheduler:
         self.active[slot] = None
         self.pos[slot] = 0
         self.last_tok[slot] = 0
+        if self.drafter is not None:
+            self.drafter.reset_slot(slot)
         seq.slot = -1
         seq.parks += 1
         self.preempted += 1
@@ -478,6 +672,10 @@ class DecodeScheduler:
         self._enqueue(seq, requeue=True)
 
     def _decode(self, live: List[int], done: List[SequenceState]):
+        if self.drafter is not None and self.spec_enabled:
+            W = self.drafter.round_width(live)
+            if W > 1:
+                return self._decode_spec(live, done, W)
         m = self.m
         dead = [i for i in range(self.slots) if self.active[i] is None]
         # freed slots are masked out of the step: pos 0 + an all-trash
@@ -506,6 +704,88 @@ class DecodeScheduler:
             # no token may be sampled for a freed slot
             assert self.active[i] is None
             self.last_tok[i] = 0
+
+    def _decode_spec(self, live: List[int], done: List[SequenceState],
+                     W: int):
+        """One speculative round: the draft proposes W-1 tokens per row,
+        the target verifies all W positions in ONE wide forward, and greedy
+        acceptance emits the longest agreeing prefix plus the target's own
+        next token — the same tokens ``_decode`` would emit, since verify
+        position t reproduces the decode step at depth pos+t.
+
+        Rollback is free: the verify wrote KV for all W positions through
+        the row's existing block table, but entries past the accepted
+        prefix sit BEYOND the row's new ``pos`` — outside every future
+        attention frontier until overwritten — so no block is allocated,
+        copied, or released for a rejection."""
+        m = self.m
+        dw = self.drafter
+        dead = [i for i in range(self.slots) if self.active[i] is None]
+        assert not set(dead) & set(live)
+        dw.catch_up(live)
+        props = dw.propose(live, W)          # (slots, W-1) draft tokens
+        toks = np.zeros((self.slots, W), np.int32)
+        for i in live:
+            toks[i, 0] = self.last_tok[i]    # pending token enters first
+            toks[i, 1:] = props[i]
+        self.cache["pos"] = self._dev(self.pos)
+        self.cache["tbl"] = self._dev(self.tbl)
+        ver, self.cache = dw.rt.verify(m.params, self._dev(toks), self.cache)
+        ver = ver.cpu().numpy()              # (slots, W) greedy per position
+        self.decode_steps += 1
+        self.slot_steps += len(live)
+        self.masked_slot_steps += len(dead)
+        accs = []
+        for i in live:
+            seq = self.active[i]
+            assert seq is not None and len(seq.out) < seq.max_new, \
+                f"slot {i}: token sampled for a freed/finished sequence"
+            # proposals past the row's remaining token budget can never be
+            # emitted: they stay out of the acceptance accounting
+            rem = min(seq.max_new - len(seq.out),
+                      self.max_seq - 1 - int(self.pos[i]))
+            useful = min(W - 1, max(0, rem - 1))
+            # greedy acceptance: proposal d_{t+1} == target sample g_t
+            a = 0
+            while a < useful and props[i, a] == ver[i, a]:
+                a += 1
+            for t in range(a + 1):           # emit g_0..g_a, budget-capped
+                tok = int(ver[i, t])
+                seq.out.append(tok)
+                self.last_tok[i] = tok
+                m.tokens_out += 1
+                self.pos[i] += 1
+                self.spec_emitted += 1
+                if len(seq.out) >= seq.max_new or \
+                        self.pos[i] >= self.max_seq - 1:
+                    break
+            if useful:
+                acc = a / useful
+                accs.append(acc)
+                al = dw.spec.alpha
+                dw.ewma[i] = (1.0 - al) * dw.ewma[i] + al * acc
+            dw.commit(i, W)
+            self.spec_offered += useful
+            self.spec_accepted += a
+            if len(seq.out) >= seq.max_new or self.pos[i] >= self.max_seq - 1:
+                self._finish(seq, done)
+        self.spec_rounds += 1
+        if accs:
+            mean_acc = sum(accs) / len(accs)
+            self.spec_acceptance_ewma = mean_acc if self.spec_rounds == 1 \
+                else 0.8 * self.spec_acceptance_ewma + 0.2 * mean_acc
+            METRICS.observe("spec_accept_rate", mean_acc, arch=m.arch)
+        for i in dead:
+            # no token may be sampled for a freed slot (its verify lanes
+            # computed garbage that is never read)
+            assert self.active[i] is None
+            self.last_tok[i] = 0
+
+    @property
+    def spec_tokens_per_round(self) -> float:
+        """Mean tokens emitted per speculative verify dispatch (1.0 == no
+        better than plain decode)."""
+        return self.spec_emitted / max(1, self.spec_rounds)
 
     def _finish(self, seq: SequenceState, done: List[SequenceState]):
         seq.t_done = time.perf_counter()

@@ -1,4 +1,5 @@
-"""Serving-step builders of the port: paged prefill + decode.
+"""Serving-step builders of the port: paged prefill + decode, and the
+speculative-decoding steps (wide verify, fused draft proposal).
 
 The reference jits each step and donates the cache; here every step is a
 plain callable that runs eagerly and updates the cache's KV pools in
@@ -26,6 +27,70 @@ def make_decode_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
                                        moe_impl=moe_impl)
         return greedy(logits), cache
     return serve_step
+
+
+def make_verify_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
+    """Speculative verify: W tokens per row (pending token + W-1 draft
+    proposals) through ONE wide forward over the paged cache.  Returns
+    the greedy token at EVERY position — ``out[:, t]`` is what a plain
+    decode step at depth pos+t would have sampled."""
+    def verify_step(params, tokens, cache):
+        logits, cache = MD.verify(cfg, params, tokens, cache,
+                                  moe_impl=moe_impl)
+        return greedy(logits), cache
+    return verify_step
+
+
+def make_draft_propose_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
+    """Draft proposal loop: ``steps`` autoregressive draft-model decode
+    steps (the reference fuses them in one ``lax.scan``; here a Python
+    loop that chains each step's greedy token on the device — no host sync
+    per step).
+
+    ``buf`` (B, 2) holds the known-true tokens at draft depths
+    ``dpos``/``dpos+1`` and ``lag`` (B,) in {0, 1} is how far the draft
+    trails the target (``pos - dpos``): step 0 consumes ``buf[:, 0]``,
+    step 1 consumes ``buf[:, 1]`` for lagging rows (else its own step-0
+    argmax), later steps chain their own argmax.  Row b's W-1 proposals
+    for target positions ``pos+1..`` are the step outputs shifted by its
+    lag.  The draft cache pos advances by ``steps``."""
+    @torch.no_grad()
+    def draft_propose(params, buf, lag, cache, *, steps: int):
+        prev = buf[:, 0]
+        outs = []
+        for j in range(steps):
+            if j == 0:
+                tok = buf[:, 0]
+            elif j == 1:
+                tok = torch.where(lag == 1, buf[:, 1], prev)
+            else:
+                tok = prev
+            logits, cache = MD.decode_step(cfg, params, tok[:, None], cache,
+                                           moe_impl=moe_impl)
+            prev = greedy(logits)
+            outs.append(prev)
+        outs = torch.stack(outs, dim=1)                  # (B, steps)
+        idx = torch.arange(steps - 1, device=outs.device)[None, :] + \
+            lag.long()[:, None]                          # (B, steps-1)
+        return torch.gather(outs, 1, idx), cache
+    return draft_propose
+
+
+def build_spec_steps(target_cfg: ModelConfig, draft_cfg: ModelConfig, *,
+                     moe_impl: str = "ep"):
+    """Speculative-decoding step bundle for one text lane: the target-side
+    ``verify`` (W-wide paged forward, greedy tokens at all W positions),
+    the draft-side ``draft_propose`` (k chained draft decode steps) and the
+    draft's own paged admission prefills (``draft_prefill_fresh`` /
+    ``draft_prefill_suffix``) for lazy draft-KV catch-up after admission,
+    parks and backed-off rounds.  Every cache is updated in place."""
+    return {"verify": make_verify_fn(target_cfg, moe_impl=moe_impl),
+            "draft_propose": make_draft_propose_fn(draft_cfg,
+                                                   moe_impl=moe_impl),
+            "draft_prefill_fresh": make_prefill_paged_fn(
+                draft_cfg, fresh=True, moe_impl=moe_impl),
+            "draft_prefill_suffix": make_prefill_paged_fn(
+                draft_cfg, fresh=False, moe_impl=moe_impl)}
 
 
 def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool,

@@ -6,7 +6,9 @@ card:
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 float32 within 1e-4 (TF32 off; summation order only), bfloat16 within
-2e-2 as atol = rtol (``tests/test_kernels.py:_tol``).  No JAX here: the
+2e-2 as atol = rtol (``tests/test_kernels.py:_tol``).  The verify kernels
+are also held to the decode kernels bitwise: position t of a W-wide verify
+equals a decode launch at ``kv_len - W + t + 1``.  No JAX here: the
 machine with the card need not have it.
 """
 
@@ -20,7 +22,8 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.flash_decode.ops import (
     paged_flash_decode, paged_flash_decode_mla, paged_flash_decode_mla_plain,
-    paged_flash_decode_plain)
+    paged_flash_decode_plain, paged_flash_verify, paged_flash_verify_mla,
+    paged_flash_verify_mla_plain, paged_flash_verify_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -133,6 +136,78 @@ def test_paged_mla_decode_kernel_matches_plain(cuda, dtype, B, H, r, rh, nb,
     _close(out, ref, dtype)
 
 
+def _verify_lens(B, S, W, seed):
+    """kv_len per row: W (first frontier 1), a dead row (kv_len 1: the
+    first W-1 positions see nothing), the full table, and random."""
+    return [W, 1, S] + [random.Random(seed + b).randrange(W, S + 1)
+                        for b in range(B - 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd,W", [(15, 5, 64, 5), (3, 1, 20, 3),
+                                         (8, 2, 128, 2), (4, 4, 64, 1)])
+def test_paged_verify_kernel_matches_plain_and_decode(cuda, dtype, Hq, Hkv,
+                                                      hd, W):
+    B, nb, max_blocks, blk = 6, 60, 8, 16
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(hd))
+    tbl = (perm[:B * max_blocks] + 1).reshape(B, max_blocks).to(torch.int32)
+    t = tbl.to(cuda)
+    kl = torch.tensor(_verify_lens(B, max_blocks * blk, W, hd),
+                      dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(hd + W)
+    q = torch.randn((B, W, Hq, hd), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    before = paged_flash_verify.launches
+    out = paged_flash_verify(q, kp, vp, t, kl)
+    ref = paged_flash_verify_plain(q, kp, vp, t, kl)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, ref, dtype)
+    assert bool((out[1, :W - 1] == 0).all())            # frontier <= 0
+    for pos in range(W):
+        step = paged_flash_decode(q[:, pos].contiguous(), kp, vp, t,
+                                  kl - (W - 1 - pos))
+        assert torch.equal(out[:, pos], step), f"position {pos}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,r,rh,nb,max_blocks", [
+    (8, 5, 128, 512, 64, 385, 32),   # deepseek-v2 at full width, max_seq 512
+    (5, 3, 4, 16, 8, 40, 4),         # reduced: one masked head tile
+    (4, 1, 20, 64, 32, 60, 8)])      # W = 1: the decode kernel's launch
+def test_paged_mla_verify_kernel_matches_plain_and_decode(cuda, dtype, B, W,
+                                                          H, r, rh, nb,
+                                                          max_blocks):
+    blk = 16
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(r))
+    tbl = (perm[:B * max_blocks] + 1).reshape(B, max_blocks).to(torch.int32)
+    kl = torch.tensor(_verify_lens(B, max_blocks * blk, W, r),
+                      dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(H + r)
+    args = (torch.randn((B, W, H, r), generator=g, device=cuda).to(dtype),
+            torch.randn((B, W, H, rh), generator=g, device=cuda).to(dtype),
+            torch.randn((nb, blk, r), generator=g, device=cuda).to(dtype),
+            torch.randn((nb, blk, rh), generator=g, device=cuda).to(dtype),
+            tbl.to(cuda), kl)
+    scale = 1.0 / (2.0 * rh) ** 0.5
+    before = paged_flash_verify_mla.launches
+    out = paged_flash_verify_mla(*args, scale=scale)
+    ref = paged_flash_verify_mla_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert paged_flash_verify_mla.launches == before + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    _close(out, ref, dtype)
+    assert bool((out[1, :W - 1] == 0).all())            # frontier <= 0
+    ql, qr = args[0], args[1]
+    for pos in range(W):
+        step = paged_flash_decode_mla(ql[:, pos].contiguous(),
+                                      qr[:, pos].contiguous(), *args[2:5],
+                                      kl - (W - 1 - pos), scale=scale)
+        assert torch.equal(out[:, pos], step), f"position {pos}"
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn((1, 8, 4, 16), device=cuda)
     k = torch.randn((1, 8, 2, 16), device=cuda)
@@ -166,6 +241,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="disagree"):
         paged_flash_decode_mla(ql, qr, ckv[..., :8].contiguous(), kr, tbl, kl,
                                scale=0.1)
+    with pytest.raises(ValueError, match="shared memory"):   # W x G rows
+        paged_flash_verify(torch.randn((1, 64, 8, 16), device=cuda), pool,
+                           pool, torch.zeros((1, 64), dtype=torch.int32,
+                                             device=cuda),
+                           torch.ones((1,), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="disagree"):
+        paged_flash_verify_mla(ql[:, None], qr[:, None].expand(2, 2, 4, 8)
+                               .contiguous(), ckv, kr, tbl, kl, scale=0.1)
 
 
 def test_reduced_fleet_on_card_equals_cpu(cuda):
@@ -211,4 +294,34 @@ def test_reduced_mla_fleet_on_card_equals_cpu(cuda):
             steps = f.schedulers[arch].decode_steps
             assert paged_flash_decode_mla.launches - before == 3 * steps > 0
         assert f.schedulers[arch].pool.live_refs() == 0
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("arch,layers", [("smollm-360m", 2),
+                                         ("deepseek-v2-236b", 3)])
+def test_reduced_spec_fleet_on_card_equals_cpu(cuda, arch, layers):
+    """Reduced float32 speculative fleet (aligned draft, k = 4) with the
+    verify kernels on the card vs the plain fleet on the CPU: identical
+    tokens, and the target's verify kernel ran once per layer and
+    speculative round.  (The draft keeps the registry's bf16, so its
+    proposals — and the spec counters — may differ between card and CPU;
+    the tokens are the float32 target's.)"""
+    from repro_torch.serving.fleet import LocalFleet
+    from repro_torch.serving.scheduler import SpecConfig
+    verify = paged_flash_verify_mla if arch == "deepseek-v2-236b" \
+        else paged_flash_verify
+    prompts = ["a b c d e f g h i j k l m n o p q r s t", "short one",
+               "a b c d e f g h i j k l m n o p different tail here"]
+    outs = {}
+    for dev, spec in (("cuda", SpecConfig(arch, k=4)), ("cpu", None)):
+        f = LocalFleet([arch], batch=2, gen_tokens=8, warmup=False,
+                       decode_impl="flash_paged",
+                       arch_overrides={arch: {"dtype": "float32"}},
+                       speculative=spec, device=dev)
+        s = f.schedulers[arch]
+        before = verify.launches
+        outs[dev] = [o["tokens"] for o in f.generate(arch, prompts)]
+        if dev == "cuda":
+            assert verify.launches - before == layers * s.spec_rounds > 0
+        assert s.pool.live_refs() == 0
     assert outs["cuda"] == outs["cpu"]

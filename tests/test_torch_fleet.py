@@ -135,7 +135,8 @@ def test_warmup_runs_every_step_and_resets_stats():
 
 def test_unported_keywords_and_device_rule(monkeypatch):
     kw = dict(batch=2, warmup=False, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # speculative decoding is ported: only a malformed config raises
+    with pytest.raises(ValueError, match="SpecConfig"):
         LocalFleet([ARCH], speculative=object(), **kw)
     with pytest.raises(NotImplementedError):
         LocalFleet([ARCH], model_axis=2, **kw)

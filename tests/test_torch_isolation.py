@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package, and serving a request
-through the port loads neither."""
+``chip_smoke.py`` or ``tests/test_torch_cuda.py`` imports JAX or the JAX
+package, and serving a request — plain and speculative — through the port
+loads neither."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -53,6 +54,14 @@ def test_serving_a_request_loads_no_jax():
         "out = f.call_fn({'m': 'smollm-360m'})(None, {'model': 'm', "
         "'messages': [{'role': 'user', 'content': 'hello fleet'}]}, {})\n"
         "assert out['usage']['completion_tokens'] == 3, out\n"
+        "from repro_torch.serving.scheduler import SpecConfig\n"
+        "g = LocalFleet(['deepseek-v2-236b'], batch=2, gen_tokens=5, "
+        "warmup=False, decode_impl='flash_paged', "
+        "speculative=SpecConfig('deepseek-v2-236b', k=3), device='cpu')\n"
+        "out = g.call_fn({'m': 'deepseek-v2-236b'})(None, {'model': 'm', "
+        "'messages': [{'role': 'user', 'content': 'hello draft'}]}, {})\n"
+        "assert out['usage']['completion_tokens'] == 5, out\n"
+        "assert g.schedulers['deepseek-v2-236b'].spec_rounds > 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")

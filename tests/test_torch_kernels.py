@@ -30,7 +30,13 @@ from repro_torch.kernels.flash_decode import (gather_kv,
                                               paged_flash_decode_mla,
                                               paged_flash_decode_mla_plain,
                                               paged_flash_decode_plain,
-                                              paged_mla_decode_reference)
+                                              paged_flash_verify,
+                                              paged_flash_verify_mla,
+                                              paged_flash_verify_mla_plain,
+                                              paged_flash_verify_plain,
+                                              paged_mla_decode_reference,
+                                              paged_mla_verify_reference,
+                                              paged_verify_reference)
 from test_kernels import FLASH_CASES, _tol
 
 
@@ -205,6 +211,95 @@ def test_mla_wrapper_takes_plain_version_on_cpu():
     assert paged_flash_decode_mla.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         paged_flash_decode_mla(ql.to("meta"), qr, ckv, kr, tbl, kl, scale=0.2)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", range(2))
+def test_paged_verify_plain_vs_jax_decode_oracle(dt, seed):
+    """Verify = W decode steps: each position of the plain verify (random
+    shared/trash tables, W = 4, every frontier >= 1) against the JAX gather
+    oracle at that position's frontier ``kv_len - W + t + 1``; the port's
+    verify oracle agrees too."""
+    jd = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    td = _tdtype(jd)
+    B, nb, max_blocks, blk, Hq, Hkv, hd, W = 6, 12, 4, 16, 6, 2, 64, 4
+    r = np.random.default_rng(50 + seed)
+    kp = r.standard_normal((nb, blk, Hkv, hd))
+    vp = r.standard_normal((nb, blk, Hkv, hd))
+    q = r.standard_normal((B, W, Hq, hd))
+    tbl, kv_len = _rand_case(random.Random(50 + seed), B=B, nb=nb,
+                             max_blocks=max_blocks, blk=blk)
+    kv_len = np.maximum(kv_len, W).astype(np.int32)
+    targs = (_t(kp, td), _t(vp, td), torch.from_numpy(tbl),
+             torch.from_numpy(kv_len))
+    out = paged_flash_verify_plain(_t(q, td), *targs).float().numpy()
+    mine = paged_verify_reference(_t(q, td), *targs).float().numpy()
+    tol = _tol(jd)
+    for t in range(W):
+        ref = np.asarray(j_paged_ref(_j(q[:, t], jd), _j(kp, jd), _j(vp, jd),
+                                     jnp.asarray(tbl),
+                                     jnp.asarray(kv_len - (W - 1 - t))),
+                         np.float32)
+        np.testing.assert_allclose(out[:, t], ref, atol=tol, rtol=tol)
+        np.testing.assert_allclose(mine[:, t], ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_mla_verify_plain_vs_jax_decode_oracle(dt):
+    jd = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    td = _tdtype(jd)
+    B, nb, max_blocks, blk, H, r, rh, W = 4, 10, 4, 16, 8, 64, 32, 3
+    scale = 1.0 / np.sqrt(96.0)
+    g = np.random.default_rng(150)
+    ckv = g.standard_normal((nb, blk, r))
+    kr = g.standard_normal((nb, blk, rh))
+    ql = g.standard_normal((B, W, H, r))
+    qr = g.standard_normal((B, W, H, rh))
+    tbl, kv_len = _rand_case(random.Random(150), B=B, nb=nb,
+                             max_blocks=max_blocks, blk=blk)
+    kv_len = np.maximum(kv_len, W).astype(np.int32)
+    targs = (_t(ckv, td), _t(kr, td), torch.from_numpy(tbl),
+             torch.from_numpy(kv_len))
+    out = paged_flash_verify_mla_plain(_t(ql, td), _t(qr, td), *targs,
+                                       scale=scale).float().numpy()
+    mine = paged_mla_verify_reference(_t(ql, td), _t(qr, td), *targs,
+                                      scale=scale).float().numpy()
+    tol = _tol(jd)
+    for t in range(W):
+        ref = np.asarray(j_mla_ref(_j(ql[:, t], jd), _j(qr[:, t], jd),
+                                   _j(ckv, jd), _j(kr, jd), jnp.asarray(tbl),
+                                   jnp.asarray(kv_len - (W - 1 - t)),
+                                   scale=scale), np.float32)
+        np.testing.assert_allclose(out[:, t], ref, atol=tol, rtol=tol)
+        np.testing.assert_allclose(mine[:, t], ref, atol=tol, rtol=tol)
+
+
+def test_verify_wrappers_take_plain_version_on_cpu():
+    """The verify wrappers run their plain versions on CPU tensors
+    (bitwise, no launch counted) and raise on any other device."""
+    r = np.random.default_rng(2)
+    q = _t(r.standard_normal((2, 3, 4, 16)), torch.float32)
+    pool = _t(r.standard_normal((3, 4, 2, 16)), torch.float32)
+    tbl = torch.tensor([[1, 2], [2, 0]], dtype=torch.int32)
+    kl = torch.tensor([7, 3], dtype=torch.int32)
+    before = paged_flash_verify.launches
+    assert torch.equal(paged_flash_verify(q, pool, pool, tbl, kl),
+                       paged_flash_verify_plain(q, pool, pool, tbl, kl))
+    assert paged_flash_verify.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_flash_verify(q.to("meta"), pool, pool, tbl, kl)
+    ql = _t(r.standard_normal((2, 3, 4, 16)), torch.float32)
+    qr = _t(r.standard_normal((2, 3, 4, 8)), torch.float32)
+    ckv = _t(r.standard_normal((3, 4, 16)), torch.float32)
+    kr = _t(r.standard_normal((3, 4, 8)), torch.float32)
+    mbefore = paged_flash_verify_mla.launches
+    assert torch.equal(
+        paged_flash_verify_mla(ql, qr, ckv, kr, tbl, kl, scale=0.2),
+        paged_flash_verify_mla_plain(ql, qr, ckv, kr, tbl, kl, scale=0.2))
+    assert paged_flash_verify_mla.launches == mbefore
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_flash_verify_mla(ql.to("meta"), qr, ckv, kr, tbl, kl,
+                               scale=0.2)
 
 
 def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
