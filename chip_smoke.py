@@ -10,11 +10,16 @@ Phases, in order; any failure exits non-zero before the result line:
    the CUDA kernels built from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) with their build seconds.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card at the fleets' shapes, float32 (TF32 off) and bfloat16; the MLA
+   card at the paths' shapes, float32 (TF32 off) and bfloat16; the MLA
    kernels also at a reduced shape with a masked head tile.
    The verify kernels are also held to the decode kernels bitwise
    (position t of a W = 5 verify == a decode launch at its frontier;
    W = 1 == decode) with dead positions (frontier <= 0) exact zeros.
+   The multi-adapter LoRA kernel at the encoder path's shape (5 tasks x 12
+   texts x 512 tokens, rows sorted by task), at ``tests/test_kernels.py``'s
+   LORA_CASES with shuffled ids and one task absent, and with out-of-range
+   ids (exact zero rows); the contiguous ``flash_decode`` wrapper at the
+   reference's DECODE_CASES.
 3. model: full-width smollm-360m (random weights from a seeded
    ``torch.Generator``) through ``prefill`` + 16 ``decode_step``s on the
    kernel path and on the plain path, teacher-forced with the kernel
@@ -35,18 +40,29 @@ Phases, in order; any failure exits non-zero before the result line:
    reduced float32 speculative fleets (smollm and deepseek, aligned
    drafts) on the card against the CPU plain fleets, token for token.
    The smollm fleets and model are freed before the deepseek phases.
-6. mla_model: deepseek-v2-236b at its published widths (160 experts, top-6,
+6. signals: the learned-signal path — ``SignalEngine.extract_many`` over
+   16 requests (12 distinct texts) with a full-width float32 encoder
+   (ModernBERT-base widths: 22 layers, d 768, 12 heads, LoRA rank 32;
+   ``max_len`` cut from 32 768 to 512) as classifier, hash embeddings,
+   and one signal of each learned type plus a keyword signal: one fused
+   ``classify_all`` and one ``token_classify`` per batch, the LoRA kernel
+   launched 2 x 22 times per fused call, repeated texts identical; fused
+   vs one forward per task (labels equal but for near-ties); the decision
+   gate on the card == ``DecisionEngine`` per request (crisp/priority and
+   fuzzy/confidence); a reduced float32 encoder on the card == the CPU;
+   wall per batch and request, and the profiler batch.
+7. mla_model: deepseek-v2-236b at its published widths (160 experts, top-6,
    2 shared; MLA r 512, rope 64) with its depth cut to 1 dense + 7 MoE
    layers of 60, bf16, through prefill + 16 teacher-forced decode steps on
    ``decode_impl="flash_paged"`` (the MLA kernels) and ``"xla"``, then the
    W = 5 verify against 5 decode steps.  (A full-width deepseek
    speculative fleet cannot run: its draft takes the registry depth, 60
    layers, ~471 GB.)
-7. mla_fleet: the same cut model served through ``batch_call`` (the same
+8. mla_fleet: the same cut model served through ``batch_call`` (the same
    12 requests, MLA kernel on, launches counted), the profiler batch, and
    a reduced float32 deepseek fleet on the card against the CPU.
-8. times: kernel, plain version and one PyTorch library call at the
-   fleets' shapes (median of CUDA-event timings, L2 flushed before each
+9. times: kernel, plain version and one PyTorch library call at the
+   paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound.
 
 The last two lines are one JSON object with a row per kernel, then
@@ -85,8 +101,21 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 W_SPEC = 5                                # verify width: pending token + k = 4
-PHASES = ("kernels", "model", "fleet", "spec_fleet", "mla_model",
+PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
           "mla_fleet", "times")
+# the encoder signal path: ModernBERT-base widths with max_len cut to 512
+# (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
+# at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
+ENC_MAX_LEN = 512
+SEQ_TASKS = ("domain", "jailbreak", "fact_check", "user_feedback",
+             "modality")
+N_TEXTS = 12
+# N, din, dout, T, r of tests/test_kernels.py's LORA_CASES
+LORA_CASES = ((256, 768, 768, 6, 32), (130, 512, 256, 3, 16),
+              (256, 384, 384, 10, 64), (64, 128, 128, 1, 8))
+# B, Skv, Hq, Hkv, hd of tests/test_kernels.py's DECODE_CASES
+DECODE_CASES = ((4, 512, 8, 2, 64), (2, 384, 6, 6, 128), (3, 1024, 16, 4, 64),
+                (2, 256, 4, 1, 64))
 
 
 def log(msg: str) -> None:
@@ -254,6 +283,78 @@ def _compare(out, ref, tol):
     return err, ok
 
 
+def lora_path_case(dtype, gen):
+    """Kernel 6 at the encoder path's shape: T = 5 tasks x 12 texts x 512
+    tokens = 30 720 rows, din = dout = 768, r = 32, rows sorted by task as
+    ``multitask_logits`` lays them out.  Returns (x, a, b, ids)."""
+    import torch
+    T, N, d, r = len(SEQ_TASKS), len(SEQ_TASKS) * N_TEXTS * ENC_MAX_LEN, 768, 32
+    ids = (torch.arange(N, device="cuda") // (N // T)).to(torch.int32)
+    return (_rand((N, d), dtype, gen), _rand((T, d, r), dtype, gen) * 0.05,
+            _rand((T, r, d), dtype, gen) * 0.05, ids.contiguous())
+
+
+def lora_cases(dtype, gen):
+    """(label, x, a, b, ids, scale): the path's shape (scale 1, the
+    encoder's); LORA_CASES at scale 2 with the ids shuffled and task T-1
+    absent (T > 1); one case with ids outside [0, T) mixed in."""
+    import torch
+    cases = [("path sorted", *lora_path_case(dtype, gen), 1.0)]
+    perm_gen = torch.Generator().manual_seed(3)
+    for N, din, dout, T, r in LORA_CASES:
+        ids = (torch.arange(N) % max(1, T - 1))[torch.randperm(
+            N, generator=perm_gen)]
+        cases.append((f"N={N} din={din} dout={dout} T={T} r={r} shuffled",
+                      _rand((N, din), dtype, gen),
+                      _rand((T, din, r), dtype, gen) * 0.05,
+                      _rand((T, r, dout), dtype, gen) * 0.05,
+                      ids.to(torch.int32).cuda(), 2.0))
+    N, din, dout, T, r = LORA_CASES[1]
+    ids = torch.randint(0, T, (N,), generator=perm_gen)
+    ids[::7], ids[3::11], ids[5::13] = -1, T, 1 << 20
+    cases.append((f"N={N} T={T} out-of-range ids", _rand((N, din), dtype, gen),
+                  _rand((T, din, r), dtype, gen) * 0.05,
+                  _rand((T, r, dout), dtype, gen) * 0.05,
+                  ids.to(torch.int32).cuda(), 2.0))
+    return cases
+
+
+def check_lora_and_flash_decode(errs, dtype, dname, gen):
+    """Kernel 6 on ``lora_cases`` and the contiguous ``flash_decode``
+    wrapper on DECODE_CASES, each against its plain version."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      flash_decode_plain)
+    from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
+    for label, x, a, b, ids, scale in lora_cases(dtype, gen):
+        out = multi_lora(x, a, b, ids, scale=scale)
+        ref = multi_lora_plain(x, a, b, ids, scale=scale)
+        torch.cuda.synchronize()
+        err, ok = _compare(out, ref, TOL[dname])
+        dead = (ids < 0) | (ids >= a.shape[0])
+        zeros = bool((out[dead] == 0).all().item())
+        ok = ok and zeros
+        log(f"  multi_lora {dname} {label}: max_abs_err {err:.3e} (max "
+            f"|out| {out.float().abs().max().item():.3e}), "
+            f"{int(dead.sum())} out-of-range rows exact zeros: {zeros} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"multi_lora {dname} {label}: {err} zeros={zeros}")
+        errs["multi_lora"] = max(errs.get("multi_lora", 0.0), err)
+    for B, Skv, Hq, Hkv, hd in DECODE_CASES:
+        q = _rand((B, Hq, hd), dtype, gen)
+        k, v = (_rand((B, Skv, Hkv, hd), dtype, gen) for _ in range(2))
+        kl = torch.randint(1, Skv + 1, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        out = flash_decode(q, k, v, kl)
+        ref = flash_decode_plain(q, k, v, kl)
+        torch.cuda.synchronize()
+        err, ok = _compare(out, ref, TOL[dname])
+        log(f"  flash_decode {dname} B={B} Skv={Skv} {Hq}/{Hkv} heads hd "
+            f"{hd} kv_len {kl.tolist()}: max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_decode {dname} Skv={Skv}: {err}")
+
+
 def phase_kernels(errs):
     import torch
     from repro_torch.kernels.flash_attention.ops import (
@@ -330,6 +431,7 @@ def phase_kernels(errs):
                               dname)
             errs["paged_flash_verify_mla"] = max(
                 errs.get("paged_flash_verify_mla", 0.0), err)
+        check_lora_and_flash_decode(errs, dtype, dname, gen)
 
 
 # ---------------------------------------------------------------------------
@@ -597,31 +699,37 @@ def payloads(arch=ARCH):
     return out
 
 
-def profile_fleet(fleet, prompts, arch=ARCH, max_new=8):
-    """Device busy share and the top kernels by device time while the
-    fleet serves one batch (8 prompts, one per slot, ``max_new`` tokens)
-    under torch.profiler.  Its overhead inflates the wall time, so the
-    busy share is a floor; only device-side events are summed (a CPU op's
-    device time repeats its kernels')."""
+def profile_run(label, fn):
+    """Device busy share and the top kernels by device time while ``fn``
+    runs under torch.profiler.  Its overhead inflates the wall time, so
+    the busy share is a floor; only device-side events are summed (a CPU
+    op's device time repeats its kernels').  Returns (wall ms, busy ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fleet.generate(arch, prompts, max_new=max_new)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in events)
-    log(f"profile: {len(prompts)} requests x {max_new} tokens, wall "
-        f"{wall * 1e3:.1f} ms under the profiler, device busy "
+    log(f"{label}, wall {wall * 1e3:.1f} ms under the profiler, device busy "
         f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
+    return wall * 1e3, dev_us / 1e3
+
+
+def profile_fleet(fleet, prompts, arch=ARCH, max_new=8):
+    """``profile_run`` over the fleet serving one batch (8 prompts, one
+    per slot, ``max_new`` tokens)."""
+    profile_run(f"profile: {len(prompts)} requests x {max_new} tokens",
+                lambda: fleet.generate(arch, prompts, max_new=max_new))
 
 
 def served_batch(label, fleet, arch, kernels, card):
@@ -861,6 +969,294 @@ def phase_spec_fleet(launches, card, ctx):
         per_round=3)["paged_flash_verify_mla"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the learned-signal path (encoder + decision gate)
+# ---------------------------------------------------------------------------
+
+# one signal of each learned type (``tests/test_signal_plan.py``'s
+# ENGINE_CFG plus user_feedback, keyword and embedding)
+SIGNALS_CFG = {
+    "domain": {"d": {"mmlu_categories": ["math"]}},
+    "fact_check": {"f": {"threshold": 0.5}},
+    "modality": {"m": {"modalities": ["diffusion"]}},
+    "jailbreak": {"j": {"method": "classifier", "threshold": 0.5}},
+    "pii": {"p": {"pii_types_allowed": []}},
+    "user_feedback": {"u": {"categories": ["dissatisfied"]}},
+    "keyword": {"k": {"keywords": ["incident", "risks", "urgent"]}},
+    "embedding": {"e": {"reference_texts": ["explain how attention works",
+                                            "write a short poem"],
+                        "threshold": 0.3}},
+}
+# fused (kernel 6) vs one forward per task: float32 with TF32 off, so the
+# probabilities differ by summation order only
+SIG_TOL = 1e-4
+GATE_TOL = 1e-6
+
+
+def signal_requests():
+    """16 requests over 12 distinct latest-user texts: the fleet phases'
+    12 prompts, then 4 of them again."""
+    from repro_torch.core.types import Message, Request
+    texts = prompts_of(ARCH)
+    texts = texts + [texts[i] for i in (0, 3, 6, 9)]
+    return [Request(messages=[Message("user", t)]) for t in texts]
+
+
+def signal_decisions():
+    """A small hand-written decision set over SIGNALS_CFG's signals."""
+    from repro_torch.core.decision import and_, leaf, not_, or_
+    from repro_torch.core.types import Decision, ModelRef
+    return [
+        Decision("guard", or_(leaf("jailbreak", "j"), leaf("pii", "p")),
+                 [ModelRef("guard")], priority=100),
+        Decision("math", and_(leaf("domain", "d"), not_(leaf("modality",
+                                                              "m"))),
+                 [ModelRef("big")], priority=10),
+        Decision("image", and_(leaf("modality", "m"),
+                               not_(leaf("user_feedback", "u"))),
+                 [ModelRef("sd")], priority=10),
+        Decision("facts", or_(leaf("fact_check", "f"), leaf("keyword", "k"),
+                              leaf("embedding", "e")),
+                 [ModelRef("small")], priority=5),
+        Decision("default", not_(leaf("jailbreak", "j")),
+                 [ModelRef("small")], priority=0),
+    ]
+
+
+def encoder_weights(cfg, device, seed):
+    """Random float32 encoder weights and adapters for every task from a
+    seeded generator on ``device``, with B drawn N(0, 0.02): the init's
+    zeros would make the LoRA delta, and kernel 6's output, vanish."""
+    import torch
+    from repro_torch.classifiers.encoder import init_adapters, init_encoder
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_encoder(cfg, gen, device)
+    adapters = init_adapters(cfg, gen, device)
+    for ad in adapters.values():
+        for k in ("b_q", "b_v"):
+            ad[k].normal_(0.0, 0.02, generator=gen)
+    return params, adapters
+
+
+def _signal_key(m):
+    return (m.matched, m.confidence, repr(m.detail))
+
+
+def check_gate(results):
+    """The decision gate on the card over the batch's (match, conf)
+    matrices (``SignalResult.as_vector`` in the gate's key order) against
+    ``DecisionEngine.evaluate`` per request, crisp/priority and
+    fuzzy/confidence."""
+    from repro_torch.core.decision import DecisionEngine, build_decision_gate
+    from repro_torch.core.types import SignalKey
+    decs = signal_decisions()
+    names = [d.name for d in decs]
+    for fuzzy, strategy in ((False, "priority"), (True, "confidence")):
+        gate, keys = build_decision_gate(decs, strategy, fuzzy,
+                                         device="cuda")
+        skeys = [SignalKey(*k.split(":")) for k in keys]
+        vecs = [r.as_vector(skeys) for r in results]
+        idx, conf, _, _ = gate([v[0] for v in vecs], [v[1] for v in vecs])
+        idx, conf = idx.tolist(), conf.tolist()
+        eng = DecisionEngine(decs, strategy, fuzzy)
+        want = [eng.evaluate(r) for r in results]
+        widx = [-1 if e.decision is None else names.index(e.decision.name)
+                for e in want]
+        cerr = max(abs(c - e.confidence) for c, e in zip(conf, want))
+        ok = idx == widx and cerr <= GATE_TOL
+        log(f"signals: decision gate on the card ({len(keys)} keys, "
+            f"{len(decs)} decisions, fuzzy={fuzzy}, {strategy}) vs "
+            f"DecisionEngine per request: decisions "
+            f"{[names[i] if i >= 0 else None for i in idx]}, max |conf "
+            f"diff| {cerr:.3e} (limit {GATE_TOL}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"signals: gate {idx} != engine {widx} or conf {cerr}")
+
+
+def check_fused_vs_single(encoder, texts):
+    """classify_all with batched=True (kernel 6) vs batched=False (one
+    single-task forward per task, no kernel): probabilities within
+    SIG_TOL, labels equal except at a near-tie (top-2 probability gap
+    below the measured error).  Returns the max error."""
+    import numpy as np
+    import torch
+    fused = encoder.classify_all(SEQ_TASKS, texts)
+    encoder.batched = False
+    try:
+        single = encoder.classify_all(SEQ_TASKS, texts)
+    finally:
+        encoder.batched = True
+    torch.cuda.synchronize()
+    err = max(float(np.abs(fused[t][1] - single[t][1]).max())
+              for t in SEQ_TASKS)
+    ties = 0
+    for t in SEQ_TASKS:
+        for i, (a, b) in enumerate(zip(fused[t][0], single[t][0])):
+            if a != b:
+                top2 = np.sort(single[t][1][i])[-2:]
+                gap = float(top2[1] - top2[0])
+                log(f"  {t} text {i}: fused {a} vs single {b}, top-2 "
+                    f"probability gap {gap:.3e} vs error {err:.3e}")
+                check(gap < err, f"signals: {t} text {i} label differs "
+                      f"and is not a near-tie")
+                ties += 1
+    log(f"signals: fused classify_all (kernel 6) vs one forward per task: "
+        f"max |prob diff| {err:.3e} (limit {SIG_TOL}), labels differ at "
+        f"{ties} near-ties of {len(SEQ_TASKS) * len(texts)}")
+    check(err <= SIG_TOL, f"signals: fused vs single prob diff {err}")
+    return err
+
+
+def reduced_encoder_card_vs_cpu(texts):
+    """A reduced float32 encoder (``EncoderBackend.small``'s widths,
+    nonzero B, weights drawn on the CPU) on the card (kernel 6) and on the
+    CPU (its plain version): labels identical, probabilities within 1e-5."""
+    import numpy as np
+    from repro_torch.classifiers.encoder import SMALL, EncoderBackend
+    from repro_torch.kernels.multi_lora.ops import multi_lora
+    params, adapters = encoder_weights(SMALL, "cpu", 5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        move = {"layers": [{k: v.to(dev) for k, v in lp.items()}
+                           for lp in params["layers"]]}
+        move.update({k: v.to(dev) for k, v in params.items()
+                     if k != "layers"})
+        ad = {t: {k: v.to(dev) for k, v in a.items()}
+              for t, a in adapters.items()}
+        be = EncoderBackend(SMALL, move, ad, trained=set(SEQ_TASKS))
+        before = multi_lora.launches
+        out[dev] = be.classify_all(SEQ_TASKS, texts)
+        if dev == "cuda":
+            launched = multi_lora.launches - before
+    same = all(out["cuda"][t][0] == out["cpu"][t][0] for t in SEQ_TASKS)
+    err = max(float(np.abs(out["cuda"][t][1] - out["cpu"][t][1]).max())
+              for t in SEQ_TASKS)
+    ok = same and err <= 1e-5 and launched == 2 * SMALL.n_layers
+    log(f"signals: reduced float32 encoder ({SMALL.n_layers} layers, d "
+        f"{SMALL.d_model}) card (kernel 6, {launched} launches) vs CPU plain "
+        f"path: labels identical {same}, max |prob diff| {err:.3e} (limit "
+        f"1e-5) {'ok' if ok else 'FAIL'}")
+    check(ok, f"signals: reduced encoder card vs CPU: same={same} err={err} "
+          f"launches={launched}")
+
+
+def phase_signals(launches, card, ctx):
+    """The learned-signal path at full width: SignalEngine -> SignalPlan
+    -> EncoderBackend (kernel 6 on q and v of every layer) -> the decision
+    gate on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.classifiers.backend import HashBackend
+    from repro_torch.classifiers.encoder import (MODERNBERT_BASE_32K,
+                                                 EncoderBackend)
+    from repro_torch.core.signals import SignalEngine, SignalPlan
+    from repro_torch.kernels.multi_lora.ops import multi_lora
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(MODERNBERT_BASE_32K, max_len=ENC_MAX_LEN)
+    t0 = time.perf_counter()
+    params, adapters = encoder_weights(cfg, "cuda", 0)
+    encoder = EncoderBackend(cfg, params, adapters,
+                             trained=set(SEQ_TASKS) | {"pii"})
+    n_base = sum(v.numel() for k, v in params.items() if k != "layers") + \
+        sum(v.numel() for lp in params["layers"] for v in lp.values())
+    n_ad = sum(v.numel() for a in adapters.values() for v in a.values())
+    log(f"signals: encoder at ModernBERT-base widths ({cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, LoRA rank "
+        f"{cfg.lora_rank}, vocab {cfg.vocab}, max_len {cfg.max_len} of "
+        f"32768), float32, {n_base} base + {n_ad} adapter params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = signal_requests()
+    texts = [r.latest_user_text for r in reqs]
+    distinct = list(dict.fromkeys(texts))
+    check(len(reqs) == 16 and len(distinct) == N_TEXTS,
+          f"signals: {len(reqs)} requests over {len(distinct)} texts")
+    engine = SignalEngine(SIGNALS_CFG, backend=HashBackend(),
+                          classifier=encoder)
+    try:
+        engine.extract_many(reqs)                       # warm-up
+        torch.cuda.synchronize()
+        # the main path: counts zeroed just before, read just after
+        wrappers = kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        plan = SignalPlan(encoder)
+        t0 = time.perf_counter()
+        results = engine.extract_many(reqs, plan=plan)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {n: fn.launches for n, fn in wrappers.items()}
+        n_lora = counts["multi_lora"]
+        launches["multi_lora"] = n_lora
+        ctx["signals requests"] = len(reqs)
+        log(f"signals: extract_many over {len(reqs)} requests "
+            f"({len(distinct)} distinct texts): {wall:.1f} ms, classify_all "
+            f"calls {plan.classify_calls}, token_classify calls "
+            f"{plan.token_calls}, launches {json.dumps(counts)} [{card}]")
+        check(plan.classify_calls == 1 and plan.token_calls == 1,
+              f"signals: {plan.classify_calls} classify_all and "
+              f"{plan.token_calls} token_classify calls, expected 1 and 1")
+        check(n_lora == 2 * cfg.n_layers * plan.classify_calls,
+              f"signals: kernel 6 launched {n_lora} times, expected 2 x "
+              f"{cfg.n_layers} x {plan.classify_calls}")
+        check(all(len(r.matches) == len(SIGNALS_CFG) for r in results),
+              "signals: a request is missing signals")
+        for i, t in enumerate(texts):
+            j = texts.index(t)
+            if j != i:
+                same = {k: _signal_key(m) for k, m in
+                        results[i].matches.items()} == \
+                    {k: _signal_key(m) for k, m in results[j].matches.items()}
+                check(same, f"signals: requests {j} and {i} share a text "
+                      f"but not their signals")
+        log("signals: repeated texts give identical SignalResults: True; "
+            "matched per request: " + " ".join(
+                str(sum(m.matched for m in r.matches.values()))
+                for r in results))
+        for r in results:
+            for m in r.matches.values():
+                check(math.isfinite(m.confidence),
+                      f"signals: non-finite confidence {m.key}")
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engine.extract_many(reqs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(walls)
+        log(f"signals: extract_many wall ms per batch median of 5 "
+            f"{med:.2f} (runs {' '.join(f'{w:.2f}' for w in walls)}), per "
+            f"request {med / len(reqs):.3f} [{card}]")
+        ctx["signals wall ms"] = med
+        profile_run(f"signals profile: extract_many over {len(reqs)} "
+                    f"requests", lambda: engine.extract_many(reqs))
+        check_fused_vs_single(encoder, distinct)
+        check_gate(results)
+    finally:
+        engine.close()
+    del engine, encoder, params, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced_encoder_card_vs_cpu(distinct)
+    # the comparison launches above are not main-path launches
+    multi_lora.launches = n_lora
+
+
+def kernel_wrappers():
+    """name -> wrapper of every kernel of the port (each counts its
+    ``launches``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode, paged_flash_decode_mla, paged_flash_verify,
+        paged_flash_verify_mla)
+    from repro_torch.kernels.multi_lora.ops import multi_lora
+    return {"flash_attention": flash_attention,
+            "paged_flash_decode": paged_flash_decode,
+            "paged_flash_verify": paged_flash_verify,
+            "paged_flash_decode_mla": paged_flash_decode_mla,
+            "paged_flash_verify_mla": paged_flash_verify_mla,
+            "multi_lora": multi_lora}
+
+
 def phase_mla_fleet(launches, card):
     import torch
     from repro_torch.kernels.flash_decode.ops import paged_flash_decode_mla
@@ -897,22 +1293,22 @@ def time_ms(fn, flush, reps=25, warm=3):
     return statistics.median(times)
 
 
-def phase_times(rows, errs, launches, card):
+def phase_times(rows, errs, launches, card, ctx):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
-        gather_kv, paged_flash_decode, paged_flash_decode_mla,
-        paged_flash_decode_mla_plain, paged_flash_decode_plain,
-        paged_flash_verify, paged_flash_verify_mla,
+        flash_decode, flash_decode_plain, gather_kv, paged_flash_decode,
+        paged_flash_decode_mla, paged_flash_decode_mla_plain,
+        paged_flash_decode_plain, paged_flash_verify, paged_flash_verify_mla,
         paged_flash_verify_mla_plain, paged_flash_verify_plain)
+    from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     dt = torch.bfloat16
     esz = 2
-    wrappers = (flash_attention, paged_flash_decode, paged_flash_verify,
-                paged_flash_decode_mla, paged_flash_verify_mla)
+    wrappers = tuple(kernel_wrappers().values())
     saved = [fn.launches for fn in wrappers]
 
     def row(name, source, replaces, ms, plain, lib, t_ops, t_bytes):
@@ -1087,6 +1483,60 @@ def phase_times(rows, errs, launches, card):
         "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
         "src/repro/kernels/flash_decode/ops.py:521", ms, plain, lib, t_ops,
         t_bytes)
+    # multi-adapter LoRA at the encoder path's shape, float32 as the path
+    x, a, b, ids = lora_path_case(torch.float32, gen)
+    (N, din), (T, _, r), dout = x.shape, a.shape, b.shape[2]
+    ms = time_ms(lambda: multi_lora(x, a, b, ids), flush)
+    plain = time_ms(lambda: multi_lora_plain(x, a, b, ids), flush)
+    onehot = F.one_hot(ids.long(), T).to(torch.float32)
+    # library: the reference encoder's own form in one call (encoder.py:151)
+    lib = time_ms(lambda: torch.einsum("nd,tdr,tro,nt->no", x, a, b, onehot),
+                  flush)
+    nbytes = (N * din + N * dout + T * r * (din + dout)) * 4 + N * 4
+    flops = 2 * N * r * (din + dout)
+    t_ops = flops / PEAK_OPS["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    per_req = launches.get("multi_lora", 0) / max(1, ctx.get(
+        "signals requests", 1))
+    log(f"times multi_lora float32 N={N} din={din} dout={dout} T={T} r={r} "
+        f"(rows sorted by task): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"einsum nd,tdr,tro,nt->no {lib:.4f} ms, bound "
+        f"{max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}: {nbytes} B, "
+        f"{flops} FLOP), launches {launches.get('multi_lora', 0)} "
+        f"({per_req:.2f} per request) [{card}]")
+    rows.append({"name": "multi_lora", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/multi_lora.cu",
+                 "replaces": "src/repro/kernels/multi_lora/multi_lora.py:60",
+                 "launches": launches.get("multi_lora", 0),
+                 "max_abs_err": errs.get("multi_lora"), "ms": ms,
+                 "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                 "library_ms": lib})
+
+    # the contiguous flash_decode wrapper (kernel 1 with Sq = 1) at the
+    # fleet's decode shape over a contiguous cache; no path calls it
+    q, kpool, vpool, tbl, kv_len = decode_case(dt, gen)
+    kv_len = kv_len.clamp(min=1)
+    k, v = gather_kv(kpool, tbl).contiguous(), gather_kv(vpool, tbl).contiguous()
+    ms = time_ms(lambda: flash_decode(q, k, v, kv_len), flush)
+    plain = time_ms(lambda: flash_decode_plain(q, k, v, kv_len), flush)
+    kg = k.repeat_interleave(3, dim=2).transpose(1, 2).contiguous()
+    vg = v.repeat_interleave(3, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None] <
+            kv_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :].contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=mask), flush)
+    live = int(kv_len.sum())
+    nbytes = (2 * live * 5 * 64 + 2 * BATCH * 15 * 64) * esz + \
+        kv_len.numel() * 4
+    t_ops = 4 * 15 * 64 * live / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times flash_decode (contiguous, kernel 1 with Sq = 1) bf16 "
+        f"B={BATCH} live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} "
+        f"ms, sdpa {lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
     # timing launches are not main-path launches
     for fn, n in zip(wrappers, saved):
         fn.launches = n
@@ -1124,12 +1574,14 @@ def main(argv=None) -> int:
             phase_fleet(launches, card, ctx)
         if "spec_fleet" in phases:
             phase_spec_fleet(launches, card, ctx)
+        if "signals" in phases:
+            phase_signals(launches, card, ctx)
         if "mla_model" in phases:
             phase_mla_model()
         if "mla_fleet" in phases:
             phase_mla_fleet(launches, card)
         if "times" in phases:
-            phase_times(rows, errs, launches, card)
+            phase_times(rows, errs, launches, card, ctx)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-"""Weight bridge: the reference's ``init_params`` pytree -> the port's model.
+"""Weight bridge: the reference's ``init_params`` pytree -> the port's model,
+and the reference encoder's params and adapters -> the port's encoder.
 
 The reference stacks each layer group's leaves over a leading repeats axis
 (``tree["g{i}"]["b{j}"]["attn"]["wq"]`` is ``(repeats, d, H*hd)``); the
@@ -16,6 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 
@@ -65,3 +67,20 @@ def model_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda") -> Model:
     model = Model(cfg, device)
     model.load_state_dict(params_from_jax(tree))
     return model
+
+
+def encoder_from_jax(params: Mapping, adapters: Mapping, device="cuda"):
+    """The reference encoder's ``init_encoder`` params and
+    ``init_adapters`` trees (numpy arrays, or anything numpy converts) ->
+    the port encoder's ``(params, adapters)`` dicts of float32 tensors on
+    ``device``, leaf for leaf (float32 -> float32 is exact)."""
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return _tensor(tree).to(dev)
+
+    return conv(params), conv(adapters)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "paged_decode", "paged_mla_decode")
+SOURCES = ("flash_attention", "paged_decode", "paged_mla_decode", "multi_lora")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

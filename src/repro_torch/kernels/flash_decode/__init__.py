@@ -1,4 +1,6 @@
-from repro_torch.kernels.flash_decode.ops import (gather_kv,  # noqa: F401
+from repro_torch.kernels.flash_decode.ops import (flash_decode,  # noqa: F401
+                                                 flash_decode_plain,
+                                                 gather_kv,
                                                  paged_flash_decode,
                                                  paged_flash_decode_mla,
                                                  paged_flash_decode_mla_plain,

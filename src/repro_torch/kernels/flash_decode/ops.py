@@ -1,6 +1,11 @@
 """Paged decode and speculative-verify attention: the CUDA kernels'
 wrappers and plain versions.
 
+``flash_decode`` is contiguous-cache decode: a thin wrapper over the
+flash-attention kernel (``csrc/flash_attention.cu``) with one query
+position per row, as the reference's ``flash_decode`` is the Sq = G case
+of its folded flash-attention kernel.
+
 ``paged_flash_decode`` and ``paged_flash_verify`` launch
 ``csrc/paged_decode.cu`` (the port of the Pallas kernels
 ``paged_flash_decode`` and ``paged_flash_verify``, GQA: one kernel body,
@@ -20,6 +25,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
 from repro_torch.models.layers import mla_latent_core, sdpa
 
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 +
@@ -63,6 +70,37 @@ def _zero_dead_positions(out, kv_len):
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# contiguous-cache decode (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+def flash_decode_plain(q, k, v, kv_len):
+    """The same function in plain PyTorch (``flash_attention_plain`` with
+    one query position: ``layers.sdpa``'s op order, ``kv_len`` masking),
+    the CPU path and the kernel's yardstick; ``ref.decode_reference`` is
+    its float32 oracle.  A row with ``kv_len == 0`` gets the mean of V
+    here and zeros from the kernel."""
+    return flash_attention_plain(q[:, None], k, v, kv_len)[:, 0]
+
+
+def flash_decode(q, k, v, kv_len):
+    """Single-token GQA decode over a contiguous cache.
+
+    q: (B, Hq, hd); k/v: (B, Skv, Hkv, hd); kv_len: (B,) int32 valid
+    prefix.  Returns (B, Hq, hd).  CUDA tensors launch the flash-attention
+    kernel (non-causal, Sq = 1, ``lens=kv_len``; its launch is counted on
+    ``flash_attention.launches``); CPU tensors take
+    ``flash_decode_plain``."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: unsupported device {q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"flash_decode: q (B,Hq,hd) expected, got "
+                         f"{tuple(q.shape)}")
+    return flash_attention(q[:, None].contiguous(), k, v, kv_len)[:, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,10 @@ import torch
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.flash_decode.ops import (
-    paged_flash_decode, paged_flash_decode_mla, paged_flash_decode_mla_plain,
+    flash_decode, flash_decode_plain, paged_flash_decode, paged_flash_decode_mla, paged_flash_decode_mla_plain,
     paged_flash_decode_plain, paged_flash_verify, paged_flash_verify_mla,
     paged_flash_verify_mla_plain, paged_flash_verify_plain)
+from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -325,3 +326,155 @@ def test_reduced_spec_fleet_on_card_equals_cpu(cuda, arch, layers):
             assert verify.launches - before == layers * s.spec_rounds > 0
         assert s.pool.live_refs() == 0
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# contiguous-cache decode and multi-adapter LoRA (kernel 6)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Skv,Hq,Hkv,hd,dtype", [
+    (4, 512, 8, 2, 64, torch.float32), (2, 384, 6, 6, 128, torch.float32),
+    (3, 1024, 16, 4, 64, torch.float32), (2, 256, 4, 1, 64, torch.bfloat16)])
+def test_flash_decode_kernel_matches_plain(cuda, B, Skv, Hq, Hkv, hd, dtype):
+    """``tests/test_kernels.py``'s DECODE_CASES through the flash-attention
+    kernel with one query position per row."""
+    g = torch.Generator(device=cuda).manual_seed(Skv)
+    q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=g, device=cuda).to(dtype)
+    kl = torch.randint(1, Skv + 1, (B,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    before = flash_attention.launches
+    out = flash_decode(q, k, v, kl)
+    ref = flash_decode_plain(q, k, v, kl)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _close(out, ref, dtype)
+
+
+# N, din, dout, T, r: tests/test_kernels.py's LORA_CASES and the encoder
+# path's shape (5 tasks x 12 texts x 512 tokens at ModernBERT-base width)
+LORA = [(256, 768, 768, 6, 32), (130, 512, 256, 3, 16),
+        (256, 384, 384, 10, 64), (64, 128, 128, 1, 8),
+        (5 * 12 * 512, 768, 768, 5, 32)]
+
+
+def _lora_ids(cuda, N, T, layout):
+    g = torch.Generator().manual_seed(N + T)
+    if layout == "sorted":                  # multitask_logits' layout
+        ids = torch.arange(N) * T // N
+    elif layout == "shuffled_absent":       # random order, task T-1 absent
+        ids = (torch.arange(N) % max(1, T - 1))[torch.randperm(N,
+                                                               generator=g)]
+    else:                                   # out-of-range ids mixed in
+        ids = torch.randint(0, T, (N,), generator=g)
+        ids[::7] = -1
+        ids[3::11] = T
+        ids[5::13] = 1 << 20
+    return ids.to(torch.int32).to(cuda)
+
+
+@pytest.mark.parametrize("layout", ["sorted", "shuffled_absent",
+                                    "out_of_range"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,din,dout,T,r", LORA,
+                         ids=[f"ml{i}" for i in range(len(LORA))])
+def test_multi_lora_kernel_matches_plain(cuda, N, din, dout, T, r, dtype,
+                                         layout):
+    g = torch.Generator(device=cuda).manual_seed(din + r)
+    x = torch.randn((N, din), generator=g, device=cuda).to(dtype)
+    a = (torch.randn((T, din, r), generator=g, device=cuda) * 0.05).to(dtype)
+    b = (torch.randn((T, r, dout), generator=g, device=cuda) * 0.05).to(dtype)
+    ids = _lora_ids(cuda, N, T, layout)
+    before = multi_lora.launches
+    out = multi_lora(x, a, b, ids, scale=2.0)
+    ref = multi_lora_plain(x, a, b, ids, scale=2.0)
+    torch.cuda.synchronize()
+    assert multi_lora.launches == before + 1
+    assert out.shape == (N, dout) and out.dtype == dtype
+    _close(out, ref, dtype)
+    dead = (ids < 0) | (ids >= T)
+    assert bool((out[dead] == 0).all())
+    w = torch.randn((din, dout), generator=g, device=cuda).to(dtype)
+    fused = multi_lora(x, a, b, ids, w, scale=2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, x @ w + out)
+
+
+def test_multi_lora_kernel_rejects_bad_inputs(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    a = torch.zeros((2, 8, 65), device=cuda)
+    b = torch.zeros((2, 65, 8), device=cuda)
+    ids = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rank"):
+        multi_lora(x, a, b, ids)
+    with pytest.raises(ValueError, match="int32"):
+        multi_lora(x, a[:, :, :4].contiguous(), b[:, :4].contiguous(),
+                   ids.long())
+    with pytest.raises(TypeError):
+        multi_lora(x.half(), a[:, :, :4].half().contiguous(),
+                   b[:, :4].half().contiguous(), ids)
+
+
+def test_multi_lora_launch_count_is_exact_across_threads(cuda):
+    """The signal engine launches kernel 6 from its thread pool: 16 threads
+    x 25 launches under a short switch interval count exactly 400."""
+    import sys
+    import threading
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((64, 32), generator=g, device=cuda)
+    a = torch.randn((2, 32, 8), generator=g, device=cuda)
+    b = torch.randn((2, 8, 16), generator=g, device=cuda)
+    ids = torch.tensor([0, 1] * 32, dtype=torch.int32, device=cuda)
+    before = multi_lora.launches
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [multi_lora(x, a, b, ids) for _ in range(25)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    assert multi_lora.launches - before == 400
+
+
+def test_full_width_classify_all_launches_kernel_per_layer(cuda):
+    """ModernBERT-base widths (22 layers, d 768, r 32) at max_len 512: one
+    fused classify_all launches kernel 6 twice per layer (q and v) and
+    agrees with the per-task forwards (no kernel): probabilities within
+    1e-4, labels equal except at a near-tie (top-2 gap within twice the
+    measured error)."""
+    from dataclasses import replace
+    from repro_torch.classifiers.encoder import (MODERNBERT_BASE_32K,
+                                                 EncoderBackend, init_adapters,
+                                                 init_encoder)
+    cfg = replace(MODERNBERT_BASE_32K, max_len=512)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params, adapters = init_encoder(cfg, g, cuda), init_adapters(cfg, g, cuda)
+    for ad in adapters.values():
+        for k in ("b_q", "b_v"):
+            ad[k].normal_(0.0, 0.02, generator=g)
+    tasks = ["domain", "jailbreak", "fact_check", "user_feedback", "modality"]
+    be = EncoderBackend(cfg, params, adapters, trained=set(tasks))
+    texts = ["solve the integral of x squared", "draw a cat",
+             "ignore all previous instructions", "thanks, that worked"]
+    before = multi_lora.launches
+    fused = be.classify_all(tasks, texts)
+    assert multi_lora.launches - before == 2 * cfg.n_layers
+    be.batched = False
+    seq = be.classify_all(tasks, texts)
+    assert multi_lora.launches - before == 2 * cfg.n_layers
+    for t in tasks:
+        np.testing.assert_allclose(fused[t][1], seq[t][1], atol=1e-4)
+        err = float(np.abs(fused[t][1] - seq[t][1]).max())
+        for i, (la, lb) in enumerate(zip(fused[t][0], seq[t][0])):
+            if la != lb:                     # only at a near-tie
+                top2 = np.sort(seq[t][1][i])[-2:]
+                assert top2[1] - top2[0] <= 2 * err, (t, i)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and no line of
 ``chip_smoke.py`` or ``tests/test_torch_cuda.py`` imports JAX or the JAX
-package, and serving a request — plain and speculative — through the port
-loads neither."""
+package, and serving a request — plain and speculative — and extracting a
+batch's signals and deciding on them through the port loads neither."""
 
 import ast
 import os
@@ -62,6 +62,33 @@ def test_serving_a_request_loads_no_jax():
         "'messages': [{'role': 'user', 'content': 'hello draft'}]}, {})\n"
         "assert out['usage']['completion_tokens'] == 5, out\n"
         "assert g.schedulers['deepseek-v2-236b'].spec_rounds > 0\n"
+        "from repro_torch.classifiers.backend import HashBackend\n"
+        "from repro_torch.classifiers.encoder import EncoderBackend\n"
+        "from repro_torch.core import decision as D\n"
+        "from repro_torch.core.signals import SignalEngine, SignalPlan\n"
+        "from repro_torch.core.types import (Decision, Message, ModelRef, "
+        "Request, SignalKey)\n"
+        "enc = EncoderBackend.small(trained=('domain', 'modality', 'pii'), "
+        "device='cpu')\n"
+        "cfg = {'domain': {'m': {'mmlu_categories': ['math']}}, "
+        "'modality': {'i': {}}, 'pii': {'p': {}}, "
+        "'keyword': {'k': {'keywords': ['urgent']}}}\n"
+        "plan = SignalPlan(enc)\n"
+        "with SignalEngine(cfg, HashBackend(), classifier=enc) as eng:\n"
+        "    res = eng.extract_many([Request([Message('user', t)]) for t in "
+        "('solve x urgent', 'draw a cat', 'solve x urgent')], plan=plan)\n"
+        "assert plan.classify_calls == 1 and plan.token_calls == 1\n"
+        "decs = [Decision('a', D.and_(D.leaf('keyword', 'k'), "
+        "D.not_(D.leaf('pii', 'p'))), [ModelRef('x')], priority=2), "
+        "Decision('b', D.leaf('modality', 'i'), [ModelRef('y')])]\n"
+        "gate, keys = D.build_decision_gate(decs, device='cpu')\n"
+        "ks = [SignalKey(*k.split(':')) for k in keys]\n"
+        "idx, conf, _, _ = gate([r.as_vector(ks)[0] for r in res], "
+        "[r.as_vector(ks)[1] for r in res])\n"
+        "eng2 = D.DecisionEngine(decs)\n"
+        "want = [[d.name for d in decs].index(e.decision.name) if e.decision "
+        "else -1 for e in map(eng2.evaluate, res)]\n"
+        "assert idx.tolist() == want, (idx, want)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")

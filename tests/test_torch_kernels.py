@@ -18,13 +18,20 @@ import torch
 
 from repro.kernels.flash_attention import (attention_reference as j_attn_ref,
                                            flash_attention as j_flash)
+from repro.kernels.flash_decode import decode_reference as j_decode_ref
+from repro.kernels.flash_decode import flash_decode as j_flash_decode
 from repro.kernels.flash_decode import paged_decode_reference as j_paged_ref
 from repro.kernels.flash_decode import paged_mla_decode_reference as j_mla_ref
+from repro.kernels.multi_lora import multi_lora as j_multi_lora
+from repro.kernels.multi_lora import multi_lora_reference as j_lora_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.flash_decode import (gather_kv,
+from repro_torch.kernels.flash_decode import (decode_reference,
+                                              flash_decode,
+                                              flash_decode_plain,
+                                              gather_kv,
                                               paged_decode_reference,
                                               paged_flash_decode,
                                               paged_flash_decode_mla,
@@ -37,7 +44,9 @@ from repro_torch.kernels.flash_decode import (gather_kv,
                                               paged_mla_decode_reference,
                                               paged_mla_verify_reference,
                                               paged_verify_reference)
-from test_kernels import FLASH_CASES, _tol
+from repro_torch.kernels.multi_lora import (multi_lora, multi_lora_plain,
+                                            multi_lora_reference)
+from test_kernels import DECODE_CASES, FLASH_CASES, LORA_CASES, _tol
 
 
 def _t(a, dtype):
@@ -310,8 +319,148 @@ def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
     assert _build._lib_path("paged_decode") != \
         _build._lib_path("flash_attention")
     assert len({_build._lib_path(n) for n in _build.SOURCES}) == \
-        len(_build.SOURCES) == 3
+        len(_build.SOURCES) == 4
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# contiguous-cache decode (the flash-attention kernel with Sq = 1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=[f"fd{i}" for i in range(len(DECODE_CASES))])
+def test_flash_decode_plain_vs_jax(case):
+    """The plain version vs the JAX ``flash_decode`` (the Pallas kernel in
+    interpret mode) and its oracle; the port's oracle vs the JAX one."""
+    B, Skv, Hq, Hkv, hd, jd = case
+    r = np.random.default_rng(Skv + Hq)
+    q = r.standard_normal((B, Hq, hd))
+    k = r.standard_normal((B, Skv, Hkv, hd))
+    v = r.standard_normal((B, Skv, Hkv, hd))
+    kl = r.integers(1, Skv + 1, size=(B,)).astype(np.int32)
+    td = _tdtype(jd)
+    tl = torch.from_numpy(kl)
+    out = flash_decode_plain(_t(q, td), _t(k, td), _t(v, td), tl)
+    assert torch.equal(out, flash_decode(_t(q, td), _t(k, td), _t(v, td), tl))
+    jargs = (_j(q, jd), _j(k, jd), _j(v, jd), jnp.asarray(kl))
+    tol = _tol(jd)
+    for other in (j_flash_decode(*jargs, interpret=True),
+                  j_decode_ref(*jargs)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(other, np.float32),
+                                   atol=tol, rtol=tol)
+    mine = decode_reference(_t(q, td), _t(k, td), _t(v, td), tl)
+    np.testing.assert_allclose(mine.float().numpy(),
+                               np.asarray(j_decode_ref(*jargs), np.float32),
+                               atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# multi-adapter LoRA (kernel 6)
+# ---------------------------------------------------------------------------
+
+def _lora_inputs(seed, N, din, dout, T, r):
+    g = np.random.default_rng(seed)
+    return (g.standard_normal((N, din)), g.standard_normal((T, din, r)) * 0.05,
+            g.standard_normal((T, r, dout)) * 0.05)
+
+
+def _hold_lora(x, a, b, ids, jd, *, scale=1.0, tol=None):
+    """The plain version and the port's oracle against the JAX kernel
+    (interpret mode) and its oracle on the same inputs."""
+    td = _tdtype(jd)
+    tx, ta, tb = _t(x, td), _t(a, td), _t(b, td)
+    tids = torch.from_numpy(np.asarray(ids, np.int32))
+    out = multi_lora_plain(tx, ta, tb, tids, scale=scale)
+    mine = multi_lora_reference(tx, ta, tb, tids, scale=scale)
+    assert out.dtype == td and out.shape == (x.shape[0], b.shape[2])
+    jx, ja, jb = _j(x, jd), _j(a, jd), _j(b, jd)
+    jids = jnp.asarray(np.asarray(ids, np.int32))
+    kern = j_multi_lora(jx, ja, jb, jids, scale=scale, interpret=True)
+    tol = _tol(jd) if tol is None else tol
+    for got in (out, mine):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(kern, np.float32),
+                                   atol=tol, rtol=2e-2)
+    return out, kern
+
+
+@pytest.mark.parametrize("case", LORA_CASES,
+                         ids=[f"ml{i}" for i in range(len(LORA_CASES))])
+def test_multi_lora_plain_vs_jax(case):
+    """``test_kernels.py``'s cases (ragged N = 130, T up to 10, r up to 64,
+    bf16) at scale 2.0, within ``_tol`` (atol) and rtol 2e-2, as the JAX
+    kernel is held to its oracle; the JAX oracle agrees too."""
+    N, din, dout, T, r, jd = case
+    x, a, b = _lora_inputs(N + din + T, N, din, dout, T, r)
+    ids = np.random.default_rng(N).integers(0, T, size=(N,))
+    out, _ = _hold_lora(x, a, b, ids, jd, scale=2.0)
+    ref = j_lora_ref(_j(x, jd), _j(a, jd), _j(b, jd),
+                     jnp.asarray(ids, jnp.int32), scale=2.0)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=_tol(jd), rtol=2e-2)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_multi_lora_plain_random_task_permutations(seed):
+    """Block-sorted and shuffled task layouts with one task absent
+    (``test_kernels.py``'s permutation recipe) at float32, within 2e-5;
+    permuting rows and their tasks together permutes the output rows."""
+    N, din, dout, T, r = 96, 128, 64, 5, 8
+    x, a, b = _lora_inputs(seed, N, din, dout, T, r)
+    base = np.arange(N) % (T - 1)                       # task T-1 absent
+    perm = np.random.RandomState(seed).permutation(N)
+    for ids in (base, base[perm]):
+        _hold_lora(x, a, b, ids, jnp.float32, tol=2e-5)
+    tx, ta, tb = (_t(v, torch.float32) for v in (x, a, b))
+    out = multi_lora_plain(tx, ta, tb, torch.from_numpy(base))
+    out_p = multi_lora_plain(tx[perm], ta, tb, torch.from_numpy(base[perm]))
+    torch.testing.assert_close(out_p, out[perm], atol=2e-5, rtol=2e-5)
+
+
+def test_multi_lora_fused_base_vs_jax():
+    """``x @ w + delta`` through the public wrappers, within 1e-4 as the
+    JAX test holds its own."""
+    x, a, b = _lora_inputs(7, 32, 64, 64, 2, 8)
+    w = np.random.default_rng(8).standard_normal((64, 64)) * 0.1
+    ids = np.random.default_rng(9).integers(0, 2, size=(32,))
+    out = multi_lora(*(_t(v, torch.float32) for v in (x, a, b)),
+                     torch.from_numpy(ids.astype(np.int32)),
+                     w=_t(w, torch.float32))
+    ref = j_multi_lora(*(_j(v, jnp.float32) for v in (x, a, b)),
+                       jnp.asarray(ids, jnp.int32), w=_j(w, jnp.float32),
+                       interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("jd", [jnp.float32, jnp.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_multi_lora_out_of_range_ids_give_zeros(jd):
+    """Ids outside [0, T) (negative, T, far beyond) give exact zero rows,
+    as the JAX wrapper's all-zero one-hot row does; the other rows still
+    match."""
+    N, din, dout, T, r = 40, 32, 48, 3, 4
+    x, a, b = _lora_inputs(11, N, din, dout, T, r)
+    ids = np.random.default_rng(12).integers(0, T, size=(N,))
+    dead = np.array([0, 5, 17, 39])
+    ids[dead] = [-1, T, 1000, -7]
+    out, kern = _hold_lora(x, a, b, ids, jd, scale=2.0)
+    assert (out[torch.from_numpy(dead)] == 0).all()
+    assert (np.asarray(kern, np.float32)[dead] == 0).all()
+
+
+def test_multi_lora_wrapper_takes_plain_version_on_cpu():
+    """A CPU tensor runs the plain version (bitwise) and launches nothing;
+    another device raises instead of falling back."""
+    x, a, b = (_t(v, torch.float32) for v in _lora_inputs(3, 10, 16, 8, 2, 4))
+    ids = torch.tensor([0, 1] * 5, dtype=torch.int32)
+    before = multi_lora.launches
+    assert torch.equal(multi_lora(x, a, b, ids, scale=0.5),
+                       multi_lora_plain(x, a, b, ids, scale=0.5))
+    assert multi_lora.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        multi_lora(x.to("meta"), a, b, ids)
