@@ -15,6 +15,8 @@ Phases, in order; any failure exits non-zero before the result line:
    The verify kernels are also held to the decode kernels bitwise
    (position t of a W = 5 verify == a decode launch at its frontier;
    W = 1 == decode) with dead positions (frontier <= 0) exact zeros.
+   Kernels 2 and 3 also at a wide table: B = 8, every row at all 2048
+   keys of max_seq 2048 (a cluster of 8 CTAs of 256 keys), W 1 and 5.
    The multi-adapter LoRA kernel at the encoder path's shape (5 tasks x 12
    texts x 512 tokens, rows sorted by task), at ``tests/test_kernels.py``'s
    LORA_CASES with shuffled ids and one task absent, and with out-of-range
@@ -63,7 +65,9 @@ Phases, in order; any failure exits non-zero before the result line:
    a reduced float32 deepseek fleet on the card against the CPU.
 9. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
-   run), beside each kernel's bound.
+   run), beside each kernel's bound; kernels 2 and 3 also at the wide
+   table (log lines beside the rows), with ``ptxas``'s registers for
+   ``paged_decode.cu``.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX and
@@ -101,6 +105,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 W_SPEC = 5                                # verify width: pending token + k = 4
+# the wide table of kernels 2 and 3: every row at 2048 keys (C = 8, P = 16)
+WIDE_SEQ = 2048
+WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
           "mla_fleet", "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
@@ -150,11 +157,8 @@ def phase_build():
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"total {time.perf_counter() - t0:.2f} s")
     for name in _build.SOURCES:
-        logf = _build.BUILD_DIR / f"{name}.log"
-        if logf.exists():
-            for line in logf.read_text(errors="replace").splitlines():
-                if "registers" in line or "smem" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(name):
+            log(f"  ptxas {name}: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +246,24 @@ def verify_case(dtype, gen, full=True, mla=False):
     tbl[0] = 0
     return ((_rand((BATCH, W_SPEC, 15, 64), dtype, gen),), (kpool, vpool, tbl),
             kv_len, {})
+
+
+def wide_case(dtype, gen, W):
+    """Kernels 2 and 3 at a wide table: B=8 rows, every row at all 2048
+    keys of its table (max_seq 2048), a pool of 1025 blocks of 16 through
+    a random permutation, 15/5 heads, hd 64; W query positions per row
+    (W = 0: a decode query (B, Hq, hd)).  Returns (q, kpool, vpool, tbl,
+    kv_len)."""
+    import torch
+    max_blocks = WIDE_SEQ // BLOCK
+    perm = torch.randperm(WIDE_BLOCKS - 1, generator=torch.Generator()
+                          .manual_seed(5)) + 1
+    tbl = perm.reshape(BATCH, max_blocks).to(torch.int32).cuda().contiguous()
+    kv_len = torch.full((BATCH,), WIDE_SEQ, dtype=torch.int32, device="cuda")
+    q = _rand((BATCH, W, 15, 64) if W else (BATCH, 15, 64), dtype, gen)
+    kpool = _rand((WIDE_BLOCKS, BLOCK, 5, 64), dtype, gen)
+    vpool = _rand((WIDE_BLOCKS, BLOCK, 5, 64), dtype, gen)
+    return q, kpool, vpool, tbl, kv_len
 
 
 def hold_verify(label, verify, plain, decode, qs, rest, kv_len, kw, dname):
@@ -355,6 +377,33 @@ def check_lora_and_flash_decode(errs, dtype, dname, gen):
         check(ok, f"flash_decode {dname} Skv={Skv}: {err}")
 
 
+def check_wide_paged(errs, dtype, dname, gen):
+    """Kernels 2 and 3 at ``wide_case``: decode against its plain version;
+    verify at W = 5 and W = 1 through ``hold_verify``."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode, paged_flash_decode_plain, paged_flash_verify,
+        paged_flash_verify_plain)
+    q, kpool, vpool, tbl, kv_len = wide_case(dtype, gen, 0)
+    out = paged_flash_decode(q, kpool, vpool, tbl, kv_len)
+    ref = paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len)
+    torch.cuda.synchronize()
+    err, ok = _compare(out, ref, TOL[dname])
+    log(f"  paged_flash_decode {dname} wide B={BATCH} max_seq {WIDE_SEQ} "
+        f"kv_len all {WIDE_SEQ}: max_abs_err {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"paged_flash_decode {dname} wide: {err}")
+    errs["paged_flash_decode"] = max(errs.get("paged_flash_decode", 0.0), err)
+    for W in (W_SPEC, 1):
+        q, kpool, vpool, tbl, kv_len = wide_case(dtype, gen, W)
+        err = hold_verify(f"paged_flash_verify wide max_seq {WIDE_SEQ}",
+                          paged_flash_verify, paged_flash_verify_plain,
+                          paged_flash_decode, (q,), (kpool, vpool, tbl),
+                          kv_len, {}, dname)
+        errs["paged_flash_verify"] = max(errs.get("paged_flash_verify", 0.0),
+                                         err)
+
+
 def phase_kernels(errs):
     import torch
     from repro_torch.kernels.flash_attention.ops import (
@@ -422,6 +471,7 @@ def phase_kernels(errs):
                           rest, kv_len, kw, dname)
         errs["paged_flash_verify"] = max(errs.get("paged_flash_verify", 0.0),
                                          err)
+        check_wide_paged(errs, dtype, dname, gen)
         for full in (True, False):
             qs, rest, kv_len, kw = verify_case(dtype, gen, full, mla=True)
             err = hold_verify("paged_flash_verify_mla",
@@ -1293,16 +1343,73 @@ def time_ms(fn, flush, reps=25, warm=3):
     return statistics.median(times)
 
 
+def ptxas_lines(name):
+    """``ptxas``'s register and shared-memory lines for ``csrc/<name>.cu``
+    from its build log."""
+    from repro_torch.kernels import _build
+    logf = _build.BUILD_DIR / f"{name}.log"
+    if not logf.exists():
+        return []
+    return [line.strip() for line in logf.read_text(errors="replace")
+            .splitlines() if "registers" in line or "smem" in line]
+
+
+def time_paged(label, q, kpool, vpool, tbl, kv_len, flush, card):
+    """Kernel 2 (q (B, Hq, hd)) or kernel 3 (q (B, W, Hq, hd)): kernel,
+    plain version and SDPA over the gathered view with a per-position
+    mask (rows whose frontier is 0 come out NaN there; timing only), and
+    the bound: live K/V of the last position plus q and out once, FLOPs
+    of every position's frontier.  Returns (ms, plain, lib, t_ops,
+    t_bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import (
+        gather_kv, paged_flash_decode, paged_flash_decode_plain,
+        paged_flash_verify, paged_flash_verify_plain)
+    kern, plain_fn = ((paged_flash_decode, paged_flash_decode_plain)
+                      if q.dim() == 3 else
+                      (paged_flash_verify, paged_flash_verify_plain))
+    ms = time_ms(lambda: kern(q, kpool, vpool, tbl, kv_len), flush)
+    plain = time_ms(lambda: plain_fn(q, kpool, vpool, tbl, kv_len), flush)
+    q4 = q[:, None] if q.dim() == 3 else q
+    B, W, Hq, hd = q4.shape
+    Hkv = kpool.shape[2]
+    S = tbl.shape[1] * kpool.shape[1]
+    frontier = (kv_len[:, None] - W + 1 + torch.arange(W, device="cuda")
+                [None]).clamp(0, S)                           # (B, W)
+    kg = gather_kv(kpool, tbl).repeat_interleave(Hq // Hkv, dim=2)
+    vg = gather_kv(vpool, tbl).repeat_interleave(Hq // Hkv, dim=2)
+    kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, None] <
+            frontier[:, :, None])[:, None]                    # (B,1,W,S)
+    qt = q4.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask), flush)
+    live = int(frontier[:, -1].sum())            # keys of the last position
+    esz = q.element_size()
+    nbytes = (2 * live * Hkv * hd + 2 * B * W * Hq * hd) * esz + \
+        (tbl.numel() + kv_len.numel()) * 4
+    flops = 4 * Hq * hd * int(frontier.sum())
+    t_ops = flops / PEAK_OPS[str(q.dtype).split(".")[-1]] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times {label} {str(q.dtype).split('.')[-1]} B={B} W={W} "
+        f"max_seq {S} live keys {live}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, sdpa over gathered view (per-position mask) "
+        f"{lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}: {nbytes} B) "
+        f"[{card}]")
+    return ms, plain, lib, t_ops, t_bytes
+
+
 def phase_times(rows, errs, launches, card, ctx):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
-        flash_decode, flash_decode_plain, gather_kv, paged_flash_decode,
-        paged_flash_decode_mla, paged_flash_decode_mla_plain,
-        paged_flash_decode_plain, paged_flash_verify, paged_flash_verify_mla,
-        paged_flash_verify_mla_plain, paged_flash_verify_plain)
+        flash_decode, flash_decode_plain, gather_kv, paged_flash_decode_mla,
+        paged_flash_decode_mla_plain, paged_flash_verify_mla,
+        paged_flash_verify_mla_plain)
     from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1345,66 +1452,22 @@ def phase_times(rows, errs, launches, card, ctx):
         "src/repro/kernels/flash_attention/flash_attention.py:144", ms, plain,
         lib, t_ops, t_bytes)
 
-    # paged decode at the fleet's decode shapes (phase 2's rows)
-    q, kpool, vpool, tbl, kv_len = decode_case(dt, gen)
-    ms = time_ms(lambda: paged_flash_decode(q, kpool, vpool, tbl, kv_len),
-                 flush)
-    plain = time_ms(
-        lambda: paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len), flush)
-    kg = gather_kv(kpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
-    vg = gather_kv(vpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
-    kg, vg = kg.contiguous(), vg.contiguous()
-    mask = (torch.arange(MAX_SEQ, device="cuda")[None] <
-            kv_len[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :].contiguous()
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask), flush)
-    live = int(kv_len.sum())
-    nbytes = (2 * live * 5 * 64 + 2 * BATCH * 15 * 64) * esz + \
-        (tbl.numel() + kv_len.numel()) * 4
-    flops = 4 * 15 * 64 * live
-    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"times paged_flash_decode bf16 B={BATCH} live keys {live}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa over gathered view "
-        f"{lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
-        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    row("paged_flash_decode", "src/repro_torch/kernels/csrc/paged_decode.cu",
-        "src/repro/kernels/flash_decode/ops.py:193", ms, plain, lib, t_ops,
-        t_bytes)
-
-    # GQA verify at the spec fleet's shapes: W = 5 over phase 2's pool
-    (q,), (kpool, vpool, tbl), kv_len, _ = verify_case(dt, gen)
-    B, W, Hq, hd = q.shape
-    ms = time_ms(lambda: paged_flash_verify(q, kpool, vpool, tbl, kv_len),
-                 flush)
-    plain = time_ms(
-        lambda: paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len), flush)
-    frontier = (kv_len[:, None] - W + 1 + torch.arange(W, device="cuda")
-                [None]).clamp(0, MAX_SEQ)                     # (B, W)
-    # library: SDPA over the gathered view with an explicit per-position
-    # mask (rows whose frontier is 0 come out NaN there; timing only)
-    kg = gather_kv(kpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
-    vg = gather_kv(vpool, tbl).repeat_interleave(3, dim=2).transpose(1, 2)
-    kg, vg = kg.contiguous(), vg.contiguous()
-    mask = (torch.arange(MAX_SEQ, device="cuda")[None, None] <
-            frontier[:, :, None])[:, None]                    # (B,1,W,S)
-    qt = q.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kg, vg, attn_mask=mask), flush)
-    live = int(frontier[:, -1].sum())            # keys of the last position
-    nbytes = (2 * live * 5 * hd + 2 * B * W * Hq * hd) * esz + \
-        (tbl.numel() + kv_len.numel()) * 4
-    flops = 4 * Hq * hd * int(frontier.sum())
-    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"times paged_flash_verify bf16 B={B} W={W} live keys {live}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa over gathered view "
-        f"(per-position mask) {lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} "
-        f"ms ({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    row("paged_flash_verify", "src/repro_torch/kernels/csrc/paged_decode.cu",
-        "src/repro/kernels/flash_decode/ops.py:306", ms, plain, lib, t_ops,
-        t_bytes)
+    # kernels 2 and 3 at the fleets' shapes (phase 2's rows; the JSON
+    # rows), then at the wide table (log lines)
+    for line in ptxas_lines("paged_decode"):
+        log(f"times ptxas paged_decode: {line}")
+    for name, W, replaces in (
+            ("paged_flash_decode", 0, "src/repro/kernels/flash_decode/ops.py:193"),
+            ("paged_flash_verify", W_SPEC,
+             "src/repro/kernels/flash_decode/ops.py:306")):
+        if W:
+            (q,), (kpool, vpool, tbl), kv_len, _ = verify_case(dt, gen)
+        else:
+            q, kpool, vpool, tbl, kv_len = decode_case(dt, gen)
+        res = time_paged(name, q, kpool, vpool, tbl, kv_len, flush, card)
+        row(name, "src/repro_torch/kernels/csrc/paged_decode.cu", replaces,
+            *res)
+        time_paged(f"{name} wide", *wide_case(dt, gen, W), flush, card)
 
     # MLA decode at the MLA fleet's decode shapes (phase 2's full-width rows)
     *args, scale = mla_decode_case(dt, gen)

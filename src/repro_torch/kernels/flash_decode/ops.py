@@ -15,12 +15,15 @@ decode is its W = 1 case); ``paged_flash_decode_mla`` and
 MLA) for CUDA tensors.  Each runs its ``*_plain`` version for CPU tensors,
 and any other device raises.  Each wrapper counts its own ``launches``.
 The kernels stream each row's live blocks straight out of the pool through
-the block table; only the plain versions build the gathered view.
+the block table; only the plain versions build the gathered view.  The GQA
+kernel splits each (row, KV head) over a thread-block cluster whose size
+and spans ``paged_geometry`` computes from the table width alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,13 +32,16 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.models.layers import mla_latent_core, sdpa
 
-_ATTN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 +
+_ATTN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 +
                   [ctypes.c_void_p])
 _MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
                  [ctypes.c_float, ctypes.c_void_p])
 MLA_HEAD_TILE = 16            # query heads per thread block (paged_mla_decode.cu)
 MLA_MAX_R, MLA_MAX_RH = 512, 128
 SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
+PAGED_MAX_CLUSTER = 8         # the portable thread-block cluster size
+PAGED_CHUNK = 32              # tokens per cp.async ring stage (paged_decode.cu CH)
+PAGED_STAGES = 4              # ring stages (paged_decode.cu STAGES)
 
 
 def gather_kv(pool, tbl):
@@ -130,6 +136,44 @@ def paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len):
     return _zero_dead_positions(out, kv_len)
 
 
+class PagedGeometry(NamedTuple):
+    cluster: int        # C: CTAs of one (row, KV head) cluster
+    span_blocks: int    # P: table blocks per CTA; rank c owns [c*P, (c+1)*P)
+    smem_bytes: int     # dynamic shared memory of one CTA
+
+
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def paged_geometry(max_blocks: int, block_tokens: int, rows: int, hd: int,
+                   esz: int) -> PagedGeometry:
+    """Launch geometry of ``csrc/paged_decode.cu`` for a (B, max_blocks)
+    table of ``block_tokens``-token blocks, ``rows`` = W x G query rows of
+    head_dim ``hd`` in an ``esz``-byte dtype.
+
+    The cluster size and the span come from the table width alone, never
+    from W or kv_len: a decode at frontier f and a verify position at
+    frontier f then run the same spans in the same order, which keeps them
+    equal bitwise.  The shared memory is the kernel's carve (``carve`` in
+    the source, which refuses a launch given less): query rows padded to
+    16 (later the float32 partial P.V), float32 scores over the span, a
+    ring of PAGED_STAGES chunks of PAGED_CHUNK tokens, every rank's row
+    maxima and sums, every rank's partial of this CTA's output slice, the
+    span's table entries."""
+    cluster = min(PAGED_MAX_CLUSTER, max_blocks)
+    span_blocks = -(-max_blocks // cluster)
+    stride = _up(hd, 16) + 16 // esz
+    span = span_blocks * block_tokens
+    smem = (max(_up(_up(rows, 16) * stride * esz, 16), _up(rows * hd * 4, 16))
+            + _up(rows * (_up(span, PAGED_CHUNK) + 4) * 4, 16)
+            + _up(PAGED_STAGES * PAGED_CHUNK * stride * esz, 16)
+            + _up(2 * PAGED_MAX_CLUSTER * rows * 4, 16)
+            + _up((rows * hd + PAGED_MAX_CLUSTER) * 4, 16)
+            + _up(span_blocks * 4, 16))
+    return PagedGeometry(cluster, span_blocks, smem)
+
+
 def _check(name, q, kpool, vpool, tbl, kv_len):
     """q: (B, W, Hq, hd) — decode passes its (B, Hq, hd) query as W = 1."""
     if q.dim() != 4 or kpool.dim() != 4 or kpool.shape != vpool.shape:
@@ -158,17 +202,20 @@ def _check(name, q, kpool, vpool, tbl, kv_len):
             raise ValueError(f"{name}: {arg} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    smem = W * (Hq // Hkv) * (hd + tbl.shape[1] * blk) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: {smem} B of queries and scores exceed the "
-                         f"{SMEM_LIMIT} B of shared memory a block may use "
-                         f"(W {W}, max_seq {tbl.shape[1] * blk} too long)")
+    geo = paged_geometry(tbl.shape[1], blk, W * (Hq // Hkv), hd,
+                         q.element_size())
+    if geo.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: {geo.smem_bytes} B of queries, scores and "
+                         f"K/V ring exceed the {SMEM_LIMIT} B of shared memory "
+                         f"a block may use (W {W}, max_seq "
+                         f"{tbl.shape[1] * blk} too long)")
+    return geo
 
 
 def _launch_attn(name, q, kpool, vpool, tbl, kv_len):
     """Check and launch ``csrc/paged_decode.cu`` on q (B, W, Hq, hd);
     returns the (B, W, Hq, hd) output."""
-    _check(name, q, kpool, vpool, tbl, kv_len)
+    geo = _check(name, q, kpool, vpool, tbl, kv_len)
     B, W, Hq, hd = q.shape
     nb, blk, Hkv, _ = kpool.shape
     out = torch.empty_like(q)
@@ -177,7 +224,7 @@ def _launch_attn(name, q, kpool, vpool, tbl, kv_len):
         rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
                 tbl.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
                 B, W, Hq, Hkv, hd, nb, blk, tbl.shape[1],
-                int(q.dtype == torch.bfloat16), _stream(q.device))
+                int(q.dtype == torch.bfloat16), *geo, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out

@@ -21,8 +21,9 @@ import torch
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.flash_decode.ops import (
-    flash_decode, flash_decode_plain, paged_flash_decode, paged_flash_decode_mla, paged_flash_decode_mla_plain,
-    paged_flash_decode_plain, paged_flash_verify, paged_flash_verify_mla,
+    flash_decode, flash_decode_plain, paged_flash_decode,
+    paged_flash_decode_mla, paged_flash_decode_mla_plain,
+    paged_flash_decode_plain, paged_geometry, paged_flash_verify, paged_flash_verify_mla,
     paged_flash_verify_mla_plain, paged_flash_verify_plain)
 from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
 
@@ -74,28 +75,48 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     _close(out, ref, dtype)
 
 
+def _edge_lens(max_blocks, blk, low):
+    """kv_len at the cluster's span edges (P * blk - 1, P * blk, P * blk + 1
+    with P the span of ``paged_geometry``) and the full table, each at
+    least ``low``."""
+    span = paged_geometry(max_blocks, blk, 1, 64, 2).span_blocks * blk
+    S = max_blocks * blk
+    return [min(max(n, low), S) for n in (span - 1, span, span + 1, S)]
+
+
+# table widths: cluster C = 1, C = 3, C = 8 (P = 1), the uneven 33 blocks
+# (C = 8, P = 5, rank 7 empty), and max_seq 2048 (C = 8, P = 16)
+MAX_BLOCKS = [1, 3, 8, 33, 128]
+
+
+@pytest.mark.parametrize("max_blocks", MAX_BLOCKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd", [(15, 5, 64), (3, 1, 20), (8, 2, 128),
                                        (4, 4, 64)])
-def test_paged_decode_kernel_matches_plain(cuda, dtype, Hq, Hkv, hd):
-    B, nb, max_blocks, blk = 7, 40, 8, 16
-    rnd = random.Random(hd + Hq)
+def test_paged_decode_kernel_matches_plain(cuda, dtype, Hq, Hkv, hd,
+                                           max_blocks):
+    blk = 16
+    nb = max(40, max_blocks + 1)
+    rnd = random.Random(hd + Hq + max_blocks)
+    lens = [0] + _edge_lens(max_blocks, blk, 1) + [
+        rnd.randrange(1, max_blocks * blk + 1) for _ in range(3)]
+    B = len(lens)                               # row 0: kv_len == 0
     tbl = np.zeros((B, max_blocks), np.int32)
-    kv_len = np.zeros((B,), np.int32)
     shared = rnd.randrange(1, nb)
-    for b in range(1, B):                       # row 0: kv_len == 0
-        live = rnd.randrange(1, max_blocks + 1)
-        kv_len[b] = rnd.randrange((live - 1) * blk + 1, live * blk + 1)
-        for i in range(live):
+    for b in range(1, B):
+        for i in range(max_blocks):
             tbl[b, i] = shared if rnd.random() < 0.3 else rnd.randrange(1, nb)
     g = torch.Generator(device=cuda).manual_seed(hd)
     q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dtype)
     kp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
     vp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
-    t, kl = torch.from_numpy(tbl).to(cuda), torch.from_numpy(kv_len).to(cuda)
+    t = torch.from_numpy(tbl).to(cuda)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = paged_flash_decode.launches
     out = paged_flash_decode(q, kp, vp, t, kl)
     ref = paged_flash_decode_plain(q, kp, vp, t, kl)
     torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
     assert bool((out[0] == 0).all())
     _close(out, ref, dtype)
 
@@ -144,17 +165,28 @@ def _verify_lens(B, S, W, seed):
                         for b in range(B - 3)]
 
 
+@pytest.mark.parametrize("max_blocks", MAX_BLOCKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd,W", [(15, 5, 64, 5), (3, 1, 20, 3),
-                                         (8, 2, 128, 2), (4, 4, 64, 1)])
+                                         (8, 2, 128, 2), (4, 4, 64, 1),
+                                         (15, 5, 64, 6), (9, 3, 20, 8),
+                                         (6, 2, 128, 6)])
 def test_paged_verify_kernel_matches_plain_and_decode(cuda, dtype, Hq, Hkv,
-                                                      hd, W):
-    B, nb, max_blocks, blk = 6, 60, 8, 16
-    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(hd))
-    tbl = (perm[:B * max_blocks] + 1).reshape(B, max_blocks).to(torch.int32)
+                                                      hd, W, max_blocks):
+    """W up to 8 (W x G = 18 and 24 query rows: two row tiles of 16);
+    kv_len at the span edges, the full table, W (first frontier 1) and 1
+    (dead positions)."""
+    blk = 16
+    nb = max(60, max_blocks + 1)
+    S = max_blocks * blk
+    lens = [min(W, S), 1] + _edge_lens(max_blocks, blk, W) + [
+        random.Random(hd + b).randrange(min(W, S), S + 1) for b in range(2)]
+    B = len(lens)
+    rnd = random.Random(hd + W + max_blocks)
+    tbl = torch.tensor([[rnd.randrange(1, nb) for _ in range(max_blocks)]
+                        for _ in range(B)], dtype=torch.int32)
     t = tbl.to(cuda)
-    kl = torch.tensor(_verify_lens(B, max_blocks * blk, W, hd),
-                      dtype=torch.int32, device=cuda)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(hd + W)
     q = torch.randn((B, W, Hq, hd), generator=g, device=cuda).to(dtype)
     kp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
@@ -166,7 +198,8 @@ def test_paged_verify_kernel_matches_plain_and_decode(cuda, dtype, Hq, Hkv,
     assert paged_flash_verify.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     _close(out, ref, dtype)
-    assert bool((out[1, :W - 1] == 0).all())            # frontier <= 0
+    frontier = kl[:, None] - W + 1 + torch.arange(W, device=cuda)[None]
+    assert bool((out[frontier <= 0] == 0).all())        # dead positions
     for pos in range(W):
         step = paged_flash_decode(q[:, pos].contiguous(), kp, vp, t,
                                   kl - (W - 1 - pos))
@@ -242,9 +275,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="disagree"):
         paged_flash_decode_mla(ql, qr, ckv[..., :8].contiguous(), kr, tbl, kl,
                                scale=0.1)
-    with pytest.raises(ValueError, match="shared memory"):   # W x G rows
+    with pytest.raises(ValueError, match="shared memory"):
+        # 256 query rows x a 1024-token span of float32 scores per CTA
         paged_flash_verify(torch.randn((1, 64, 8, 16), device=cuda), pool,
-                           pool, torch.zeros((1, 64), dtype=torch.int32,
+                           pool, torch.zeros((1, 2048), dtype=torch.int32,
                                              device=cuda),
                            torch.ones((1,), dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="disagree"):

@@ -9,6 +9,7 @@ Tolerances: ``_tol`` of ``tests/test_kernels.py`` (float32 2e-5, bf16
 2e-2, as atol = rtol) — the same limits the JAX kernel is held to.
 """
 
+import inspect
 import random
 
 import jax.numpy as jnp
@@ -44,6 +45,9 @@ from repro_torch.kernels.flash_decode import (decode_reference,
                                               paged_mla_decode_reference,
                                               paged_mla_verify_reference,
                                               paged_verify_reference)
+from repro_torch.kernels.flash_decode.ops import (PAGED_MAX_CLUSTER,
+                                                  SMEM_LIMIT, _check,
+                                                  paged_geometry)
 from repro_torch.kernels.multi_lora import (multi_lora, multi_lora_plain,
                                             multi_lora_reference)
 from test_kernels import DECODE_CASES, FLASH_CASES, LORA_CASES, _tol
@@ -309,6 +313,74 @@ def test_verify_wrappers_take_plain_version_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         paged_flash_verify_mla(ql.to("meta"), qr, ckv, kr, tbl, kl,
                                scale=0.2)
+
+
+# (max_blocks, block_tokens, cluster C, span P): C = 1, C = 3, the fleet's
+# 512-token table, the uneven 33 blocks (rank 7 owns nothing), max_seq 2048
+GEOMETRY_CASES = [(1, 16, 1, 1), (3, 16, 3, 1), (8, 4, 8, 1), (32, 16, 8, 4),
+                  (33, 16, 8, 5), (128, 16, 8, 16), (1000, 16, 8, 125)]
+
+
+@pytest.mark.parametrize("max_blocks,blk,C,P", GEOMETRY_CASES)
+def test_paged_geometry_spans(max_blocks, blk, C, P):
+    """The cluster's spans cover [0, max_blocks) once, in rank order, with
+    C <= 8; C and P come from the table width alone (the same for every
+    number of query rows, head_dim and dtype)."""
+    geo = paged_geometry(max_blocks, blk, 15, 64, 2)
+    assert (geo.cluster, geo.span_blocks) == (C, P)
+    assert C <= PAGED_MAX_CLUSTER
+    spans = [range(min(c * P, max_blocks), min((c + 1) * P, max_blocks))
+             for c in range(C)]
+    assert [i for sp in spans for i in sp] == list(range(max_blocks))
+    if max_blocks == 33:
+        assert len(spans[7]) == 0
+    params = inspect.signature(paged_geometry).parameters
+    assert "W" not in params and "kv_len" not in params
+    for rows, hd, esz in ((1, 20, 4), (3, 64, 2), (24, 128, 4), (256, 16, 4)):
+        assert paged_geometry(max_blocks, blk, rows, hd, esz)[:2] == (C, P)
+
+
+def _old_smem(W, G, hd, max_seq):
+    """The shared memory of the single-block kernel this one replaced."""
+    return W * G * (hd + max_seq) * 4
+
+
+# (W, G, hd, dtype) of the card tests and chip_smoke.py
+SMEM_CASES = [(W, G, hd, dt) for W, G, hd in
+              ((1, 3, 64), (5, 3, 64), (3, 3, 20), (2, 4, 128), (1, 1, 64),
+               (6, 3, 64), (8, 3, 20), (6, 3, 128), (1, 4, 128), (1, 1, 20))
+              for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("W,G,hd,dt", SMEM_CASES)
+def test_paged_geometry_shared_memory(W, G, hd, dt):
+    """Every table width the card tests and chip_smoke.py use fits in a
+    block's shared memory; the longest max_seq taken (blocks of 16) is at
+    least the replaced kernel's; a table beyond it raises the "shared
+    memory" error."""
+    esz = torch.tensor([], dtype=dt).element_size()
+    for max_blocks in (1, 3, 8, 32, 33, 128):
+        geo = paged_geometry(max_blocks, 16, W * G, hd, esz)
+        assert geo.smem_bytes <= SMEM_LIMIT
+    old = max(n for n in range(1, 4096)
+              if _old_smem(W, G, hd, 16 * n) <= SMEM_LIMIT)
+    assert all(paged_geometry(n, 16, W * G, hd, esz).smem_bytes <= SMEM_LIMIT
+               for n in range(1, old + 1))
+    new = old
+    while paged_geometry(new + 1, 16, W * G, hd, esz).smem_bytes <= \
+            SMEM_LIMIT:
+        new += 1
+    assert new >= old
+    meta = dict(device="meta", dtype=dt)
+    q = torch.empty((1, W, 3 * G, hd), **meta)
+    pool = torch.empty((new + 2, 16, 3, hd), **meta)
+    kl = torch.empty((1,), device="meta", dtype=torch.int32)
+    ok = torch.empty((1, new), device="meta", dtype=torch.int32)
+    assert _check("paged_flash_verify", q, pool, pool, ok, kl) == \
+        paged_geometry(new, 16, W * G, hd, esz)
+    too_long = torch.empty((1, new + 1), device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check("paged_flash_verify", q, pool, pool, too_long, kl)
 
 
 def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
