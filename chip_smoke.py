@@ -17,6 +17,9 @@ Phases, in order; any failure exits non-zero before the result line:
    W = 1 == decode) with dead positions (frontier <= 0) exact zeros.
    Kernels 2 and 3 also at a wide table: B = 8, every row at all 2048
    keys of max_seq 2048 (a cluster of 8 CTAs of 256 keys), W 1 and 5.
+   Kernel 3 also at W = 12 positions x G = 16 heads of hd 128 (192 query
+   rows, max_blocks 1 and 8): too wide for one launch, so the wrapper runs
+   chunks of positions, each position still == decode bitwise.
    The multi-adapter LoRA kernel at the encoder path's shape (5 tasks x 12
    texts x 512 tokens, rows sorted by task), at ``tests/test_kernels.py``'s
    LORA_CASES with shuffled ids and one task absent, and with out-of-range
@@ -65,8 +68,10 @@ Phases, in order; any failure exits non-zero before the result line:
    a reduced float32 deepseek fleet on the card against the CPU.
 9. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
-   run), beside each kernel's bound; kernels 2 and 3 also at the wide
-   table (log lines beside the rows), with ``ptxas``'s registers for
+   run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 and
+   the contiguous ``flash_decode`` at the fleet's decode shape and at
+   DECODE_CASES, kernels 2 and 3 also at the wide table (log lines beside
+   the rows), with ``ptxas``'s registers for ``flash_attention.cu`` and
    ``paged_decode.cu``.
 
 The last two lines are one JSON object with a row per kernel, then
@@ -266,6 +271,27 @@ def wide_case(dtype, gen, W):
     return q, kpool, vpool, tbl, kv_len
 
 
+def split_verify_case(dtype, gen, max_blocks):
+    """Kernel 3 beyond one launch's shared memory: W = 12 positions x G =
+    16 query heads (32 over 2 KV heads) of hd 128, 192 query rows, over a
+    40-block pool through a random table of ``max_blocks`` blocks of 16;
+    kv_len 1 (dead positions), 12 (first frontier 1), the full table and
+    two random.  Returns (qs, rest, kv_len, kwargs) for ``hold_verify``."""
+    import random
+
+    import torch
+    W, nb = 12, 40
+    S = max_blocks * BLOCK
+    rnd = random.Random(max_blocks)
+    lens = [1, W, S] + [rnd.randrange(W, S + 1) for _ in range(2)]
+    tbl = torch.tensor([[rnd.randrange(1, nb) for _ in range(max_blocks)]
+                        for _ in lens], dtype=torch.int32, device="cuda")
+    return ((_rand((len(lens), W, 32, 128), dtype, gen),),
+            (_rand((nb, BLOCK, 2, 128), dtype, gen),
+             _rand((nb, BLOCK, 2, 128), dtype, gen), tbl),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"), {})
+
+
 def hold_verify(label, verify, plain, decode, qs, rest, kv_len, kw, dname):
     """The verify kernel against its plain version within the tolerance;
     position t against the decode kernel at its frontier kv_len - W + t + 1
@@ -412,7 +438,8 @@ def phase_kernels(errs):
         paged_flash_decode, paged_flash_decode_mla,
         paged_flash_decode_mla_plain, paged_flash_decode_plain,
         paged_flash_verify, paged_flash_verify_mla,
-        paged_flash_verify_mla_plain, paged_flash_verify_plain)
+        paged_flash_verify_mla_plain, paged_flash_verify_plain,
+        verify_chunks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("kernels: float32 references with TF32 off "
@@ -472,6 +499,21 @@ def phase_kernels(errs):
         errs["paged_flash_verify"] = max(errs.get("paged_flash_verify", 0.0),
                                          err)
         check_wide_paged(errs, dtype, dname, gen)
+        for max_blocks in (1, 8):
+            qs, rest, kv_len, kw = split_verify_case(dtype, gen, max_blocks)
+            chunks = verify_chunks(12, 16, max_blocks, BLOCK, 128,
+                                   qs[0].element_size())
+            before = paged_flash_verify.launches
+            err = hold_verify(f"paged_flash_verify split {chunks} max_blocks "
+                              f"{max_blocks}", paged_flash_verify,
+                              paged_flash_verify_plain, paged_flash_decode,
+                              qs, rest, kv_len, kw, dname)
+            # the W = 12 verify launches once a chunk, the W = 1 one once
+            n = paged_flash_verify.launches - before
+            check(len(chunks) > 1 and n == len(chunks) + 1,
+                  f"split verify {dname}: {n} launches for chunks {chunks}")
+            errs["paged_flash_verify"] = max(
+                errs.get("paged_flash_verify", 0.0), err)
         for full in (True, False):
             qs, rest, kv_len, kw = verify_case(dtype, gen, full, mla=True)
             err = hold_verify("paged_flash_verify_mla",
@@ -750,7 +792,8 @@ def payloads(arch=ARCH):
 
 
 def profile_run(label, fn):
-    """Device busy share and the top kernels by device time while ``fn``
+    """Device busy share, the top kernels by device time and the port's
+    own kernels (``csrc/*.cu``, in an anonymous namespace) while ``fn``
     runs under torch.profiler.  Its overhead inflates the wall time, so
     the busy share is a floor; only device-side events are summed (a CPU
     op's device time repeats its kernels').  Returns (wall ms, busy ms)."""
@@ -769,7 +812,9 @@ def profile_run(label, fn):
     dev_us = sum(e.self_device_time_total for e in events)
     log(f"{label}, wall {wall * 1e3:.1f} ms under the profiler, device busy "
         f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    own = [e for e in ranked[8:] if "(anonymous namespace)" in e.key]
+    for e in ranked[:8] + own:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
     return wall * 1e3, dev_us / 1e3
@@ -1344,14 +1389,23 @@ def time_ms(fn, flush, reps=25, warm=3):
 
 
 def ptxas_lines(name):
-    """``ptxas``'s register and shared-memory lines for ``csrc/<name>.cu``
-    from its build log."""
+    """One line per kernel of ``csrc/<name>.cu`` from its build log: the
+    (mangled) function, ``ptxas``'s stack and spill line, and its register
+    and shared-memory line."""
     from repro_torch.kernels import _build
     logf = _build.BUILD_DIR / f"{name}.log"
     if not logf.exists():
         return []
-    return [line.strip() for line in logf.read_text(errors="replace")
-            .splitlines() if "registers" in line or "smem" in line]
+    out, fn, spill = [], "?", ""
+    for line in logf.read_text(errors="replace").splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            fn, spill = line.split("Function properties for", 1)[1].strip(), ""
+        elif "spill" in line:
+            spill = line
+        elif "registers" in line:
+            out.append(f"{fn}: {spill}; {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def time_paged(label, q, kpool, vpool, tbl, kv_len, flush, card):
@@ -1427,7 +1481,10 @@ def phase_times(rows, errs, launches, card, ctx):
                      "bound_by": "operations" if t_ops > t_bytes else "bytes",
                      "library_ms": lib})
 
-    # flash attention at the fleet's longest prefill: B=1, S=479, causal
+    # flash attention at the fleet's prefill widths: B=1, causal, S = 16,
+    # 64 and the longest prefill, 479 (the JSON row)
+    for line in ptxas_lines("flash_attention"):
+        log(f"times ptxas flash_attention: {line}")
     for S in (16, 64, PROMPT_CAP):
         q = _rand((1, S, 15, 64), dt, gen)
         k = _rand((1, S, 5, 64), dt, gen)
@@ -1600,6 +1657,30 @@ def phase_times(rows, errs, launches, card, ctx):
         f"B={BATCH} live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} "
         f"ms, sdpa {lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
         f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    # and at the reference's DECODE_CASES, bf16
+    for B, Skv, Hq, Hkv, hd in DECODE_CASES:
+        q = _rand((B, Hq, hd), dt, gen)
+        k, v = (_rand((B, Skv, Hkv, hd), dt, gen) for _ in range(2))
+        kv_len = torch.randint(1, Skv + 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        ms = time_ms(lambda: flash_decode(q, k, v, kv_len), flush)
+        plain = time_ms(lambda: flash_decode_plain(q, k, v, kv_len), flush)
+        G = Hq // Hkv
+        kg = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        vg = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        mask = (torch.arange(Skv, device="cuda")[None] <
+                kv_len[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :].contiguous()
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask), flush)
+        live = int(kv_len.sum())
+        nbytes = (2 * live * Hkv * hd + 2 * B * Hq * hd) * esz + B * 4
+        t_ops = 4 * Hq * hd * live / PEAK_OPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"times flash_decode bf16 B={B} Skv={Skv} {Hq}/{Hkv} heads hd "
+            f"{hd} live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, sdpa {lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
+            f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
     # timing launches are not main-path launches
     for fn, n in zip(wrappers, saved):
         fn.launches = n

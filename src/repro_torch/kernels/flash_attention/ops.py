@@ -5,20 +5,54 @@
 ``flash_attention_plain`` for CPU tensors; any other device raises.  There
 is no fallback: a CUDA tensor gets the kernel or an error.  The layout is
 the reference wrapper's (B, S, H, hd); the kernel reads it directly, so no
-head folding is materialized.
+head folding is materialized.  ``flash_geometry`` gives the launch's
+padded head_dim and dynamic shared memory (the bf16 body's Q tile and K/V
+ring).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.models.layers import sdpa
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
+FLASH_BLOCK_Q = 64            # query rows per CTA (flash_attention.cu TQ)
+FLASH_STAGE_KEYS = 128        # keys per ring stage (SK: 2 warps x 64)
+FLASH_ROW_PAD = 8             # bf16 padding per shared-memory row (PAD)
+
+
+class FlashGeometry(NamedTuple):
+    head_pad: int       # head_dim rounded up to the instantiated width
+    stages: int         # K/V ring stages (0: the float32 body has no ring)
+    smem_bytes: int     # dynamic shared memory of one CTA
+
+
+def flash_geometry(hd: int, esz: int) -> FlashGeometry:
+    """Launch geometry of ``csrc/flash_attention.cu`` for head_dim ``hd``
+    in an ``esz``-byte dtype.
+
+    bf16 (esz 2): head_dim padded to 32, 64 or 128; a ring of 5 stages
+    where head_dim <= 64 (the fleet's longest prefill in flight at once),
+    3 at 128; the CTA's dynamic shared memory is the kernel's carve
+    (``tc_smem``, which refuses a launch given less): the Q tile of
+    FLASH_BLOCK_Q rows, then the K ring and the V ring of FLASH_STAGE_KEYS
+    keys a stage, each row ``head_pad + FLASH_ROW_PAD`` elements.  float32
+    (esz 4): the FMA body pads to 64 or 128 and uses static shared memory
+    only (at most 41 216 B, under the 48 KB static limit), so its dynamic
+    size is 0."""
+    if esz == 4:
+        return FlashGeometry(64 if hd <= 64 else 128, 0, 0)
+    head_pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    stages = 5 if head_pad <= 64 else 3
+    rows = FLASH_BLOCK_Q + 2 * stages * FLASH_STAGE_KEYS
+    return FlashGeometry(head_pad, stages,
+                         rows * (head_pad + FLASH_ROW_PAD) * esz)
 
 
 def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor] = None, *,
@@ -82,6 +116,7 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None, *,
     _check(q, k, v, lens, q_offset)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    geo = flash_geometry(hd, q.element_size())
     out = torch.empty_like(q)
     fn = _build.c_function("flash_attention", "flash_attention_fwd",
                            _ARGTYPES)
@@ -90,7 +125,8 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None, *,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if lens is None else lens.data_ptr(), out.data_ptr(),
                 B, Sq, Skv, Hq, Hkv, hd, int(causal), int(sliding_window),
-                int(q_offset), int(q.dtype == torch.bfloat16), stream)
+                int(q_offset), int(q.dtype == torch.bfloat16),
+                geo.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -17,18 +17,21 @@ and any other device raises.  Each wrapper counts its own ``launches``.
 The kernels stream each row's live blocks straight out of the pool through
 the block table; only the plain versions build the gathered view.  The GQA
 kernel splits each (row, KV head) over a thread-block cluster whose size
-and spans ``paged_geometry`` computes from the table width alone.
+and spans ``paged_geometry`` computes from the table width alone; a
+verify too wide for one launch's shared memory runs as consecutive chunks
+of positions (``verify_chunks``), each exact by construction.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
+from repro_torch.kernels.flash_attention.ops import (SMEM_LIMIT,
+                                                     flash_attention,
                                                      flash_attention_plain)
 from repro_torch.models.layers import mla_latent_core, sdpa
 
@@ -38,7 +41,6 @@ _MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
                  [ctypes.c_float, ctypes.c_void_p])
 MLA_HEAD_TILE = 16            # query heads per thread block (paged_mla_decode.cu)
 MLA_MAX_R, MLA_MAX_RH = 512, 128
-SMEM_LIMIT = 232_448          # bytes of shared memory a Hopper block may use
 PAGED_MAX_CLUSTER = 8         # the portable thread-block cluster size
 PAGED_CHUNK = 32              # tokens per cp.async ring stage (paged_decode.cu CH)
 PAGED_STAGES = 4              # ring stages (paged_decode.cu STAGES)
@@ -174,8 +176,10 @@ def paged_geometry(max_blocks: int, block_tokens: int, rows: int, hd: int,
     return PagedGeometry(cluster, span_blocks, smem)
 
 
-def _check(name, q, kpool, vpool, tbl, kv_len):
-    """q: (B, W, Hq, hd) — decode passes its (B, Hq, hd) query as W = 1."""
+def _validate(name, q, kpool, vpool, tbl, kv_len):
+    """Shapes, dtypes, devices and layout of a launch of
+    ``csrc/paged_decode.cu``; q: (B, W, Hq, hd) — decode passes its (B,
+    Hq, hd) query as W = 1."""
     if q.dim() != 4 or kpool.dim() != 4 or kpool.shape != vpool.shape:
         raise ValueError(f"{name}: q (B,[W,]Hq,hd), pools (nb,blk,Hkv,hd) "
                          f"expected, got {tuple(q.shape)}, "
@@ -202,23 +206,51 @@ def _check(name, q, kpool, vpool, tbl, kv_len):
             raise ValueError(f"{name}: {arg} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _smem_error(name, geo, W, max_seq):
+    return ValueError(f"{name}: {geo.smem_bytes} B of queries, scores and "
+                      f"K/V ring exceed the {SMEM_LIMIT} B of shared memory a "
+                      f"block may use (W {W}, max_seq {max_seq} too long)")
+
+
+def _check(name, q, kpool, vpool, tbl, kv_len):
+    """``_validate``, then the per-launch rule: the geometry of all W
+    positions in one launch, which must fit in a block's shared memory."""
+    _validate(name, q, kpool, vpool, tbl, kv_len)
+    B, W, Hq, hd = q.shape
+    blk, Hkv = kpool.shape[1], kpool.shape[2]
     geo = paged_geometry(tbl.shape[1], blk, W * (Hq // Hkv), hd,
                          q.element_size())
     if geo.smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"{name}: {geo.smem_bytes} B of queries, scores and "
-                         f"K/V ring exceed the {SMEM_LIMIT} B of shared memory "
-                         f"a block may use (W {W}, max_seq "
-                         f"{tbl.shape[1] * blk} too long)")
+        raise _smem_error(name, geo, W, tbl.shape[1] * blk)
     return geo
 
 
-def _launch_attn(name, q, kpool, vpool, tbl, kv_len):
-    """Check and launch ``csrc/paged_decode.cu`` on q (B, W, Hq, hd);
-    returns the (B, W, Hq, hd) output."""
-    geo = _check(name, q, kpool, vpool, tbl, kv_len)
+def verify_chunks(W: int, G: int, max_blocks: int, block_tokens: int,
+                  hd: int, esz: int) -> List[Tuple[int, int]]:
+    """Consecutive chunks ``[t0, t1)`` of a W-position verify, each as
+    wide as one launch's shared memory allows (``paged_geometry`` of
+    ``(t1 - t0) x G`` query rows within SMEM_LIMIT); one chunk when all W
+    fit.  Raises the "shared memory" error only when one position's G rows
+    alone do not fit — exactly when the decode launch on the same table
+    would be refused."""
+    per = W
+    while per > 0 and paged_geometry(max_blocks, block_tokens, per * G, hd,
+                                     esz).smem_bytes > SMEM_LIMIT:
+        per -= 1
+    if per == 0:
+        raise _smem_error("paged_flash_verify", paged_geometry(
+            max_blocks, block_tokens, G, hd, esz), 1,
+            max_blocks * block_tokens)
+    return [(t0, min(t0 + per, W)) for t0 in range(0, W, per)]
+
+
+def _launch_attn(name, q, kpool, vpool, tbl, kv_len, geo, out):
+    """Launch ``csrc/paged_decode.cu`` on the checked q (B, W, Hq, hd)
+    with geometry ``geo``, writing the (B, W, Hq, hd) ``out``."""
     B, W, Hq, hd = q.shape
     nb, blk, Hkv, _ = kpool.shape
-    out = torch.empty_like(q)
     fn = _build.c_function("paged_decode", "paged_attn_fwd", _ATTN_ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
@@ -246,8 +278,10 @@ def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
     if q.dim() != 3:
         raise ValueError(f"paged_flash_decode: q (B,Hq,hd) expected, got "
                          f"{tuple(q.shape)}")
-    out = _launch_attn("paged_flash_decode", q[:, None], kpool, vpool, tbl,
-                       kv_len)[:, 0]
+    q4 = q[:, None]
+    geo = _check("paged_flash_decode", q4, kpool, vpool, tbl, kv_len)
+    out = _launch_attn("paged_flash_decode", q4, kpool, vpool, tbl, kv_len,
+                       geo, torch.empty_like(q4))[:, 0]
     paged_flash_decode.launches += 1
     return out
 
@@ -266,13 +300,34 @@ def paged_flash_verify(q, kpool, vpool, tbl, kv_len):
     t equals ``paged_flash_decode`` at ``kv_len - W + t + 1``.  CUDA
     tensors launch the hand-written kernel (the decode kernel's body with
     W query positions in its tile); CPU tensors take
-    ``paged_flash_verify_plain``."""
+    ``paged_flash_verify_plain``.
+
+    When W x G query rows do not fit in one launch's shared memory, the
+    positions run as the chunks of ``verify_chunks``: chunk [t0, t1) is a
+    verify of t1 - t0 positions with ``kv_len - (W - t1)``, which keeps
+    every position's frontier, so each position is still the decode
+    launch at its frontier, bitwise.  Each chunk is one launch."""
     if q.device.type == "cpu":
         return paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_verify: unsupported device {q.device}")
-    out = _launch_attn("paged_flash_verify", q, kpool, vpool, tbl, kv_len)
-    paged_flash_verify.launches += 1
+    name = "paged_flash_verify"
+    _validate(name, q, kpool, vpool, tbl, kv_len)
+    B, W, Hq, hd = q.shape
+    blk, Hkv = kpool.shape[1], kpool.shape[2]
+    G = Hq // Hkv
+    chunks = verify_chunks(W, G, tbl.shape[1], blk, hd, q.element_size())
+    out = torch.empty_like(q)
+    for t0, t1 in chunks:
+        geo = paged_geometry(tbl.shape[1], blk, (t1 - t0) * G, hd,
+                             q.element_size())
+        if len(chunks) == 1:
+            _launch_attn(name, q, kpool, vpool, tbl, kv_len, geo, out)
+        else:
+            out[:, t0:t1] = _launch_attn(
+                name, q[:, t0:t1].contiguous(), kpool, vpool, tbl,
+                kv_len - (W - t1), geo, torch.empty_like(q[:, t0:t1]))
+        paged_flash_verify.launches += 1
     return out
 
 

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_decode.ops import (
     paged_flash_decode_mla, paged_flash_decode_mla_plain,
     paged_flash_decode_plain, paged_geometry, paged_flash_verify, paged_flash_verify_mla,
     paged_flash_verify_mla_plain, paged_flash_verify_plain)
+from repro_torch.kernels.flash_decode.ops import _check, verify_chunks
 from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
 
 pytestmark = pytest.mark.cuda
@@ -51,12 +52,37 @@ FLASH = [
     (2, 128, 384, 6, 3, 32, False, 0, (300, 128), 0),
     (1, 64, 200, 4, 2, 128, True, 0, None, 136),
     (2, 256, 256, 8, 2, 64, True, 64, (256, 200), 0),
+    # query tiles of 64 rows and key tiles of 64 keys: edges crossed
+    (2, 1, 300, 8, 2, 64, False, 0, (300, 77), 0),    # Sq 1, G 4
+    (1, 63, 63, 4, 4, 32, True, 0, None, 0),          # G 1, hd 32
+    (1, 64, 64, 8, 2, 128, True, 0, None, 0),         # G 4, hd 128
+    (2, 65, 65, 6, 2, 20, True, 0, None, 0),          # hd 20: scalar loads
+    (1, 129, 129, 4, 1, 64, True, 24, None, 0),       # window < a key tile
+    (1, 129, 300, 3, 3, 128, True, 0, None, 171),     # q_offset 171
+    # row 1 sees keys < 40 through a window of 16: its query rows >= 55
+    # see nothing, the q tiles from row 64 on not one key
+    (2, 129, 129, 4, 2, 32, True, 16, (129, 40), 0),
 ]
+
+
+def _seen_rows(B, Sq, Skv, causal, window, lens, off, device):
+    """(B, Sq) bool: the query rows that see at least one key."""
+    qpos = torch.arange(Sq, device=device)[:, None] + off
+    key = torch.arange(Skv, device=device)[None]
+    vis = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        vis &= key <= qpos
+    if window > 0:
+        vis &= key > qpos - window
+    n = torch.tensor([Skv] * B if lens is None else lens, device=device)
+    return (vis[None] & (key[None] < n[:, None, None])).any(-1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH, ids=[f"fa{i}" for i in range(len(FLASH))])
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """Rows that see a key agree with the plain version; rows that see
+    none are exact zeros (the plain version gives the mean of V there)."""
     B, Sq, Skv, Hq, Hkv, hd, causal, window, lens, off = case
     g = torch.Generator(device=cuda).manual_seed(Sq + hd)
     q = torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).to(dtype)
@@ -72,7 +98,9 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    _close(out, ref, dtype)
+    seen = _seen_rows(B, Sq, Skv, causal, window, lens, off, cuda)
+    _close(out[seen], ref[seen], dtype)
+    assert bool((out[~seen] == 0).all())
 
 
 def _edge_lens(max_blocks, blk, low):
@@ -206,6 +234,48 @@ def test_paged_verify_kernel_matches_plain_and_decode(cuda, dtype, Hq, Hkv,
         assert torch.equal(out[:, pos], step), f"position {pos}"
 
 
+@pytest.mark.parametrize("max_blocks", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_verify_splits_what_one_launch_cannot_hold(cuda, dtype,
+                                                         max_blocks):
+    """W = 12 positions x G = 16 query heads of hd 128 (192 query rows):
+    one launch does not fit in shared memory (refused before the split),
+    so the verify runs the chunks of ``verify_chunks``; plain within
+    tolerance, dead positions zeros, each position == decode bitwise."""
+    W, Hq, Hkv, hd, blk = 12, 32, 2, 128, 16
+    nb = 40
+    S = max_blocks * blk
+    lens = [W, 1, S] + [random.Random(b).randrange(W, S + 1)
+                        for b in range(2)]
+    B = len(lens)
+    rnd = random.Random(max_blocks)
+    t = torch.tensor([[rnd.randrange(1, nb) for _ in range(max_blocks)]
+                      for _ in range(B)], dtype=torch.int32, device=cuda)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(W + max_blocks)
+    q = torch.randn((B, W, Hq, hd), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check("paged_flash_verify", q, kp, vp, t, kl)
+    chunks = verify_chunks(W, Hq // Hkv, max_blocks, blk, hd,
+                           q.element_size())
+    assert len(chunks) == 2
+    before = paged_flash_verify.launches
+    out = paged_flash_verify(q, kp, vp, t, kl)
+    ref = paged_flash_verify_plain(q, kp, vp, t, kl)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches == before + len(chunks)
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, ref, dtype)
+    frontier = kl[:, None] - W + 1 + torch.arange(W, device=cuda)[None]
+    assert bool((out[frontier <= 0] == 0).all())        # dead positions
+    for pos in range(W):
+        step = paged_flash_decode(q[:, pos].contiguous(), kp, vp, t,
+                                  kl - (W - 1 - pos))
+        assert torch.equal(out[:, pos], step), f"position {pos}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,W,H,r,rh,nb,max_blocks", [
     (8, 5, 128, 512, 64, 385, 32),   # deepseek-v2 at full width, max_seq 512
@@ -276,9 +346,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         paged_flash_decode_mla(ql, qr, ckv[..., :8].contiguous(), kr, tbl, kl,
                                scale=0.1)
     with pytest.raises(ValueError, match="shared memory"):
-        # 256 query rows x a 1024-token span of float32 scores per CTA
+        # one position's 4 query rows x a 16 384-token span of float32
+        # scores per CTA: no chunk of positions fits
         paged_flash_verify(torch.randn((1, 64, 8, 16), device=cuda), pool,
-                           pool, torch.zeros((1, 2048), dtype=torch.int32,
+                           pool, torch.zeros((1, 32768), dtype=torch.int32,
                                              device=cuda),
                            torch.ones((1,), dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="disagree"):

@@ -29,6 +29,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import flash_geometry
 from repro_torch.kernels.flash_decode import (decode_reference,
                                               flash_decode,
                                               flash_decode_plain,
@@ -47,7 +48,8 @@ from repro_torch.kernels.flash_decode import (decode_reference,
                                               paged_verify_reference)
 from repro_torch.kernels.flash_decode.ops import (PAGED_MAX_CLUSTER,
                                                   SMEM_LIMIT, _check,
-                                                  paged_geometry)
+                                                  paged_geometry,
+                                                  verify_chunks)
 from repro_torch.kernels.multi_lora import (multi_lora, multi_lora_plain,
                                             multi_lora_reference)
 from test_kernels import DECODE_CASES, FLASH_CASES, LORA_CASES, _tol
@@ -381,6 +383,107 @@ def test_paged_geometry_shared_memory(W, G, hd, dt):
     too_long = torch.empty((1, new + 1), device="meta", dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
         _check("paged_flash_verify", q, pool, pool, too_long, kl)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("W,chunks", [(12, [(0, 5), (5, 10), (10, 12)]),
+                                      (7, [(0, 4), (4, 7)]),
+                                      (5, [(0, 5)])])
+def test_chunked_plain_verify_equals_one_verify(dt, W, chunks):
+    """The identity the verify split rests on: a W-position verify equals
+    its chunks [t0, t1), each a verify of t1 - t0 positions with
+    ``kv_len - (W - t1)`` (every position keeps its frontier), dead
+    positions (frontier <= 0) included."""
+    rnd = random.Random(W)
+    r = np.random.default_rng(W)
+    nb, blk, max_blocks, Hkv, G, hd = 24, 4, 6, 2, 3, 16
+    td = torch.float32 if dt == "float32" else torch.bfloat16
+    tbl, kv_len = _rand_case(rnd, B=6, nb=nb, max_blocks=max_blocks, blk=blk)
+    kv_len[:3] = [1, W - 2, W]              # dead positions, first frontier 1
+    q = _t(r.standard_normal((6, W, Hkv * G, hd)), td)
+    kp = _t(r.standard_normal((nb, blk, Hkv, hd)), td)
+    vp = _t(r.standard_normal((nb, blk, Hkv, hd)), td)
+    tb, kl = torch.from_numpy(tbl), torch.from_numpy(kv_len)
+    whole = paged_flash_verify_plain(q, kp, vp, tb, kl)
+    parts = torch.cat([paged_flash_verify_plain(
+        q[:, t0:t1].contiguous(), kp, vp, tb, kl - (W - t1))
+        for t0, t1 in chunks], dim=1)
+    tol = 1e-6 if dt == "float32" else 8e-3
+    torch.testing.assert_close(parts.float(), whole.float(), atol=tol,
+                               rtol=tol)
+    frontier = kl[:, None] - W + 1 + torch.arange(W)[None]
+    assert bool((frontier <= 0).any())
+    assert bool((parts[frontier <= 0] == 0).all())
+
+
+# (W, G, hd, esz, max_blocks): the card test's formerly refused 192 rows,
+# the fleet's verify (no split), wide tables at hd 64 and hd 20
+CHUNK_CASES = [(12, 16, 128, 4, 1), (12, 16, 128, 2, 8), (5, 3, 64, 2, 32),
+               (64, 4, 64, 4, 128), (40, 8, 20, 2, 64), (9, 16, 128, 4, 300)]
+
+
+@pytest.mark.parametrize("W,G,hd,esz,max_blocks", CHUNK_CASES)
+def test_verify_chunks_take_the_widest_launch_that_fits(W, G, hd, esz,
+                                                        max_blocks):
+    """The chunks cover [0, W) in order; each fits one launch; all but the
+    last are the widest that fits (one more position would not); one chunk
+    when the whole verify fits."""
+    chunks = verify_chunks(W, G, max_blocks, 16, hd, esz)
+    assert chunks[0][0] == 0 and chunks[-1][1] == W
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    per = chunks[0][1]
+    assert all(t1 - t0 == per for t0, t1 in chunks[:-1])
+    assert 0 < chunks[-1][1] - chunks[-1][0] <= per
+
+    def fits(n):
+        return paged_geometry(max_blocks, 16, n * G, hd,
+                              esz).smem_bytes <= SMEM_LIMIT
+    assert fits(per)
+    assert per == W or not fits(per + 1)
+    assert (len(chunks) == 1) == fits(W)
+
+
+def test_verify_chunks_refuse_only_what_decode_refuses():
+    """The split raises the "shared memory" error exactly when one
+    position's G rows do not fit: the decode launch on the same table is
+    refused too; one block fewer and both run."""
+    G, hd, blk = 4, 16, 4
+    esz = 4
+    n = 1
+    while paged_geometry(n + 1, blk, G, hd, esz).smem_bytes <= SMEM_LIMIT:
+        n += 1
+    assert verify_chunks(64, G, n, blk, hd, esz)[0][1] >= 1
+    with pytest.raises(ValueError, match="shared memory"):
+        verify_chunks(64, G, n + 1, blk, hd, esz)
+    meta = dict(device="meta", dtype=torch.float32)
+    q = torch.empty((1, 1, 2 * G, hd), **meta)
+    pool = torch.empty((4, blk, 2, hd), **meta)
+    kl = torch.empty((1,), device="meta", dtype=torch.int32)
+    _check("paged_flash_decode", q, pool, pool,
+           torch.empty((1, n), device="meta", dtype=torch.int32), kl)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check("paged_flash_decode", q, pool, pool,
+               torch.empty((1, n + 1), device="meta", dtype=torch.int32), kl)
+
+
+@pytest.mark.parametrize("hd", [20, 32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_geometry_shared_memory(hd, dt):
+    """Kernel 1's dynamic shared memory fits a block at every head_dim the
+    card tests use: the bf16 body's Q tile and K/V ring of 128-key stages
+    (head_dim padded to 32, 64 or 128, rows 16 bytes wider; 5 stages up to
+    64, 3 at 128); the float32 body's is 0 (its tiles are static)."""
+    esz = torch.tensor([], dtype=dt).element_size()
+    geo = flash_geometry(hd, esz)
+    assert geo.head_pad >= hd and geo.head_pad % 16 == 0
+    assert geo.smem_bytes <= SMEM_LIMIT
+    if dt == torch.bfloat16:
+        assert geo.head_pad == {20: 32, 32: 32, 64: 64, 128: 128}[hd]
+        assert geo.stages == (5 if hd <= 64 else 3)
+        assert geo.smem_bytes == \
+            (64 + 2 * geo.stages * 128) * (geo.head_pad + 8) * 2
+    else:
+        assert geo.stages == 0 and geo.smem_bytes == 0
 
 
 def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
