@@ -21,10 +21,11 @@ Phases, in order; any failure exits non-zero before the result line:
    rows, max_blocks 1 and 8): too wide for one launch, so the wrapper runs
    chunks of positions, each position still == decode bitwise.
    The multi-adapter LoRA kernel at the encoder path's shape (5 tasks x 12
-   texts x 512 tokens, rows sorted by task), at ``tests/test_kernels.py``'s
-   LORA_CASES with shuffled ids and one task absent, and with out-of-range
-   ids (exact zero rows); the contiguous ``flash_decode`` wrapper at the
-   reference's DECODE_CASES.
+   texts x 512 tokens, rows sorted by task), at sorted runs of 1, 127, 129
+   and 257 rows (across its 128-row tile edges), at
+   ``tests/test_kernels.py``'s LORA_CASES with shuffled ids and one task
+   absent, and with out-of-range ids (exact zero rows); the contiguous
+   ``flash_decode`` wrapper at the reference's DECODE_CASES.
 3. model: full-width smollm-360m (random weights from a seeded
    ``torch.Generator``) through ``prefill`` + 16 ``decode_step``s on the
    kernel path and on the plain path, teacher-forced with the kernel
@@ -71,8 +72,9 @@ Phases, in order; any failure exits non-zero before the result line:
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 and
    the contiguous ``flash_decode`` at the fleet's decode shape and at
    DECODE_CASES, kernels 2 and 3 also at the wide table (log lines beside
-   the rows), with ``ptxas``'s registers for ``flash_attention.cu`` and
-   ``paged_decode.cu``.
+   the rows), with ``ptxas``'s registers for ``flash_attention.cu``,
+   ``paged_decode.cu`` and ``multi_lora.cu``; kernel 6 also in bf16 and
+   with shuffled ids at the path's shape (log lines).
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX and
@@ -344,10 +346,20 @@ def lora_path_case(dtype, gen):
 
 def lora_cases(dtype, gen):
     """(label, x, a, b, ids, scale): the path's shape (scale 1, the
-    encoder's); LORA_CASES at scale 2 with the ids shuffled and task T-1
-    absent (T > 1); one case with ids outside [0, T) mixed in."""
+    encoder's); sorted runs of 1, 127, 129 and 257 rows at the path's
+    widths (runs straddling the kernel's 128-row tile edges); LORA_CASES at
+    scale 2 with the ids shuffled and task T-1 absent (T > 1); one case
+    with ids outside [0, T) mixed in."""
     import torch
     cases = [("path sorted", *lora_path_case(dtype, gen), 1.0)]
+    runs = (1, 127, 129, 257)
+    ids = torch.cat([torch.full((n,), t) for t, n in enumerate(runs)])
+    N, T = int(ids.numel()), len(runs)
+    cases.append((f"N={N} runs {runs} sorted (tile edges)",
+                  _rand((N, 768), dtype, gen),
+                  _rand((T, 768, 32), dtype, gen) * 0.05,
+                  _rand((T, 32, 768), dtype, gen) * 0.05,
+                  ids.to(torch.int32).cuda(), 2.0))
     perm_gen = torch.Generator().manual_seed(3)
     for N, din, dout, T, r in LORA_CASES:
         ids = (torch.arange(N) % max(1, T - 1))[torch.randperm(
@@ -1603,28 +1615,45 @@ def phase_times(rows, errs, launches, card, ctx):
         "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
         "src/repro/kernels/flash_decode/ops.py:521", ms, plain, lib, t_ops,
         t_bytes)
-    # multi-adapter LoRA at the encoder path's shape, float32 as the path
-    x, a, b, ids = lora_path_case(torch.float32, gen)
-    (N, din), (T, _, r), dout = x.shape, a.shape, b.shape[2]
-    ms = time_ms(lambda: multi_lora(x, a, b, ids), flush)
-    plain = time_ms(lambda: multi_lora_plain(x, a, b, ids), flush)
-    onehot = F.one_hot(ids.long(), T).to(torch.float32)
-    # library: the reference encoder's own form in one call (encoder.py:151)
-    lib = time_ms(lambda: torch.einsum("nd,tdr,tro,nt->no", x, a, b, onehot),
-                  flush)
-    nbytes = (N * din + N * dout + T * r * (din + dout)) * 4 + N * 4
-    flops = 2 * N * r * (din + dout)
-    t_ops = flops / PEAK_OPS["float32"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    per_req = launches.get("multi_lora", 0) / max(1, ctx.get(
-        "signals requests", 1))
-    log(f"times multi_lora float32 N={N} din={din} dout={dout} T={T} r={r} "
-        f"(rows sorted by task): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"einsum nd,tdr,tro,nt->no {lib:.4f} ms, bound "
-        f"{max(t_ops, t_bytes):.6f} ms "
-        f"({'operations' if t_ops > t_bytes else 'bytes'}: {nbytes} B, "
-        f"{flops} FLOP), launches {launches.get('multi_lora', 0)} "
-        f"({per_req:.2f} per request) [{card}]")
+    # multi-adapter LoRA at the encoder path's shape: off the path first,
+    # bf16 and float32 with the rows shuffled (every tile holds all T
+    # tasks: one pass over x per task); last float32 sorted, as the path
+    # runs it (the JSON row)
+    for line in ptxas_lines("multi_lora"):
+        log(f"times ptxas multi_lora: {line}")
+    for dname, layout in (("bfloat16", "sorted"), ("float32", "shuffled"),
+                          ("float32", "sorted")):
+        dtype = getattr(torch, dname)
+        x, a, b, ids = lora_path_case(dtype, gen)
+        if layout == "shuffled":
+            ids = ids[torch.randperm(ids.numel(), generator=gen,
+                                     device="cuda")].contiguous()
+        (N, din), (T, _, r), dout = x.shape, a.shape, b.shape[2]
+        ms = time_ms(lambda: multi_lora(x, a, b, ids), flush)
+        plain = time_ms(lambda: multi_lora_plain(x, a, b, ids), flush)
+        onehot = F.one_hot(ids.long(), T).to(dtype)
+        # library: the reference encoder's own form in one call
+        # (encoder.py:151)
+        lib = time_ms(lambda: torch.einsum("nd,tdr,tro,nt->no", x, a, b,
+                                           onehot), flush)
+        xsz = x.element_size()
+        nbytes = (N * din + N * dout + T * r * (din + dout)) * xsz + N * 4
+        flops = 2 * N * r * (din + dout)
+        t_ops = flops / PEAK_OPS[dname] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        per_req = launches.get("multi_lora", 0) / max(1, ctx.get(
+            "signals requests", 1))
+        # the same bytes in one device copy: the floor the card reaches
+        dst = torch.empty_like(x)
+        copy_ms = time_ms(lambda: dst.copy_(x), flush)
+        log(f"times multi_lora {dname} N={N} din={din} dout={dout} T={T} "
+            f"r={r} (rows {layout} by task): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, einsum nd,tdr,tro,nt->no {lib:.4f} ms, copy_ "
+            f"of x into an (N, dout) tensor {copy_ms:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.6f} ms "
+            f"({'operations' if t_ops > t_bytes else 'bytes'}: {nbytes} B, "
+            f"{flops} FLOP), launches {launches.get('multi_lora', 0)} "
+            f"({per_req:.2f} per request) [{card}]")
     rows.append({"name": "multi_lora", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/multi_lora.cu",
                  "replaces": "src/repro/kernels/multi_lora/multi_lora.py:60",

@@ -6,7 +6,8 @@ kernel ``multi_lora_pallas``) for CUDA tensors and runs
 ``multi_lora_plain`` for CPU tensors; any other device raises.  There is
 no fallback: a CUDA tensor gets the kernel or an error.  The optional base
 product ``x @ w`` stays ``torch.matmul``, outside the kernel, as the
-reference computes it outside its ``pallas_call``.
+reference computes it outside its ``pallas_call``.  ``lora_geometry``
+gives the launch's padded rank, ring stages and dynamic shared memory.
 
 The launch count is exact when the signal engine's thread pool launches
 from several threads: a lock guards it.
@@ -16,16 +17,56 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
-             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 MAX_RANK = 64                 # adapter ranks the kernel takes (csrc/multi_lora.cu)
+LORA_BLOCK_ROWS = 128         # rows per CTA tile (BM: 8 warps x 16)
+LORA_CHUNK_BYTES = 128        # bytes of each x row per shrink stage
+LORA_N_CHUNK = 64             # dout columns per expand stage (NC)
+# dynamic shared memory per CTA that keeps two CTAs on one SM
+# (csrc/multi_lora.cu SMEM_TWO_CTAS)
+LORA_SMEM_TWO_CTAS = 114_688
 _count_lock = threading.Lock()
+
+
+class LoraGeometry(NamedTuple):
+    rank_pad: int       # rank rounded up to the instantiated width
+    stages: int         # cp.async ring stages
+    smem_bytes: int     # dynamic shared memory of one CTA
+
+
+def lora_geometry(r: int, esz: int) -> LoraGeometry:
+    """Launch geometry of ``csrc/multi_lora.cu`` for rank ``r`` in an
+    ``esz``-byte dtype: the kernel's own carve (``smem_need``), which
+    refuses a launch given less.
+
+    The rank is padded to 8, 16, 32 or 64.  A ring stage holds the larger
+    of a shrink job (LORA_CHUNK_BYTES of each of LORA_BLOCK_ROWS rows of
+    x, rows padded by 16 bytes, plus as many rows of A with a row stride
+    of ``rank_pad`` or ``rank_pad + 8`` elements, whichever keeps fragment
+    reads on distinct banks) and an expand job (``rank_pad`` rows of
+    LORA_N_CHUNK columns of B, padded by 16 bytes), rounded up to 128
+    bytes.  After the ring, each of the 8 warps has a 16 x
+    (LORA_N_CHUNK + 8) output staging tile.  The ring takes the most
+    stages, 2 to 4, that keep the CTA within LORA_SMEM_TWO_CTAS."""
+    rank_pad = 8 if r <= 8 else 16 if r <= 16 else 32 if r <= 32 else 64
+    pad = 16 // esz
+    kc = LORA_CHUNK_BYTES // esz
+    a_stride = rank_pad if rank_pad % 16 == 8 else rank_pad + 8
+    shrink = (LORA_BLOCK_ROWS * (kc + pad) + kc * a_stride) * esz
+    expand = rank_pad * (LORA_N_CHUNK + pad) * esz
+    stage = -(-max(shrink, expand) // 128) * 128
+    staging = 8 * 16 * (LORA_N_CHUNK + 8) * esz
+    stages = 4
+    while stages > 2 and stages * stage + staging > LORA_SMEM_TWO_CTAS:
+        stages -= 1
+    return LoraGeometry(rank_pad, stages, stages * stage + staging)
 
 
 def multi_lora_plain(x, a, b, task_ids, *, scale: float = 1.0):
@@ -89,11 +130,12 @@ def _delta(x, a, b, task_ids, scale):
     out = torch.empty((N, dout), dtype=x.dtype, device=x.device)
     if N == 0 or dout == 0:
         return out
+    geo = lora_geometry(r, x.element_size())
     fn = _build.c_function("multi_lora", "multi_lora_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), task_ids.data_ptr(),
                 out.data_ptr(), N, din, dout, T, r, float(scale),
-                int(x.dtype == torch.bfloat16),
+                int(x.dtype == torch.bfloat16), geo.smem_bytes,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multi_lora kernel launch failed: CUDA error {rc}")

@@ -459,10 +459,21 @@ def test_flash_decode_kernel_matches_plain(cuda, B, Skv, Hq, Hkv, hd, dtype):
 
 
 # N, din, dout, T, r: tests/test_kernels.py's LORA_CASES and the encoder
-# path's shape (5 tasks x 12 texts x 512 tokens at ModernBERT-base width)
+# path's shape (5 tasks x 12 texts x 512 tokens at ModernBERT-base width);
+# then the edges of the kernel's tiling (tiles of BM = 128 rows, 32-column
+# x/A chunks, 64-column B chunks, rank padded to 8/16/32/64): N = 1; runs
+# straddling tile edges; din/dout with chunk tails (100 -> 36) and not
+# multiples of 4 (99 -> 37: element copies, unpaired stores); ranks 1 and
+# 64 at ModernBERT-base width; one task only
 LORA = [(256, 768, 768, 6, 32), (130, 512, 256, 3, 16),
         (256, 384, 384, 10, 64), (64, 128, 128, 1, 8),
-        (5 * 12 * 512, 768, 768, 5, 32)]
+        (5 * 12 * 512, 768, 768, 5, 32),
+        (1, 768, 768, 5, 32), (514, 768, 768, 4, 32), (300, 100, 36, 3, 16),
+        (300, 99, 37, 3, 5), (256, 768, 768, 4, 1), (300, 768, 768, 5, 64),
+        (640, 768, 768, 1, 32)]
+LORA_BM = 128                 # rows per tile of csrc/multi_lora.cu
+# sorted run lengths around the tile edge: 1, BM - 1, BM + 1, 2 BM + 1
+LORA_RUNS = (1, LORA_BM - 1, LORA_BM + 1, 2 * LORA_BM + 1)
 
 
 def _lora_ids(cuda, N, T, layout):
@@ -472,6 +483,15 @@ def _lora_ids(cuda, N, T, layout):
     elif layout == "shuffled_absent":       # random order, task T-1 absent
         ids = (torch.arange(N) % max(1, T - 1))[torch.randperm(N,
                                                                generator=g)]
+    elif layout == "runs":                  # sorted runs across tile edges
+        runs, i = [], 0
+        while sum(runs) < N:
+            runs.append(LORA_RUNS[i % len(LORA_RUNS)])
+            i += 1
+        ids = torch.cat([torch.full((n,), k % T) for k, n in
+                         enumerate(runs)])[:N]
+    elif layout == "all_out_of_range":      # no valid id: all rows zero
+        ids = torch.tensor([-1, T, 1 << 20, -7]).repeat(N)[:N]
     else:                                   # out-of-range ids mixed in
         ids = torch.randint(0, T, (N,), generator=g)
         ids[::7] = -1
@@ -481,7 +501,8 @@ def _lora_ids(cuda, N, T, layout):
 
 
 @pytest.mark.parametrize("layout", ["sorted", "shuffled_absent",
-                                    "out_of_range"])
+                                    "out_of_range", "runs",
+                                    "all_out_of_range"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,din,dout,T,r", LORA,
                          ids=[f"ml{i}" for i in range(len(LORA))])
@@ -505,6 +526,32 @@ def test_multi_lora_kernel_matches_plain(cuda, N, din, dout, T, r, dtype,
     fused = multi_lora(x, a, b, ids, w, scale=2.0)
     torch.cuda.synchronize()
     assert torch.equal(fused, x @ w + out)
+
+
+def test_multi_lora_kernel_refuses_short_shared_memory(cuda):
+    """The C entry refuses a launch given one byte less dynamic shared
+    memory than ``lora_geometry``'s (the kernel's carve) at every padded
+    rank, and takes exactly that much."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.multi_lora.ops import _ARGTYPES, lora_geometry
+    fn = _build.c_function("multi_lora", "multi_lora_fwd", _ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in (1, 16, 32, 64):
+            g = torch.Generator(device=cuda).manual_seed(r)
+            x = torch.randn((130, 40), generator=g, device=cuda).to(dtype)
+            a = torch.randn((2, 40, r), generator=g, device=cuda).to(dtype)
+            b = torch.randn((2, r, 24), generator=g, device=cuda).to(dtype)
+            ids = (torch.arange(130, device=cuda) % 2).to(torch.int32)
+            out = torch.empty((130, 24), device=cuda, dtype=dtype)
+            geo = lora_geometry(r, x.element_size())
+            args = (x.data_ptr(), a.data_ptr(), b.data_ptr(), ids.data_ptr(),
+                    out.data_ptr(), 130, 40, 24, 2, r, 1.0,
+                    int(dtype == torch.bfloat16))
+            assert fn(*args, geo.smem_bytes - 1, stream) != 0
+            assert fn(*args, geo.smem_bytes, stream) == 0
+            torch.cuda.synchronize()
+            _close(out, multi_lora_plain(x, a, b, ids), dtype)
 
 
 def test_multi_lora_kernel_rejects_bad_inputs(cuda):

@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention import (attention_reference,
                                                  flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention.ops import flash_geometry
+from repro_torch.kernels.multi_lora.ops import (LORA_SMEM_TWO_CTAS,
+                                                lora_geometry)
 from repro_torch.kernels.flash_decode import (decode_reference,
                                               flash_decode,
                                               flash_decode_plain,
@@ -594,6 +596,57 @@ def test_multi_lora_plain_random_task_permutations(seed):
     out = multi_lora_plain(tx, ta, tb, torch.from_numpy(base))
     out_p = multi_lora_plain(tx[perm], ta, tb, torch.from_numpy(base[perm]))
     torch.testing.assert_close(out_p, out[perm], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("block_n", [64, 128])
+def test_multi_lora_plain_vs_jax_runs_across_tile_edges(block_n):
+    """Sorted task runs of 1, 63, 65, 127, 129 and 257 rows (across the
+    64- and 128-row tile edges of the JAX kernel's ``block_n`` and of
+    ``csrc/multi_lora.cu``'s 128-row tiles) at float32, scale 2: the plain
+    version against the JAX kernel (interpret mode) with that block and
+    against the JAX oracle, within 1e-4 (TF32 off; summation order only)."""
+    runs = (1, 63, 65, 127, 129, 257)
+    T, din, dout, r = 4, 64, 48, 8
+    ids = np.concatenate([np.full(n, k % T) for k, n in enumerate(runs)])
+    N = ids.size
+    x, a, b = _lora_inputs(N, N, din, dout, T, r)
+    out = multi_lora_plain(*(_t(v, torch.float32) for v in (x, a, b)),
+                           torch.from_numpy(ids.astype(np.int32)), scale=2.0)
+    jargs = (*(_j(v, jnp.float32) for v in (x, a, b)),
+             jnp.asarray(ids, jnp.int32))
+    for ref in (j_multi_lora(*jargs, scale=2.0, block_n=block_n,
+                             interpret=True),
+                j_lora_ref(*jargs, scale=2.0)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("r", [1, 16, 32, 64])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_lora_geometry_shared_memory(r, dt):
+    """Kernel 6's dynamic shared memory at every rank class: within a
+    block's 232 448 B and within the two-CTAs-per-SM budget, a ring of 2
+    to 4 stages, each the larger of a shrink job (128 bytes of each of 128
+    x rows padded by 16 bytes, plus as many rows of A) and an expand job
+    (rank_pad rows of 64 columns of B padded by 16 bytes), plus the 8 warps'
+    16 x 72 staging tiles; the most stages that fit."""
+    esz = torch.tensor([], dtype=dt).element_size()
+    geo = lora_geometry(r, esz)
+    assert geo.rank_pad == {1: 8, 16: 16, 32: 32, 64: 64}[r]
+    assert 2 <= geo.stages <= 4
+    assert geo.smem_bytes <= LORA_SMEM_TWO_CTAS <= SMEM_LIMIT
+    kc = 128 // esz
+    a_stride = geo.rank_pad + (0 if geo.rank_pad % 16 == 8 else 8)
+    stage = max((128 * (kc + 16 // esz) + kc * a_stride) * esz,
+                geo.rank_pad * (64 + 16 // esz) * esz)
+    stage = -(-stage // 128) * 128
+    staging = 8 * 16 * 72 * esz
+    assert geo.smem_bytes == geo.stages * stage + staging
+    assert geo.stages == 4 or \
+        (geo.stages + 1) * stage + staging > LORA_SMEM_TWO_CTAS
+    # the encoder path's geometry (float32, r = 32): 3 stages, 107 520 B
+    if dt == torch.float32 and r == 32:
+        assert (geo.stages, geo.smem_bytes) == (3, 107_520)
 
 
 def test_multi_lora_fused_base_vs_jax():
