@@ -11,12 +11,13 @@ Phases, in order; any failure exits non-zero before the result line:
    ``nvcc`` per source, in parallel) with their build seconds.
 2. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the paths' shapes, float32 (TF32 off) and bfloat16; the MLA
-   kernels also at a reduced shape with a masked head tile.
+   kernels also at a reduced shape (4 heads: one 16-row tile).
    The verify kernels are also held to the decode kernels bitwise
    (position t of a W = 5 verify == a decode launch at its frontier;
    W = 1 == decode) with dead positions (frontier <= 0) exact zeros.
    Kernels 2 and 3 also at a wide table: B = 8, every row at all 2048
-   keys of max_seq 2048 (a cluster of 8 CTAs of 256 keys), W 1 and 5.
+   keys of max_seq 2048 (a cluster of 8 CTAs of 256 keys), W 1 and 5;
+   kernels 4 and 5 at the same wide table at deepseek-v2's widths.
    Kernel 3 also at W = 12 positions x G = 16 heads of hd 128 (192 query
    rows, max_blocks 1 and 8): too wide for one launch, so the wrapper runs
    chunks of positions, each position still == decode bitwise.
@@ -71,10 +72,11 @@ Phases, in order; any failure exits non-zero before the result line:
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 and
    the contiguous ``flash_decode`` at the fleet's decode shape and at
-   DECODE_CASES, kernels 2 and 3 also at the wide table (log lines beside
+   DECODE_CASES, kernels 2-5 also at the wide table (log lines beside
    the rows), with ``ptxas``'s registers for ``flash_attention.cu``,
-   ``paged_decode.cu`` and ``multi_lora.cu``; kernel 6 also in bf16 and
-   with shuffled ids at the path's shape (log lines).
+   ``paged_decode.cu``, ``paged_mla_decode.cu`` (and its launch geometry)
+   and ``multi_lora.cu``; kernel 6 also in bf16 and with shuffled ids at
+   the path's shape (log lines).
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX and
@@ -112,7 +114,7 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 W_SPEC = 5                                # verify width: pending token + k = 4
-# the wide table of kernels 2 and 3: every row at 2048 keys (C = 8, P = 16)
+# the wide table of kernels 2-5: every row at 2048 keys (C = 8, P = 16)
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
@@ -215,7 +217,7 @@ def decode_case(dtype, gen):
 
 def mla_shapes(full=True):
     """(H, r, rh, nope) of deepseek-v2's MLA decode: the published widths,
-    or the reduced config's (4 heads: one masked 16-head tile)."""
+    or the reduced config's (4 heads: one 16-row tile)."""
     return (128, 512, 64, 128) if full else (4, 16, 8, 16)
 
 
@@ -271,6 +273,26 @@ def wide_case(dtype, gen, W):
     kpool = _rand((WIDE_BLOCKS, BLOCK, 5, 64), dtype, gen)
     vpool = _rand((WIDE_BLOCKS, BLOCK, 5, 64), dtype, gen)
     return q, kpool, vpool, tbl, kv_len
+
+
+def mla_wide_case(dtype, gen, W):
+    """Kernels 4 and 5 at ``wide_case``'s table (B=8 rows, every row at
+    all 2048 keys, a pool of 1025 blocks of 16 through a random
+    permutation) at deepseek-v2's widths; W query positions per row (W =
+    0: decode queries (B, H, r)).  Returns (q_lat, q_rope, ckv_pool,
+    krope_pool, tbl, kv_len, scale)."""
+    import torch
+    H, r, rh, nope = mla_shapes()
+    max_blocks = WIDE_SEQ // BLOCK
+    perm = torch.randperm(WIDE_BLOCKS - 1, generator=torch.Generator()
+                          .manual_seed(6)) + 1
+    tbl = perm.reshape(BATCH, max_blocks).to(torch.int32).cuda().contiguous()
+    kv_len = torch.full((BATCH,), WIDE_SEQ, dtype=torch.int32, device="cuda")
+    lead = (BATCH, W, H) if W else (BATCH, H)
+    return (_rand(lead + (r,), dtype, gen), _rand(lead + (rh,), dtype, gen),
+            _rand((WIDE_BLOCKS, BLOCK, r), dtype, gen),
+            _rand((WIDE_BLOCKS, BLOCK, rh), dtype, gen), tbl, kv_len,
+            1.0 / math.sqrt(nope + rh))
 
 
 def split_verify_case(dtype, gen, max_blocks):
@@ -442,6 +464,33 @@ def check_wide_paged(errs, dtype, dname, gen):
                                          err)
 
 
+def check_wide_mla(errs, dtype, dname, gen):
+    """Kernels 4 and 5 at ``mla_wide_case``: decode against its plain
+    version; verify at W = 5 through ``hold_verify``."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode_mla, paged_flash_decode_mla_plain,
+        paged_flash_verify_mla, paged_flash_verify_mla_plain)
+    *args, scale = mla_wide_case(dtype, gen, 0)
+    out = paged_flash_decode_mla(*args, scale=scale)
+    ref = paged_flash_decode_mla_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    err, ok = _compare(out, ref, TOL[dname])
+    log(f"  paged_flash_decode_mla {dname} wide B={BATCH} max_seq {WIDE_SEQ} "
+        f"kv_len all {WIDE_SEQ}: max_abs_err {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"paged_flash_decode_mla {dname} wide: {err}")
+    errs["paged_flash_decode_mla"] = max(
+        errs.get("paged_flash_decode_mla", 0.0), err)
+    ql, qr, ckv, kr, tbl, kv_len, scale = mla_wide_case(dtype, gen, W_SPEC)
+    err = hold_verify(f"paged_flash_verify_mla wide max_seq {WIDE_SEQ}",
+                      paged_flash_verify_mla, paged_flash_verify_mla_plain,
+                      paged_flash_decode_mla, (ql, qr), (ckv, kr, tbl),
+                      kv_len, {"scale": scale}, dname)
+    errs["paged_flash_verify_mla"] = max(
+        errs.get("paged_flash_verify_mla", 0.0), err)
+
+
 def phase_kernels(errs):
     import torch
     from repro_torch.kernels.flash_attention.ops import (
@@ -535,6 +584,7 @@ def phase_kernels(errs):
                               dname)
             errs["paged_flash_verify_mla"] = max(
                 errs.get("paged_flash_verify_mla", 0.0), err)
+        check_wide_mla(errs, dtype, dname, gen)
         check_lora_and_flash_decode(errs, dtype, dname, gen)
 
 
@@ -1467,15 +1517,70 @@ def time_paged(label, q, kpool, vpool, tbl, kv_len, flush, card):
     return ms, plain, lib, t_ops, t_bytes
 
 
+def time_mla(label, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
+             scale, flush, card):
+    """Kernel 4 (q (B, H, r)) or kernel 5 (q (B, W, H, r)): kernel, plain
+    version and SDPA over the gathered latent view (one KV head broadcast
+    to all H query heads: q = [q_lat | q_rope], k = [ckv | krope], v =
+    ckv) with a per-position mask (rows whose frontier is 0 come out NaN
+    there; timing only), and the bound: the live latent of the last
+    position plus q and out once, FLOPs of every position's frontier.
+    Returns (ms, plain, lib, t_ops, t_bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import (
+        gather_kv, paged_flash_decode_mla, paged_flash_decode_mla_plain,
+        paged_flash_verify_mla, paged_flash_verify_mla_plain)
+    decode = q_lat.dim() == 3
+    kern, plain_fn = ((paged_flash_decode_mla, paged_flash_decode_mla_plain)
+                      if decode else
+                      (paged_flash_verify_mla, paged_flash_verify_mla_plain))
+    args = (q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
+    ms = time_ms(lambda: kern(*args, scale=scale), flush)
+    plain = time_ms(lambda: plain_fn(*args, scale=scale), flush)
+    ql4, qr4 = (q_lat[:, None], q_rope[:, None]) if decode else (q_lat, q_rope)
+    B, W, H, r = ql4.shape
+    rh = qr4.shape[3]
+    S = tbl.shape[1] * ckv_pool.shape[1]
+    frontier = (kv_len[:, None] - W + 1 + torch.arange(W, device="cuda")
+                [None]).clamp(0, S)                           # (B, W)
+    qs = torch.cat([ql4, qr4], -1).transpose(1, 2).contiguous()
+    ks = torch.cat([gather_kv(ckv_pool, tbl), gather_kv(krope_pool, tbl)],
+                   -1)[:, None].contiguous()
+    vs = gather_kv(ckv_pool, tbl)[:, None].contiguous()
+    mask = (torch.arange(S, device="cuda")[None, None] <
+            frontier[:, :, None])[:, None]                    # (B,1,W,S)
+    try:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True), flush)
+    except RuntimeError as e:
+        log(f"times {label}: SDPA refused the latent shapes (q/k width "
+            f"{r + rh}, v width {r}): {e}")
+        lib = None
+    dname = str(q_lat.dtype).split(".")[-1]
+    live = int(frontier[:, -1].sum())            # keys of the last position
+    nbytes = (live * (r + rh) + B * W * H * (2 * r + rh)) * \
+        q_lat.element_size() + (tbl.numel() + kv_len.numel()) * 4
+    flops = int(frontier.sum()) * H * (2 * (r + rh) + 2 * r)
+    t_ops = flops / PEAK_OPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times {label} {dname} B={B} W={W} H={H} r={r} rh={rh} max_seq {S} "
+        f"live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"over gathered view (per-position mask) "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}: {nbytes} B) "
+        f"[{card}]")
+    return ms, plain, lib, t_ops, t_bytes
+
+
 def phase_times(rows, errs, launches, card, ctx):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
-        flash_decode, flash_decode_plain, gather_kv, paged_flash_decode_mla,
-        paged_flash_decode_mla_plain, paged_flash_verify_mla,
-        paged_flash_verify_mla_plain)
+        flash_decode, flash_decode_plain, gather_kv, mla_geometry)
     from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1538,83 +1643,32 @@ def phase_times(rows, errs, launches, card, ctx):
             *res)
         time_paged(f"{name} wide", *wide_case(dt, gen, W), flush, card)
 
-    # MLA decode at the MLA fleet's decode shapes (phase 2's full-width rows)
-    *args, scale = mla_decode_case(dt, gen)
-    q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len = args
+    # kernels 4 and 5 at deepseek's widths: decode at the MLA fleet's
+    # decode shapes (phase 2's full-width rows), verify at W = 5 over the
+    # same latent pool (the JSON rows); then each at the wide table (log
+    # lines)
+    for line in ptxas_lines("paged_mla_decode"):
+        log(f"times ptxas paged_mla_decode: {line}")
     H, r, rh, _ = mla_shapes()
-    ms = time_ms(lambda: paged_flash_decode_mla(*args, scale=scale), flush)
-    plain = time_ms(lambda: paged_flash_decode_mla_plain(*args, scale=scale),
-                    flush)
-    # library: SDPA over the gathered latent view, one KV head broadcast to
-    # all H query heads: q = [q_lat | q_rope], k = [ckv | krope], v = ckv
-    qs = torch.cat([q_lat, q_rope], -1)[:, :, None, :].contiguous()
-    ks = torch.cat([gather_kv(ckv_pool, tbl), gather_kv(krope_pool, tbl)],
-                   -1)[:, None].contiguous()
-    vs = gather_kv(ckv_pool, tbl)[:, None].contiguous()
-    mask = (torch.arange(MAX_SEQ, device="cuda")[None] <
-            kv_len[:, None])[:, None, None, :]
-    try:
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True), flush)
-    except RuntimeError as e:
-        log(f"times paged_flash_decode_mla: SDPA refused the latent shapes "
-            f"(q/k width {r + rh}, v width {r}): {e}")
-        lib = None
-    live = int(kv_len.sum())
-    nbytes = (live * (r + rh) + BATCH * H * (2 * r + rh)) * esz + \
-        (tbl.numel() + kv_len.numel()) * 4
-    flops = live * H * (2 * (r + rh) + 2 * r)
-    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"times paged_flash_decode_mla bf16 B={BATCH} H={H} r={r} rh={rh} "
-        f"live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-        f"over gathered view {'n/a' if lib is None else f'{lib:.4f} ms'}, "
-        f"bound {max(t_ops, t_bytes):.6f} ms "
-        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    row("paged_flash_decode_mla",
-        "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
-        "src/repro/kernels/flash_decode/ops.py:412", ms, plain, lib, t_ops,
-        t_bytes)
+    for name, W, replaces in (
+            ("paged_flash_decode_mla", 0,
+             "src/repro/kernels/flash_decode/ops.py:412"),
+            ("paged_flash_verify_mla", W_SPEC,
+             "src/repro/kernels/flash_decode/ops.py:521")):
+        if W:
+            qs, rest, kv_len, kw = verify_case(dt, gen, mla=True)
+            args = (*qs, *rest, kv_len, kw["scale"])
+        else:
+            args = mla_decode_case(dt, gen)
+        for max_blocks in (MAX_SEQ // BLOCK, WIDE_SEQ // BLOCK):
+            geo = mla_geometry(max_blocks, BLOCK, max(W, 1) * H, r, rh, esz)
+            log(f"times paged_mla_decode geometry W={max(W, 1)} H={H} "
+                f"max_seq {max_blocks * BLOCK}: {geo}")
+        res = time_mla(name, *args, flush, card)
+        row(name, "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
+            replaces, *res)
+        time_mla(f"{name} wide", *mla_wide_case(dt, gen, W), flush, card)
 
-    # MLA verify at deepseek's widths: W = 5 over phase 2's latent pool
-    (q_lat, q_rope), (ckv_pool, krope_pool, tbl), kv_len, kw = \
-        verify_case(dt, gen, mla=True)
-    B, W, H, r = q_lat.shape
-    rh = q_rope.shape[3]
-    args = (q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
-    ms = time_ms(lambda: paged_flash_verify_mla(*args, **kw), flush)
-    plain = time_ms(lambda: paged_flash_verify_mla_plain(*args, **kw), flush)
-    frontier = (kv_len[:, None] - W + 1 + torch.arange(W, device="cuda")
-                [None]).clamp(0, MAX_SEQ)
-    qs = torch.cat([q_lat, q_rope], -1).transpose(1, 2).contiguous()
-    ks = torch.cat([gather_kv(ckv_pool, tbl), gather_kv(krope_pool, tbl)],
-                   -1)[:, None].contiguous()
-    vs = gather_kv(ckv_pool, tbl)[:, None].contiguous()
-    mask = (torch.arange(MAX_SEQ, device="cuda")[None, None] <
-            frontier[:, :, None])[:, None]
-    try:
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True, **kw), flush)
-    except RuntimeError as e:
-        log(f"times paged_flash_verify_mla: SDPA refused the latent shapes: "
-            f"{e}")
-        lib = None
-    live = int(frontier[:, -1].sum())
-    nbytes = (live * (r + rh) + B * W * H * (2 * r + rh)) * esz + \
-        (tbl.numel() + kv_len.numel()) * 4
-    flops = int(frontier.sum()) * H * (2 * (r + rh) + 2 * r)
-    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"times paged_flash_verify_mla bf16 B={B} W={W} H={H} r={r} rh={rh} "
-        f"live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-        f"over gathered view (per-position mask) "
-        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-        f"{max(t_ops, t_bytes):.6f} ms "
-        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
-    row("paged_flash_verify_mla",
-        "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
-        "src/repro/kernels/flash_decode/ops.py:521", ms, plain, lib, t_ops,
-        t_bytes)
     # multi-adapter LoRA at the encoder path's shape: off the path first,
     # bf16 and float32 with the rows shuffled (every tile holds all T
     # tasks: one pass over x per task); last float32 sorted, as the path

@@ -19,7 +19,10 @@ the block table; only the plain versions build the gathered view.  The GQA
 kernel splits each (row, KV head) over a thread-block cluster whose size
 and spans ``paged_geometry`` computes from the table width alone; a
 verify too wide for one launch's shared memory runs as consecutive chunks
-of positions (``verify_chunks``), each exact by construction.
+of positions (``verify_chunks``), each exact by construction.  The MLA
+kernel splits each row's keys over a cluster the same way and cuts the
+row's W x H query rows into row tiles (``mla_geometry``), so any W is
+one launch.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ from repro_torch.models.layers import mla_latent_core, sdpa
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 +
                   [ctypes.c_void_p])
 _MLA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
-                 [ctypes.c_float, ctypes.c_void_p])
-MLA_HEAD_TILE = 16            # query heads per thread block (paged_mla_decode.cu)
+                 [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 MLA_MAX_R, MLA_MAX_RH = 512, 128
+MLA_CHUNK = 16                # tokens per cp.async ring stage (paged_mla_decode.cu CH)
+MLA_MIN_STAGES, MLA_MAX_STAGES = 3, 8   # ring stages (paged_mla_decode.cu)
+MLA_ROW_TILES = (64, 32, 16)  # query rows per CTA, widest first
 PAGED_MAX_CLUSTER = 8         # the portable thread-block cluster size
 PAGED_CHUNK = 32              # tokens per cp.async ring stage (paged_decode.cu CH)
 PAGED_STAGES = 4              # ring stages (paged_decode.cu STAGES)
@@ -366,15 +371,67 @@ def paged_flash_verify_mla_plain(q_lat, q_rope, ckv_pool, krope_pool, tbl,
     return _zero_dead_positions(ctx, kv_len)
 
 
-def mla_smem_bytes(r: int, rh: int, max_seq: int) -> int:
-    """Shared memory one block of the MLA kernel needs: its head tile's
-    float32 queries and float32 scores over the whole table (whatever W:
-    each block serves one position)."""
-    return MLA_HEAD_TILE * (r + rh + max_seq) * 4
+class MlaGeometry(NamedTuple):
+    cluster: int        # C: CTAs of one row's cluster
+    span_blocks: int    # P: table blocks per CTA; rank c owns [c*P, (c+1)*P)
+    row_tile: int       # RT: query rows per CTA (row = t * H + h)
+    stages: int         # NS: cp.async ring stages of MLA_CHUNK tokens
+    smem_bytes: int     # dynamic shared memory of one CTA
+
+
+def _mla_carve(RT: int, r: int, rh: int, esz: int, span: int, P: int,
+               C: int, NS: int) -> int:
+    """Bytes of ``carve`` in ``csrc/paged_mla_decode.cu``: query rows
+    ``[ckv | 0 | krope | 0 | 16 B]``, float32 scores over the span and the
+    ring, or (in the same bytes) every rank's float32 partial of this
+    CTA's output columns; every rank's row maxima and sums; the span's
+    table entries; the query tile's barrier."""
+    rp = _up(r, 16)
+    ks = rp + _up(rh, 16) + 16 // esz
+    sps = _up(span, MLA_CHUNK) + 8
+    wc = _up(-(-_up(r, 8) // C), 8)
+    phases = (_up(RT * ks * esz, 16) + _up(RT * sps * 4, 16)
+              + _up(NS * MLA_CHUNK * ks * esz, 16))
+    recv = _up(C * RT * wc * 4, 16)
+    return (max(phases, recv) + _up(2 * PAGED_MAX_CLUSTER * RT * 4, 16)
+            + _up(P * 4, 16) + 16)
+
+
+def mla_geometry(max_blocks: int, block_tokens: int, rows: int, r: int,
+                 rh: int, esz: int) -> MlaGeometry:
+    """Launch geometry of ``csrc/paged_mla_decode.cu`` for a (B,
+    max_blocks) table of ``block_tokens``-token blocks and ``rows`` = W x H
+    query rows of latent rank ``r`` and rope width ``rh`` in an
+    ``esz``-byte dtype.
+
+    The cluster size and the span come from the table width alone, as in
+    ``paged_geometry``, so a decode at frontier f and a verify position at
+    f run the same spans in the same order.  The row tile is the widest of
+    MLA_ROW_TILES whose carve fits in SMEM_LIMIT with at least
+    MLA_MIN_STAGES ring stages (64 rows only in bf16: a float32 tile of 64
+    queries and its ring do not fit), and no wider than the rows need; the
+    ring then takes as many stages as fit, up to the span's (a span that
+    fits stays resident: the P.V phase reuses it) or MLA_MAX_STAGES.  When
+    nothing fits, the 16-row carve is returned and the launch is refused.
+    A row's arithmetic depends on neither the tile nor the ring, so
+    neither does verify == decode."""
+    cluster = min(PAGED_MAX_CLUSTER, max_blocks)
+    span_blocks = -(-max_blocks // cluster)
+    span = span_blocks * block_tokens
+    want = min(MLA_MAX_STAGES, max(MLA_MIN_STAGES, -(-span // MLA_CHUNK)))
+    tiles = [rt for rt in MLA_ROW_TILES
+             if (rt == 16 or rt // 2 < rows) and (rt < 64 or esz == 2)]
+    for rt in tiles:
+        for ns in range(want, MLA_MIN_STAGES - 1, -1):
+            smem = _mla_carve(rt, r, rh, esz, span, span_blocks, cluster, ns)
+            if smem <= SMEM_LIMIT:
+                return MlaGeometry(cluster, span_blocks, rt, ns, smem)
+    return MlaGeometry(cluster, span_blocks, rt, MLA_MIN_STAGES, smem)
 
 
 def _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len):
-    """q_lat: (B, W, H, r); q_rope: (B, W, H, rh) — decode passes W = 1."""
+    """q_lat: (B, W, H, r); q_rope: (B, W, H, rh) — decode passes W = 1.
+    Returns the launch's ``mla_geometry``."""
     if q_lat.dim() != 4 or q_rope.dim() != 4 or ckv_pool.dim() != 3 or \
             krope_pool.dim() != 3:
         raise ValueError(f"{name}: q_lat (B,[W,]H,r), q_rope (B,[W,]H,rh), "
@@ -410,19 +467,21 @@ def _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len):
                              f"{q_lat.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    smem = mla_smem_bytes(r, rh, tbl.shape[1] * ckv_pool.shape[1])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: {smem} B of queries and scores exceed the "
-                         f"{SMEM_LIMIT} B of shared memory a block may use "
-                         f"(max_seq {tbl.shape[1] * ckv_pool.shape[1]} too "
-                         f"long)")
+    blk = ckv_pool.shape[1]
+    geo = mla_geometry(tbl.shape[1], blk, W * H, r, rh, q_lat.element_size())
+    if geo.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: {geo.smem_bytes} B of queries, scores and "
+                         f"latent ring exceed the {SMEM_LIMIT} B of shared "
+                         f"memory a block may use (max_seq "
+                         f"{tbl.shape[1] * blk} too long)")
+    return geo
 
 
 def _launch_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
                 scale):
     """Check and launch ``csrc/paged_mla_decode.cu`` on (B, W, H, r|rh)
     queries; returns the (B, W, H, r) latent context."""
-    _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
+    geo = _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len)
     B, W, H, r = q_lat.shape
     rh = q_rope.shape[3]
     nb, blk = ckv_pool.shape[:2]
@@ -433,7 +492,7 @@ def _launch_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
         rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
                 krope_pool.data_ptr(), tbl.data_ptr(), kv_len.data_ptr(),
                 out.data_ptr(), B, W, H, r, rh, nb, blk, tbl.shape[1],
-                int(q_lat.dtype == torch.bfloat16), float(scale),
+                int(q_lat.dtype == torch.bfloat16), float(scale), *geo,
                 _stream(q_lat.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

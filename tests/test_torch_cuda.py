@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_decode.ops import (
     paged_flash_decode_mla, paged_flash_decode_mla_plain,
     paged_flash_decode_plain, paged_geometry, paged_flash_verify, paged_flash_verify_mla,
     paged_flash_verify_mla_plain, paged_flash_verify_plain)
-from repro_torch.kernels.flash_decode.ops import _check, verify_chunks
+from repro_torch.kernels.flash_decode.ops import (_MLA_ARGTYPES, _check,
+                                                  mla_geometry, verify_chunks)
 from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
 
 pytestmark = pytest.mark.cuda
@@ -170,7 +171,11 @@ def _mla_case(cuda, dtype, *, B, H, r, rh, nb, max_blocks, seed):
 @pytest.mark.parametrize("B,H,r,rh,nb,max_blocks", [
     (8, 128, 512, 64, 385, 32),      # deepseek-v2 at full width, max_seq 512
     (5, 4, 16, 8, 40, 4),            # reduced: one masked head tile
-    (6, 20, 64, 32, 60, 8)])         # a full tile plus a remainder tile
+    (6, 20, 64, 32, 60, 8),          # a full tile plus a remainder tile
+    # the cluster split: C = 1, C = 3, the uneven 9 blocks (C = 8, P = 2,
+    # ranks 5-7 own nothing), and a 2048-key table at full width
+    (5, 4, 16, 8, 40, 1), (6, 20, 64, 32, 60, 3), (6, 20, 64, 32, 60, 9),
+    (8, 128, 512, 64, 1025, 128)])
 def test_paged_mla_decode_kernel_matches_plain(cuda, dtype, B, H, r, rh, nb,
                                                max_blocks):
     args = _mla_case(cuda, dtype, B=B, H=H, r=r, rh=rh, nb=nb,
@@ -280,7 +285,9 @@ def test_paged_verify_splits_what_one_launch_cannot_hold(cuda, dtype,
 @pytest.mark.parametrize("B,W,H,r,rh,nb,max_blocks", [
     (8, 5, 128, 512, 64, 385, 32),   # deepseek-v2 at full width, max_seq 512
     (5, 3, 4, 16, 8, 40, 4),         # reduced: one masked head tile
-    (4, 1, 20, 64, 32, 60, 8)])      # W = 1: the decode kernel's launch
+    (4, 1, 20, 64, 32, 60, 8),       # W = 1: the decode kernel's launch
+    (8, 5, 128, 512, 64, 1025, 128),  # full width, a 2048-key table
+    (5, 8, 20, 64, 32, 60, 9)])      # row tiles that mix positions
 def test_paged_mla_verify_kernel_matches_plain_and_decode(cuda, dtype, B, W,
                                                           H, r, rh, nb,
                                                           max_blocks):
@@ -312,6 +319,108 @@ def test_paged_mla_verify_kernel_matches_plain_and_decode(cuda, dtype, B, W,
         assert torch.equal(out[:, pos], step), f"position {pos}"
 
 
+def _mla_edge_lens(max_blocks, blk, W):
+    """kv_len at the cluster's span edges (P * blk - 1, P * blk, P * blk +
+    1, 2 P * blk with P the span of ``mla_geometry``), at the pool-block
+    edges, and the full table, each at least W."""
+    span = mla_geometry(max_blocks, blk, 1, 64, 32, 2).span_blocks * blk
+    S = max_blocks * blk
+    return [min(max(n, W), S) for n in (span - 1, span, span + 1, 2 * span,
+                                        blk - 1, blk, blk + 1, S - 1, S)]
+
+
+# table widths of the cluster split: C = 1, C = 3, the uneven 9 blocks
+# (C = 8, P = 2, ranks 5-7 empty), the fleet's 512 tokens, 2048 tokens
+MLA_BLOCKS = [1, 3, 9, 32, 128]
+
+
+@pytest.mark.parametrize("max_blocks", MLA_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,r,rh,W", [
+    (128, 512, 64, 1), (128, 512, 64, 5),   # full width: 2 / 10 row tiles
+    (20, 64, 32, 1), (20, 64, 32, 2), (20, 64, 32, 5), (20, 64, 32, 8),
+    (4, 16, 8, 1), (4, 16, 8, 2), (4, 16, 8, 5), (4, 16, 8, 8)])
+def test_paged_mla_kernels_at_cluster_edges(cuda, dtype, H, r, rh, W,
+                                             max_blocks):
+    """Kernels 4 and 5 where the cluster split is delicate: frontiers at
+    span and block edges, row tiles that mix positions (row = t * H + h),
+    an all-trash table row (row 1) and dead positions (row 0, kv_len 0;
+    row 2, kv_len 1).  Verify within tolerance of its plain version, dead
+    positions exact zeros, each position == the decode kernel at its
+    frontier bitwise; decode within tolerance of its plain version."""
+    blk = 16
+    nb = max(40, max_blocks + 1)
+    S = max_blocks * blk
+    lens = [0, min(W + 3, S), 1] + _mla_edge_lens(max_blocks, blk, W)
+    B = len(lens)
+    rnd = random.Random(H + W + max_blocks)
+    tbl = [[rnd.randrange(1, nb) for _ in range(max_blocks)]
+           for _ in range(B)]
+    tbl[1] = [0] * max_blocks                   # freed slot: trash block 0
+    t = torch.tensor(tbl, dtype=torch.int32, device=cuda)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(H + r + W)
+    ql = torch.randn((B, W, H, r), generator=g, device=cuda).to(dtype)
+    qr = torch.randn((B, W, H, rh), generator=g, device=cuda).to(dtype)
+    ckv = torch.randn((nb, blk, r), generator=g, device=cuda).to(dtype)
+    kr = torch.randn((nb, blk, rh), generator=g, device=cuda).to(dtype)
+    scale = 1.0 / (2.0 * rh) ** 0.5
+    before = paged_flash_verify_mla.launches
+    out = paged_flash_verify_mla(ql, qr, ckv, kr, t, kl, scale=scale)
+    ref = paged_flash_verify_mla_plain(ql, qr, ckv, kr, t, kl, scale=scale)
+    torch.cuda.synchronize()
+    assert paged_flash_verify_mla.launches == before + 1
+    assert out.dtype == dtype and out.shape == ql.shape
+    frontier = kl[:, None] - W + 1 + torch.arange(W, device=cuda)[None]
+    assert bool((out[frontier <= 0] == 0).all())        # dead positions
+    _close(out, ref, dtype)
+    dbefore = paged_flash_decode_mla.launches
+    for pos in range(W):
+        args = (ql[:, pos].contiguous(), qr[:, pos].contiguous(), ckv, kr, t,
+                kl - (W - 1 - pos))
+        step = paged_flash_decode_mla(*args, scale=scale)
+        assert torch.equal(out[:, pos], step), f"position {pos}"
+        _close(step, paged_flash_decode_mla_plain(*args, scale=scale), dtype)
+    assert paged_flash_decode_mla.launches == dbefore + W
+
+
+def test_paged_mla_kernel_refuses_short_shared_memory(cuda):
+    """The C entry refuses a launch given one byte less dynamic shared
+    memory than ``mla_geometry``'s (the kernel's carve) at every row tile
+    and in both dtypes, and takes exactly that much."""
+    from repro_torch.kernels import _build
+    fn = _build.c_function("paged_mla_decode", "paged_mla_fwd", _MLA_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    blk, nb = 16, 40
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, r, rh, W, max_blocks in ((128, 512, 64, 1, 32),
+                                        (20, 64, 32, 1, 9),
+                                        (4, 16, 8, 1, 1), (4, 16, 8, 5, 3)):
+            B = 3
+            g = torch.Generator(device=cuda).manual_seed(H + W)
+            ql = torch.randn((B, W, H, r), generator=g, device=cuda).to(dtype)
+            qr = torch.randn((B, W, H, rh), generator=g,
+                             device=cuda).to(dtype)
+            ckv = torch.randn((nb, blk, r), generator=g, device=cuda).to(dtype)
+            kr = torch.randn((nb, blk, rh), generator=g, device=cuda).to(dtype)
+            t = torch.randint(1, nb, (B, max_blocks), generator=g, device=cuda,
+                              dtype=torch.int32)
+            kl = torch.tensor([W, max_blocks * blk, 7], dtype=torch.int32,
+                              device=cuda)
+            out = torch.empty_like(ql)
+            geo = mla_geometry(max_blocks, blk, W * H, r, rh,
+                               ql.element_size())
+            args = (ql.data_ptr(), qr.data_ptr(), ckv.data_ptr(),
+                    kr.data_ptr(), t.data_ptr(), kl.data_ptr(),
+                    out.data_ptr(), B, W, H, r, rh, nb, blk, max_blocks,
+                    int(dtype == torch.bfloat16), 0.1, *geo[:-1])
+            assert fn(*args, geo.smem_bytes - 1, stream) != 0
+            assert fn(*args, geo.smem_bytes, stream) == 0
+            torch.cuda.synchronize()
+            _close(out, paged_flash_verify_mla_plain(ql, qr, ckv, kr, t, kl,
+                                                     scale=0.1), dtype)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn((1, 8, 4, 16), device=cuda)
     k = torch.randn((1, 8, 2, 16), device=cuda)
@@ -339,8 +448,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         paged_flash_decode_mla(ql.transpose(0, 1).contiguous().transpose(0, 1),
                                qr, ckv, kr, tbl, kl, scale=0.1)
     with pytest.raises(ValueError, match="shared memory"):
+        # 16 query rows x a 8192-token span of float32 scores per CTA
         paged_flash_decode_mla(ql, qr, ckv, kr,
-                               torch.zeros((2, 1024), dtype=torch.int32,
+                               torch.zeros((2, 4096), dtype=torch.int32,
                                            device=cuda), kl, scale=0.1)
     with pytest.raises(ValueError, match="disagree"):
         paged_flash_decode_mla(ql, qr, ckv[..., :8].contiguous(), kr, tbl, kl,

@@ -50,6 +50,7 @@ from repro_torch.kernels.flash_decode import (decode_reference,
                                               paged_verify_reference)
 from repro_torch.kernels.flash_decode.ops import (PAGED_MAX_CLUSTER,
                                                   SMEM_LIMIT, _check,
+                                                  _check_mla, mla_geometry,
                                                   paged_geometry,
                                                   verify_chunks)
 from repro_torch.kernels.multi_lora import (multi_lora, multi_lora_plain,
@@ -385,6 +386,111 @@ def test_paged_geometry_shared_memory(W, G, hd, dt):
     too_long = torch.empty((1, new + 1), device="meta", dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
         _check("paged_flash_verify", q, pool, pool, too_long, kl)
+
+
+@pytest.mark.parametrize("max_blocks,blk,C,P", GEOMETRY_CASES)
+def test_mla_geometry_spans(max_blocks, blk, C, P):
+    """The MLA kernel's cluster and spans are the GQA kernel's: C <= 8
+    CTAs covering [0, max_blocks) once in rank order, from the table width
+    alone — the same for every number of query rows (W x H), latent width
+    and dtype, so decode and verify run the same spans."""
+    params = inspect.signature(mla_geometry).parameters
+    assert "W" not in params and "kv_len" not in params
+    for rows, r, rh, esz in ((1, 16, 8, 4), (4, 16, 8, 2), (20, 64, 32, 4),
+                             (100, 64, 32, 2), (128, 512, 64, 2),
+                             (640, 512, 64, 2), (128, 512, 64, 4),
+                             (640, 512, 128, 4)):
+        geo = mla_geometry(max_blocks, blk, rows, r, rh, esz)
+        assert (geo.cluster, geo.span_blocks) == (C, P)
+        assert geo.row_tile in (16, 32, 64) and 3 <= geo.stages <= 8
+        assert geo.row_tile < 64 or esz == 2      # float32: 64 rows never fit
+
+
+def _old_mla_smem(r, rh, max_seq):
+    """The shared memory of the one-block-per-16-heads kernel this one
+    replaced: float32 queries and scores over the whole table."""
+    return 16 * (r + rh + max_seq) * 4
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 5])
+@pytest.mark.parametrize("H,r,rh", [(4, 16, 8), (20, 64, 32),
+                                    (128, 512, 64)])
+def test_mla_geometry_shared_memory(H, r, rh, W, dt):
+    """Every table width of the card tests and chip_smoke.py (1 to 256
+    blocks of 16) fits in a block's shared memory; the longest table
+    taken is at least the replaced kernel's (3 056 tokens at r 512, rh
+    64); a table beyond it raises the "shared memory" error; the row tile
+    is no wider than the rows need."""
+    esz = torch.tensor([], dtype=dt).element_size()
+    for max_blocks in (1, 3, 8, 32, 33, 128, 256):
+        geo = mla_geometry(max_blocks, 16, W * H, r, rh, esz)
+        assert geo.smem_bytes <= SMEM_LIMIT
+        assert geo.row_tile // 2 < W * H or geo.row_tile == 16
+    old = max(n for n in range(1, 4096)
+              if _old_mla_smem(r, rh, 16 * n) <= SMEM_LIMIT)
+    if (r, rh) == (512, 64):
+        assert 16 * old == 3056
+    assert all(mla_geometry(n, 16, W * H, r, rh, esz).smem_bytes <=
+               SMEM_LIMIT for n in range(1, old + 1))
+    new = old
+    while mla_geometry(new + 1, 16, W * H, r, rh, esz).smem_bytes <= \
+            SMEM_LIMIT:
+        new += 1
+    assert new >= old
+    meta = dict(device="meta", dtype=dt)
+    args = (torch.empty((1, W, H, r), **meta),
+            torch.empty((1, W, H, rh), **meta),
+            torch.empty((new + 2, 16, r), **meta),
+            torch.empty((new + 2, 16, rh), **meta))
+    kl = torch.empty((1,), device="meta", dtype=torch.int32)
+    ok = torch.empty((1, new), device="meta", dtype=torch.int32)
+    assert _check_mla("paged_flash_verify_mla", *args, ok, kl) == \
+        mla_geometry(new, 16, W * H, r, rh, esz)
+    too_long = torch.empty((1, new + 1), device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check_mla("paged_flash_verify_mla", *args, too_long, kl)
+
+
+def test_paged_mla_verify_plain_vs_jax_decode_oracle_across_spans():
+    """The plain MLA verify at max_blocks = 9 (the kernel's cluster of 8
+    CTAs with spans of 2 blocks, ranks 5-7 empty), float32, W = 5, with
+    frontiers below, at and beyond the span edges (31, 32, 33, 64, 65) and
+    the full table: each position against the JAX gather oracle at its
+    frontier within ``_tol`` (float32: 2e-5 atol = rtol), rows whose
+    frontier is 0 exact zeros."""
+    jd, td = jnp.float32, torch.float32
+    B, nb, max_blocks, blk, H, r, rh, W = 8, 30, 9, 16, 6, 64, 32, 5
+    span = mla_geometry(max_blocks, blk, W * H, r, rh, 4).span_blocks * blk
+    assert span == 32
+    scale = 1.0 / np.sqrt(96.0)
+    g = np.random.default_rng(9)
+    ckv = g.standard_normal((nb, blk, r))
+    kr = g.standard_normal((nb, blk, rh))
+    ql = g.standard_normal((B, W, H, r))
+    qr = g.standard_normal((B, W, H, rh))
+    rnd = random.Random(9)
+    tbl = np.array([[rnd.randrange(1, nb) for _ in range(max_blocks)]
+                    for _ in range(B)], np.int32)
+    tbl[1] = 0                                   # an all-trash row
+    kv_len = np.array([2, 40, span - 1 + W - 1, span + W - 1, span + W,
+                       2 * span + W - 1, 2 * span + W, max_blocks * blk],
+                      np.int32)
+    targs = (_t(ckv, td), _t(kr, td), torch.from_numpy(tbl),
+             torch.from_numpy(kv_len))
+    out = paged_flash_verify_mla_plain(_t(ql, td), _t(qr, td), *targs,
+                                       scale=scale).float().numpy()
+    tol = _tol(jd)
+    for t in range(W):
+        front = kv_len - (W - 1 - t)
+        live = front > 0
+        ref = np.asarray(j_mla_ref(_j(ql[:, t], jd), _j(qr[:, t], jd),
+                                   _j(ckv, jd), _j(kr, jd), jnp.asarray(tbl),
+                                   jnp.asarray(front), scale=scale),
+                         np.float32)
+        np.testing.assert_allclose(out[live, t], ref[live], atol=tol,
+                                   rtol=tol)
+        assert (out[~live, t] == 0.0).all()
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
