@@ -21,6 +21,9 @@ Phases, in order; any failure exits non-zero before the result line:
    Kernel 3 also at W = 12 positions x G = 16 heads of hd 128 (192 query
    rows, max_blocks 1 and 8): too wide for one launch, so the wrapper runs
    chunks of positions, each position still == decode bitwise.
+   Kernels 1 and 2 also at the router fleet's other GQA shapes: qwen3-1.7b
+   (16/8 heads) and glm4-9b (32/2, G = 16), hd 128, prefill at S = 479
+   (causal, and lens + window) and decode over the fleet's table.
    The multi-adapter LoRA kernel at the encoder path's shape (5 tasks x 12
    texts x 512 tokens, rows sorted by task), at sorted runs of 1, 127, 129
    and 257 rows (across its 128-row tile edges), at
@@ -68,12 +71,35 @@ Phases, in order; any failure exits non-zero before the result line:
 8. mla_fleet: the same cut model served through ``batch_call`` (the same
    12 requests, MLA kernel on, launches counted), the profiler batch, and
    a reduced float32 deepseek fleet on the card against the CPU.
-9. times: kernel, plain version and one PyTorch library call at the
+9. router: ``SemanticRouter.route_batch`` end to end, built by
+   ``repro_torch.launch.serve.build_router`` at full width: its demo DSL
+   as the default policy (lint strict), the ``cost`` and ``privacy``
+   tenants from ``examples/policies``, one bf16 fleet of smollm-360m,
+   qwen3-1.7b, glm4-9b and deepseek-v2 cut to 1 dense + 3 MoE layers
+   (24.8 B parameters), the full-width encoder (ModernBERT-base widths,
+   ``max_len`` 512, seed 0) as classifier serving the jailbreak signal
+   (kernel 6).  The earlier phases' models are freed first.  With the
+   launch counts zeroed just before: a warm-up batch of 8 of serve.py's
+   demo requests (``user{i % 3}``, policies cycling default / cost /
+   privacy), then three timed batches of 8; each batch checked (no error
+   response, the gate == each program's engine, one gate call per policy
+   sub-batch, fast responses never reach the fleet, ``live_refs() == 0``)
+   and replayed request by request through ``route()`` from the state it
+   started from (equal decisions and models).  Kernels 1, 2, 4 and 6 must
+   launch, every member must serve.  Prints the wall per batch, ms per
+   pipeline stage (the ``stage_scope`` spans), the router overhead per
+   request ((wall - dispatch stage) / 8), each model's TTFT / TPOT p50,
+   the card's busy share over a batch and over its non-dispatch stages,
+   and ``max_memory_allocated``; then a reduced float32 router and fleet
+   of the four archs on the card against the CPU (decisions, models and
+   tokens equal).
+10. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 and
    the contiguous ``flash_decode`` at the fleet's decode shape and at
    DECODE_CASES, kernels 2-5 also at the wide table (log lines beside
-   the rows), with ``ptxas``'s registers for ``flash_attention.cu``,
+   the rows), kernels 1 and 2 also at the qwen3-1.7b and glm4-9b shapes
+   (log lines), with ``ptxas``'s registers for ``flash_attention.cu``,
    ``paged_decode.cu``, ``paged_mla_decode.cu`` (and its launch geometry)
    and ``multi_lora.cu``; kernel 6 also in bf16 and with shuffled ids at
    the path's shape (log lines).
@@ -118,7 +144,7 @@ W_SPEC = 5                                # verify width: pending token + k = 4
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
-          "mla_fleet", "times")
+          "mla_fleet", "router", "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -129,6 +155,9 @@ N_TEXTS = 12
 # N, din, dout, T, r of tests/test_kernels.py's LORA_CASES
 LORA_CASES = ((256, 768, 768, 6, 32), (130, 512, 256, 3, 16),
               (256, 384, 384, 10, 64), (64, 128, 128, 1, 8))
+# (Hq, Hkv, hd) of the router fleet's GQA members beyond smollm-360m's
+# 15/5 heads of hd 64: kernels 1 and 2 are held and timed at these too
+FLEET_HEADS = {"qwen3-1.7b": (16, 8, 128), "glm4-9b": (32, 2, 128)}
 # B, Skv, Hq, Hkv, hd of tests/test_kernels.py's DECODE_CASES
 DECODE_CASES = ((4, 512, 8, 2, 64), (2, 384, 6, 6, 128), (3, 1024, 16, 4, 64),
                 (2, 256, 4, 1, 64))
@@ -197,10 +226,11 @@ def flash_cases(dtype, gen):
     return cases
 
 
-def decode_case(dtype, gen):
-    """B=8 rows over the fleet's pool (385 blocks of 16, 5 KV heads, hd 64)
-    through a random permutation of physical blocks; kv_len covers 0, 1,
-    partial blocks and the full 512-token table."""
+def decode_case(dtype, gen, heads=(15, 5, 64)):
+    """B=8 rows over the fleet's pool (385 blocks of 16; ``heads`` = (Hq,
+    Hkv, hd), smollm-360m's 15/5 of hd 64 by default) through a random
+    permutation of physical blocks; kv_len covers 0, 1, partial blocks and
+    the full 512-token table."""
     import torch
     max_blocks = MAX_SEQ // BLOCK
     perm = torch.randperm(NUM_BLOCKS - 1, generator=torch.Generator()
@@ -209,9 +239,10 @@ def decode_case(dtype, gen):
     tbl = tbl.to(torch.int32).cuda().contiguous()
     kv_len = torch.tensor([0, 1, 7, 16, 100, 257, 511, 512],
                           dtype=torch.int32, device="cuda")
-    q = _rand((BATCH, 15, 64), dtype, gen)
-    kpool = _rand((NUM_BLOCKS, BLOCK, 5, 64), dtype, gen)
-    vpool = _rand((NUM_BLOCKS, BLOCK, 5, 64), dtype, gen)
+    Hq, Hkv, hd = heads
+    q = _rand((BATCH, Hq, hd), dtype, gen)
+    kpool = _rand((NUM_BLOCKS, BLOCK, Hkv, hd), dtype, gen)
+    vpool = _rand((NUM_BLOCKS, BLOCK, Hkv, hd), dtype, gen)
     return q, kpool, vpool, tbl, kv_len
 
 
@@ -437,6 +468,52 @@ def check_lora_and_flash_decode(errs, dtype, dname, gen):
         check(ok, f"flash_decode {dname} Skv={Skv}: {err}")
 
 
+def check_fleet_heads(errs, dtype, dname, gen):
+    """Kernels 1 and 2 at the router fleet's other GQA shapes
+    (FLEET_HEADS: qwen3-1.7b 16/8 and glm4-9b 32/2 heads of hd 128):
+    causal prefill at the longest prefill (S = 479) and a lens + window
+    case, decode over ``decode_case``'s table, each against its plain
+    version."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode, paged_flash_decode_plain)
+    S = PROMPT_CAP
+    for arch, (Hq, Hkv, hd) in FLEET_HEADS.items():
+        lens = torch.tensor([S, 300], dtype=torch.int32, device="cuda")
+        for label, B, ln, window in (("causal", 1, None, 0),
+                                     ("lens+window", 2, lens, 256)):
+            q = _rand((B, S, Hq, hd), dtype, gen)
+            k = _rand((B, S, Hkv, hd), dtype, gen)
+            v = _rand((B, S, Hkv, hd), dtype, gen)
+            out = flash_attention(q, k, v, ln, causal=True,
+                                  sliding_window=window)
+            ref = flash_attention_plain(q, k, v, ln, causal=True,
+                                        sliding_window=window)
+            torch.cuda.synchronize()
+            err, ok = _compare(out, ref, TOL[dname])
+            log(f"  flash_attention {dname} {arch} {Hq}/{Hkv} heads hd {hd} "
+                f"{label} S={S}: max_abs_err {err:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention {dname} {arch} {label}: {err}")
+            errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                          err)
+        q, kpool, vpool, tbl, kv_len = decode_case(dtype, gen, (Hq, Hkv, hd))
+        out = paged_flash_decode(q, kpool, vpool, tbl, kv_len)
+        ref = paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len)
+        torch.cuda.synchronize()
+        err, ok = _compare(out, ref, TOL[dname])
+        zeros = bool((out[kv_len == 0] == 0).all().item())
+        ok = ok and zeros
+        log(f"  paged_flash_decode {dname} {arch} {Hq}/{Hkv} heads hd {hd} "
+            f"B={BATCH} kv_len={kv_len.tolist()}: max_abs_err {err:.3e}, "
+            f"kv_len==0 rows exact zeros: {zeros} {'ok' if ok else 'FAIL'}")
+        check(ok, f"paged_flash_decode {dname} {arch}: {err} zeros={zeros}")
+        errs["paged_flash_decode"] = max(errs.get("paged_flash_decode", 0.0),
+                                         err)
+
+
 def check_wide_paged(errs, dtype, dname, gen):
     """Kernels 2 and 3 at ``wide_case``: decode against its plain version;
     verify at W = 5 and W = 1 through ``hold_verify``."""
@@ -560,6 +637,7 @@ def phase_kernels(errs):
         errs["paged_flash_verify"] = max(errs.get("paged_flash_verify", 0.0),
                                          err)
         check_wide_paged(errs, dtype, dname, gen)
+        check_fleet_heads(errs, dtype, dname, gen)
         for max_blocks in (1, 8):
             qs, rest, kv_len, kw = split_verify_case(dtype, gen, max_blocks)
             chunks = verify_chunks(12, 16, max_blocks, BLOCK, 128,
@@ -1268,18 +1346,12 @@ def reduced_encoder_card_vs_cpu(texts):
     nonzero B, weights drawn on the CPU) on the card (kernel 6) and on the
     CPU (its plain version): labels identical, probabilities within 1e-5."""
     import numpy as np
-    from repro_torch.classifiers.encoder import SMALL, EncoderBackend
+    from repro_torch.classifiers.encoder import SMALL
     from repro_torch.kernels.multi_lora.ops import multi_lora
     params, adapters = encoder_weights(SMALL, "cpu", 5)
     out = {}
     for dev in ("cuda", "cpu"):
-        move = {"layers": [{k: v.to(dev) for k, v in lp.items()}
-                           for lp in params["layers"]]}
-        move.update({k: v.to(dev) for k, v in params.items()
-                     if k != "layers"})
-        ad = {t: {k: v.to(dev) for k, v in a.items()}
-              for t, a in adapters.items()}
-        be = EncoderBackend(SMALL, move, ad, trained=set(SEQ_TASKS))
+        be = encoder_on(SMALL, params, adapters, dev, SEQ_TASKS)
         before = multi_lora.launches
         out[dev] = be.classify_all(SEQ_TASKS, texts)
         if dev == "cuda":
@@ -1424,6 +1496,418 @@ def phase_mla_fleet(launches, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the router — route_batch over four full-width members
+# ---------------------------------------------------------------------------
+
+ROUTER_TENANTS = ("cost", "privacy")
+ROUTER_POLICIES = ("default",) + ROUTER_TENANTS
+ROUTER_BATCHES = 3
+ROUTER_ENCODER = "chip-smoke-encoder"
+# the encoder serves the jailbreak signal: one fused classify_all per
+# batch, kernel 6 on q and v of every layer; domain and PII stay on the
+# hash tier.  Its weights are random (seed 0) and no adapter is trained, so
+# its head is zero: the uniform prior, which calls every prompt benign.
+# A random head (or random domain and PII heads) routes by noise, not by
+# the prompt, and can starve a member of traffic.
+ROUTER_TASKS = ("jailbreak",)
+ROUTER_KERNELS = ("flash_attention", "paged_flash_decode",
+                  "paged_flash_decode_mla", "multi_lora")
+
+
+def router_requests(n, start=0):
+    """``serve.py``'s demo requests cycled from ``start``: ``user{i % 3}``,
+    ``metadata["policy"]`` cycling default / cost / privacy."""
+    from repro_torch.core.types import Message, Request
+    from repro_torch.launch.serve import DEMO_REQUESTS
+    out = []
+    for i in range(start, start + n):
+        r = Request(messages=[Message("user", DEMO_REQUESTS[
+            i % len(DEMO_REQUESTS)])], user=f"user{i % 3}")
+        r.metadata["policy"] = ROUTER_POLICIES[i % len(ROUTER_POLICIES)]
+        out.append(r)
+    return out
+
+
+def encoder_on(cfg, params, adapters, dev, trained):
+    """An EncoderBackend over ``params`` and ``adapters`` moved to
+    ``dev``."""
+    from repro_torch.classifiers.encoder import EncoderBackend
+    move = {"layers": [{k: v.to(dev) for k, v in lp.items()}
+                       for lp in params["layers"]]}
+    move.update({k: v.to(dev) for k, v in params.items() if k != "layers"})
+    ad = {t: {k: v.to(dev) for k, v in a.items()}
+          for t, a in adapters.items()}
+    return EncoderBackend(cfg, move, ad, trained=set(trained))
+
+
+def router_encoder_weights(cfg, device, seed):
+    """``encoder_weights`` with the heads of ROUTER_TASKS zeroed."""
+    params, adapters = encoder_weights(cfg, device, seed)
+    for task in ROUTER_TASKS:
+        adapters[task]["head"].zero_()
+    return params, adapters
+
+
+def build_demo_router(name, encoder, **kw):
+    """``serve.build_router`` with ``encoder`` registered as its
+    classifier backend, the default policy held to ``lint="strict"`` as
+    ``serve.py`` does, and the cost and privacy tenants added."""
+    from repro_torch.analysis import verify_config
+    from repro_torch.classifiers.backend import register_backend
+    from repro_torch.launch import serve
+    register_backend(name, encoder)
+    router, fleet = serve.build_router(classifier_backend=name, **kw)
+    router.policies.lint = "strict"
+    fatal = [d for d in verify_config(router.policies.get().config)
+             if d.fatal]
+    check(not fatal, f"router: default policy fails L4: {fatal}")
+    for pol in ROUTER_TENANTS:
+        with open(os.path.join(ROOT, "examples", "policies",
+                               f"{pol}.vsr")) as f:
+            router.add_policy(pol, f.read())
+    return router, fleet
+
+
+def stage_ms(pairs):
+    """Milliseconds per pipeline stage of one route_batch: the
+    ``stage:*`` spans of each policy sub-batch (every request of a
+    sub-batch carries its sub-batch's spans), summed over sub-batches."""
+    seen, out = set(), {}
+    for req_policy, (_, o) in pairs:
+        if req_policy in seen:
+            continue
+        seen.add(req_policy)
+        for s in o.trace:
+            if s["span"].startswith("stage:"):
+                name = s["span"][len("stage:"):]
+                out[name] = out.get(name, 0.0) + s["ms"]
+    return out
+
+
+def subbatch_states(router, reqs, pairs, snapshot):
+    """policy -> (latency observations, cache entries) as that policy's
+    sub-batch of a ``route_batch`` found them.  ``route_batch`` runs its
+    sub-batches one after another, in the order their policies first
+    appear; each starts from ``snapshot`` (the batch's starting state)
+    plus what the sub-batches before it recorded: the service time of
+    every answer it dispatched (``stage_wrap``'s ``observe_latency``) and
+    the cache entries its requests' texts began."""
+    import copy
+    lat, entries = copy.deepcopy(snapshot[0]), list(snapshot[1])
+    added = router.cache.entries[len(entries):]
+    states = {}
+    for pol in dict.fromkeys(r.metadata["policy"] for r in reqs):
+        states[pol] = (copy.deepcopy(lat), list(entries))
+        texts = set()
+        for r, (resp, o) in zip(reqs, pairs):
+            if r.metadata["policy"] != pol:
+                continue
+            texts.add(r.latest_user_text)
+            if o.fast_response is None:
+                lat.setdefault(o.model, []).append(
+                    float(resp.usage["vsr_service_ms"]))
+        entries += [e for e in added if e.key_text in texts]
+    return states
+
+
+def oracle_replay(router, fresh, pairs, states):
+    """Each request of a batch through ``router.route()`` (a batch of one:
+    the sequential engine, no gate) from the state its policy's sub-batch
+    started from (``states``: the selector's latency observations and the
+    semantic cache, from ``subbatch_states``), on the echo transport: the
+    decision and model are fixed before dispatch.  ``fresh`` are unrouted
+    copies of the batch's requests.  Returns the mismatches."""
+    import copy
+    sel, cache = router.selection_ctx, router.cache
+    after = (sel.latency, cache.entries, cache.hits, cache.lookups)
+    call_fn = router.call_fn
+    router.call_fn = router._echo_call
+    bad = []
+    try:
+        for r, (_, o) in zip(fresh, pairs):
+            lat, entries = states[r.metadata["policy"]]
+            sel.latency = copy.deepcopy(lat)
+            cache.entries = list(entries)
+            _, o2 = router.route(r)
+            if (o2.decision, o2.model) != (o.decision, o.model):
+                bad.append((r.latest_user_text[:30], r.metadata["policy"],
+                            (o.decision, o.model), (o2.decision, o2.model)))
+    finally:
+        router.call_fn = call_fn
+        sel.latency, cache.entries, cache.hits, cache.lookups = after
+    return bad
+
+
+def check_routed_batch(label, router, fleet, reqs, pairs, before):
+    """The checks of one routed batch: non-error responses, the gate ==
+    each program's engine per request, one gate call per policy
+    sub-batch, fast responses never reaching the fleet (members' calls,
+    prompts and tokens), ``live_refs() == 0`` on every member.  Returns
+    the served (not fast) outcomes' arch counts."""
+    gate_before, members_before = before
+    check(all(r.finish_reason != "error" for r, _ in pairs),
+          f"{label}: error responses "
+          f"{[r.content for r, _ in pairs if r.finish_reason == 'error']}")
+    sizes = {}
+    for r, (_, o) in zip(reqs, pairs):
+        prog = router.policies.resolve(r)
+        sizes[prog.name] = sizes.get(prog.name, 0) + 1
+        res = prog.engine.evaluate(o.signals)
+        want = res.decision.name if res.decision else None
+        check(o.decision == want and abs(o.confidence - res.confidence)
+              <= GATE_TOL, f"{label}: gate {o.decision} {o.confidence} != "
+              f"engine {want} {res.confidence} ({prog.name})")
+    for name, n in sizes.items():
+        calls = router.policies.get(name).gate_calls - gate_before[name]
+        check(calls == (1 if n > 1 else 0),
+              f"{label}: policy {name} made {calls} gate calls for a "
+              f"sub-batch of {n}")
+    m2a = {m: p.arch for pol in ROUTER_POLICIES
+           for m, p in router.policies.get(pol).config.model_profiles.items()}
+    served = {}
+    for r, o in pairs:
+        if o.fast_response is None:
+            served[m2a[o.model]] = served.get(m2a[o.model], 0) + 1
+            check(r.usage.get("completion_tokens") == GEN,
+                  f"{label}: {o.model} answered {r.usage}")
+    for arch, m in fleet.members.items():
+        calls0, prompts0, tokens0 = members_before[arch]
+        n = served.get(arch, 0)
+        check(m.prompts_in - prompts0 == n and m.tokens_out - tokens0 ==
+              GEN * n and (m.calls > calls0) == (n > 0),
+              f"{label}: {arch} took {m.prompts_in - prompts0} prompts, "
+              f"{m.tokens_out - tokens0} tokens, {m.calls - calls0} calls "
+              f"for {n} served requests")
+        refs = fleet.schedulers[arch].pool.live_refs()
+        check(refs == 0, f"{label}: {arch} holds {refs} block refs")
+    return served
+
+
+def route_and_check(label, router, fleet, start):
+    """One ``route_batch`` of the 8 requests ``router_requests`` makes
+    from ``start``, timed (synchronised), checked by
+    ``check_routed_batch`` and replayed through ``route()``.  Returns
+    (pairs, wall ms, stage ms, served arch counts)."""
+    import copy
+
+    import torch
+    reqs = router_requests(BATCH, start)
+    gate_before = {n: router.policies.get(n).gate_calls
+                   for n in ROUTER_POLICIES}
+    members_before = {a: (m.calls, m.prompts_in, m.tokens_out)
+                      for a, m in fleet.members.items()}
+    snapshot = (copy.deepcopy(router.selection_ctx.latency),
+                list(router.cache.entries))
+    sync = torch.cuda.synchronize if fleet.device.type == "cuda" else \
+        (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    pairs = router.route_batch(reqs)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    served = check_routed_batch(label, router, fleet, reqs, pairs,
+                                (gate_before, members_before))
+    wrappers = kernel_wrappers()
+    saved = {n: fn.launches for n, fn in wrappers.items()}
+    bad = oracle_replay(router, router_requests(BATCH, start), pairs,
+                        subbatch_states(router, reqs, pairs, snapshot))
+    for n, fn in wrappers.items():           # replays are not main path
+        fn.launches = saved[n]
+    check(not bad, f"{label}: route_batch != route(): {bad}")
+    stages = stage_ms([(r.metadata["policy"], p)
+                       for r, p in zip(reqs, pairs)])
+    return pairs, wall, stages, served
+
+
+def reduced_router_card_vs_cpu(label):
+    """The demo router over the four reduced members at float32, with a
+    reduced encoder (``SMALL`` widths, weights drawn on the CPU, the same
+    tasks) as classifier, on the card and on the CPU: the 24 requests in
+    batches of 8 give equal decisions, models and contents (every token of
+    the 8 a request generates).  Card launches of the path's kernels are
+    not main-path launches and are restored."""
+    from repro_torch.classifiers.encoder import SMALL
+    wrappers = kernel_wrappers()
+    saved = {n: fn.launches for n, fn in wrappers.items()}
+    params, adapters = router_encoder_weights(SMALL, "cpu", 5)
+    outs, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        router, fleet = build_demo_router(
+            f"{ROUTER_ENCODER}-small-{dev}",
+            encoder_on(SMALL, params, adapters, dev, ROUTER_TASKS),
+            reduced=True, dtype="float32", gen_tokens=8, batch=4,
+            device=dev, warmup=False)
+        # the latency selector would read each device's measured service
+        # times: neither router records them, so both select from the
+        # profiles alone
+        router.selection_ctx.observe_latency = lambda model, ms: None
+        try:
+            reqs = router_requests(len(ROUTER_POLICIES) * 8)
+            pairs = []
+            for s in range(0, len(reqs), 8):
+                pairs += router.route_batch(reqs[s:s + 8])
+        finally:
+            router.close()
+        outs[dev] = [(o.decision, o.model, r.content, r.finish_reason)
+                     for r, o in pairs]
+        check(all(s.pool.live_refs() == 0
+                  for s in fleet.schedulers.values()),
+              f"{label}: reduced {dev} fleet leaked blocks")
+        if dev == "cuda":
+            counts = {n: wrappers[n].launches for n in ROUTER_KERNELS}
+        del router, fleet
+    for n, fn in wrappers.items():
+        fn.launches = saved[n]
+    same = outs["cuda"] == outs["cpu"]
+    log(f"{label}: reduced float32 router + fleet (4 members, SMALL "
+        f"encoder), card kernels vs CPU plain path over "
+        f"{len(outs['cpu'])} requests: decisions, models and tokens "
+        f"identical: {same}; card launches {json.dumps(counts)}")
+    if not same:
+        for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            if a != b:
+                log(f"  request {i}: card {a} vs CPU {b}")
+    check(same, f"{label}: reduced router differs between card and CPU")
+    check(all(v > 0 for v in counts.values()),
+          f"{label}: a kernel did not launch on the reduced card router: "
+          f"{counts}")
+
+
+def phase_router(launches, card, ctx):
+    """``SemanticRouter.route_batch`` end to end on the card: serve.py's
+    demo router (its DSL as the default policy, lint strict; the cost and
+    privacy tenants) over one fleet of four full-width bf16 members
+    (smollm-360m, qwen3-1.7b, glm4-9b, deepseek-v2 cut to 1 dense + 3 MoE
+    layers), the full-width encoder as classifier; a warm-up batch of 8
+    and three timed batches of 8 of the demo requests."""
+    import dataclasses
+    import statistics as st
+
+    import torch
+    from repro_torch.classifiers.encoder import (MODERNBERT_BASE_32K,
+                                                 EncoderBackend)
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(MODERNBERT_BASE_32K, max_len=ENC_MAX_LEN)
+    encoder = EncoderBackend(cfg, *router_encoder_weights(cfg, "cuda", 0),
+                             trained=set(ROUTER_TASKS))
+    router, fleet = build_demo_router(
+        ROUTER_ENCODER, encoder, reduced=False, gen_tokens=GEN,
+        device="cuda", batch=BATCH, max_seq=MAX_SEQ)
+    try:
+        torch.cuda.synchronize()
+        sizes = {a: sum(p.numel() for p in m.params.parameters())
+                 for a, m in fleet.members.items()}
+        log(f"router: fleet of {len(sizes)} full-width bf16 members built "
+            f"and warmed up in {time.perf_counter() - t0:.1f} s, params "
+            f"{json.dumps(sizes)} (total {sum(sizes.values())}; "
+            f"deepseek-v2 1 dense + {serve.ONE_CARD_MOE_LAYERS} MoE layers), "
+            f"encoder {cfg.n_layers} layers d {cfg.d_model} max_len "
+            f"{cfg.max_len} serving {ROUTER_TASKS}, policies "
+            f"{router.policies.names()}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        for a, m in fleet.members.items():
+            c = m.cfg
+            log(f"  {a}: {sum(g.repeats * len(g.period) for g in c.groups)} "
+                f"layers, "
+                f"{c.n_heads}/{c.n_kv_heads} heads hd {c.head_dim}, vocab "
+                f"{c.vocab_size}, attn_impl {c.attn_impl}, decode_impl "
+                f"{c.decode_impl}")
+        wrappers = kernel_wrappers()
+        # the main path: counts zeroed just before, read just after
+        for fn in wrappers.values():
+            fn.launches = 0
+        route_and_check("router warm-up", router, fleet, 0)
+        # the timed batches start from a cold semantic cache, as a fresh
+        # router would: the warm-up's entries would answer every repeat
+        router.cache.entries = []
+        walls, stages, overheads, pairs_all = [], {}, [], []
+        served_all = {}
+        for b in range(ROUTER_BATCHES):
+            pairs, wall, st_ms, served = route_and_check(
+                f"router batch {b}", router, fleet, b * BATCH)
+            walls.append(wall)
+            overheads.append((wall - st_ms.get("dispatch", 0.0)) / BATCH)
+            for k, v in st_ms.items():
+                stages.setdefault(k, []).append(v)
+            for a, n in served.items():
+                served_all[a] = served_all.get(a, 0) + n
+            pairs_all += pairs
+            log(f"router batch {b}: route_batch wall {wall:.2f} ms, "
+                f"decisions {[o.decision for _, o in pairs]}, models "
+                f"{[o.model for _, o in pairs]}, fast "
+                f"{sum(o.fast_response is not None for _, o in pairs)}, "
+                f"cache hits {sum(o.cache_hit for _, o in pairs)}, stage ms "
+                f"{json.dumps({k: round(v, 2) for k, v in st_ms.items()})}, "
+                f"router overhead {overheads[-1]:.3f} ms/request [{card}]")
+        counts = {n: wrappers[n].launches for n in ROUTER_KERNELS}
+        launches.update(counts)
+        ctx["signals requests"] = BATCH * (ROUTER_BATCHES + 1)
+        log(f"router: launches over the warm-up and {ROUTER_BATCHES} timed "
+            f"batches {json.dumps(counts)}; served per member "
+            f"{json.dumps(served_all)}")
+        check(all(v > 0 for v in counts.values()),
+              f"router: a kernel of the path did not launch: {counts}")
+        check(set(served_all) == set(fleet.members),
+              f"router: not every member served: {served_all}")
+        seen = {o.decision for _, o in pairs_all}
+        check(any(o.cache_hit for _, o in pairs_all) and
+              {"safety_block", "block_unsafe", "hard_math"} <= seen,
+              f"router: the mix missed a fast response or a cache hit: "
+              f"{seen}")
+        log(f"router: route_batch wall ms per batch of {BATCH} "
+            f"{' '.join(f'{w:.2f}' for w in walls)} (median "
+            f"{st.median(walls):.2f}); router overhead per request "
+            f"(wall - dispatch stage) / {BATCH}: "
+            f"{' '.join(f'{x:.3f}' for x in overheads)} ms (median "
+            f"{st.median(overheads):.3f}) [{card}]")
+        log("router: stage ms per batch (median of "
+            f"{ROUTER_BATCHES}): " + json.dumps(
+                {k: round(st.median(v), 3) for k, v in stages.items()}))
+        ctx["router overhead ms"] = st.median(overheads)
+        by_model = {}
+        for r, o in pairs_all:
+            if o.fast_response is None:
+                u = r.usage
+                by_model.setdefault(o.model, []).append(
+                    (u["vsr_ttft_ms"], (u["vsr_service_ms"] - u["vsr_ttft_ms"])
+                     / max(1, u["completion_tokens"] - 1)))
+        for m, v in sorted(by_model.items()):
+            log(f"router: {m} served {len(v)}: TTFT ms p50 "
+                f"{st.median(x for x, _ in v):.2f}, TPOT ms p50 "
+                f"{st.median(y for _, y in v):.2f} [{card}]")
+        # the card's busy share: a whole batch, then the non-dispatch
+        # stages alone (the same batch on the echo transport)
+        nxt = router_requests(BATCH, start=ROUTER_BATCHES * BATCH)
+        profile_run("router profile: route_batch of 8",
+                    lambda: router.route_batch(nxt))
+        call_fn = router.call_fn
+        router.call_fn = router._echo_call
+        try:
+            nxt = router_requests(BATCH, start=(ROUTER_BATCHES + 1) * BATCH)
+            profile_run("router profile: non-dispatch stages (the batch on "
+                        "the echo transport)",
+                        lambda: router.route_batch(nxt))
+        finally:
+            router.call_fn = call_fn
+        log(f"router: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    finally:
+        router.close()
+    del router, fleet, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced_router_card_vs_cpu("router")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -1468,6 +1952,40 @@ def ptxas_lines(name):
         elif "registers" in line:
             out.append(f"{fn}: {spill}; {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def time_flash(arch, S, heads, gen, flush, card):
+    """Kernel 1 (bf16, B = 1, causal) at ``arch``'s (Hq, Hkv, hd) and S
+    tokens: kernel, plain version and SDPA over the repeated KV heads, and
+    the bound (q, k, v and out once; the causal half of QK^T and PV).
+    Returns (ms, plain, lib, t_ops, t_bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    Hq, Hkv, hd = heads
+    dt = torch.bfloat16
+    q = _rand((1, S, Hq, hd), dt, gen)
+    k = _rand((1, S, Hkv, hd), dt, gen)
+    v = _rand((1, S, Hkv, hd), dt, gen)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush)
+    plain = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                    flush)
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), flush)
+    flops = 4 * hd * Hq * S * (S + 1) / 2
+    nbytes = (2 * S * Hq * hd + 2 * S * Hkv * hd) * q.element_size()
+    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"times flash_attention bf16 {arch} {Hq}/{Hkv} heads hd {hd} S={S}: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{max(t_ops, t_bytes):.6f} ms "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+    return ms, plain, lib, t_ops, t_bytes
 
 
 def time_paged(label, q, kpool, vpool, tbl, kv_len, flush, card):
@@ -1577,8 +2095,6 @@ def time_mla(label, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
 def phase_times(rows, errs, launches, card, ctx):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
     from repro_torch.kernels.flash_decode.ops import (
         flash_decode, flash_decode_plain, gather_kv, mla_geometry)
     from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
@@ -1603,28 +2119,9 @@ def phase_times(rows, errs, launches, card, ctx):
     for line in ptxas_lines("flash_attention"):
         log(f"times ptxas flash_attention: {line}")
     for S in (16, 64, PROMPT_CAP):
-        q = _rand((1, S, 15, 64), dt, gen)
-        k = _rand((1, S, 5, 64), dt, gen)
-        v = _rand((1, S, 5, 64), dt, gen)
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush)
-        plain = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
-                        flush)
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(3, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(3, dim=2).transpose(1, 2).contiguous()
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), flush)
-        flops = 4 * 64 * 15 * S * (S + 1) / 2
-        nbytes = (2 * S * 15 * 64 + 2 * S * 5 * 64) * esz
-        t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"times flash_attention bf16 S={S}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-            f"{max(t_ops, t_bytes):.6f} ms "
-            f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+        res = time_flash("smollm-360m", S, (15, 5, 64), gen, flush, card)
     row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:144", ms, plain,
-        lib, t_ops, t_bytes)
+        "src/repro/kernels/flash_attention/flash_attention.py:144", *res)
 
     # kernels 2 and 3 at the fleets' shapes (phase 2's rows; the JSON
     # rows), then at the wide table (log lines)
@@ -1642,6 +2139,12 @@ def phase_times(rows, errs, launches, card, ctx):
         row(name, "src/repro_torch/kernels/csrc/paged_decode.cu", replaces,
             *res)
         time_paged(f"{name} wide", *wide_case(dt, gen, W), flush, card)
+    # kernels 1 and 2 at the router fleet's other GQA shapes (log lines)
+    for arch, heads in FLEET_HEADS.items():
+        time_flash(arch, PROMPT_CAP, heads, gen, flush, card)
+        time_paged(f"paged_flash_decode {arch} {heads[0]}/{heads[1]} heads "
+                   f"hd {heads[2]}", *decode_case(dt, gen, heads), flush,
+                   card)
 
     # kernels 4 and 5 at deepseek's widths: decode at the MLA fleet's
     # decode shapes (phase 2's full-width rows), verify at W = 5 over the
@@ -1807,6 +2310,8 @@ def main(argv=None) -> int:
             phase_mla_model()
         if "mla_fleet" in phases:
             phase_mla_fleet(launches, card)
+        if "router" in phases:
+            phase_router(launches, card, ctx)
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
     except Failure as e:

@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import hashlib
 import re
-from typing import Dict, List, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import textstats as TS
+
+if TYPE_CHECKING:
+    from repro_torch.device import DeviceLike
 
 EMBED_DIM = 256
 
@@ -261,13 +264,16 @@ class HashBackend(ClassifierBackend):
 _BACKENDS: Dict[str, ClassifierBackend] = {}
 
 
-def get_backend(name: str = "hash") -> ClassifierBackend:
+def get_backend(name: str = "hash",
+                device: DeviceLike = "cuda") -> ClassifierBackend:
+    """The registered backend ``name``; "hash" and "encoder" are built on
+    first use, the encoder on ``device`` (later calls return that one)."""
     if name not in _BACKENDS:
         if name == "hash":
             _BACKENDS[name] = HashBackend()
         elif name == "encoder":
             from repro_torch.classifiers.encoder import EncoderBackend
-            _BACKENDS[name] = EncoderBackend.default()
+            _BACKENDS[name] = EncoderBackend.default(device=device)
         else:
             raise KeyError(name)
     return _BACKENDS[name]

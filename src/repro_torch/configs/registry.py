@@ -14,6 +14,7 @@ from repro_torch.models.config import ModelConfig
 # arch id -> module name
 ARCHS = {
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "glm4-9b": "glm4_9b",
     "qwen3-1.7b": "qwen3_1_7b",
     "smollm-360m": "smollm_360m",
 }

@@ -8,13 +8,13 @@ engine are copies (pure Python).  ``build_decision_gate`` keeps the
 reference's static rank permutation, leaf-occurrence counts and first-max
 tie-break; the reference jits it with XLA (no Pallas kernel), the port runs
 it as a few eager tensor ops.  The BDD-backed ``coverage_analysis`` and
-``subsumes`` are not ported yet (they belong to the tooling slice).
+``subsumes`` are copies over :mod:`repro_torch.analysis.bdd`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -182,6 +182,99 @@ def from_truth_table(keys: Sequence[SignalKey], table: Sequence[int]
         x = leaf(keys[0].type, keys[0].name)
         return and_(x, not_(x))
     return or_(*minterms) if len(minterms) > 1 else minterms[0]
+
+
+# ---------------------------------------------------------------------------
+# logic-synthesis analyses (§4.5): coverage / conflicts / subsumption
+# ---------------------------------------------------------------------------
+
+def _eval_assignment(node: RuleNode, assign: Dict[str, bool]) -> bool:
+    if node.op == "leaf":
+        return assign.get(str(node.key), False)
+    if node.op == "and":
+        return all(_eval_assignment(c, assign) for c in node.children)
+    if node.op == "or":
+        return any(_eval_assignment(c, assign) for c in node.children)
+    return not _eval_assignment(node.children[0], assign)
+
+
+def _complete(assign: Dict[str, bool], keys: Sequence[str]
+              ) -> Dict[str, bool]:
+    """Fill a partial BDD witness out to a full assignment (unmentioned
+    variables are don't-care along the witness path; False matches the
+    runtime default for an unevaluated signal)."""
+    return {k: assign.get(k, False) for k in keys}
+
+
+def coverage_analysis(decisions: Sequence[Decision], max_vars: int = 16,
+                      mutex_groups: Optional[Sequence[Sequence[str]]] = None):
+    """Checks the signal space {0,1}^N for dead zones (no decision
+    matches) and conflicts (multiple equal-priority decisions with
+    different model pools match).  Symbolic over ROBDDs — no 2^N
+    enumeration, no variable cap (``max_vars`` is kept for signature
+    compatibility and ignored).  ``mutex_groups`` restricts the space to
+    assignments where at most one signal per group is true (one-hot
+    classifier heads), so dead-zone counts exclude impossible inputs."""
+    from repro_torch.analysis.bdd import BDD, at_most_one, rule_to_bdd
+    keys = sorted({str(k) for d in decisions for k in leaf_keys(d.rule)})
+    key_idx = {k: i for i, k in enumerate(keys)}
+    bdd = BDD(len(keys))
+    space = bdd.TRUE
+    for group in (mutex_groups or ()):
+        vs = [key_idx[str(k)] for k in group if str(k) in key_idx]
+        if len(vs) > 1:
+            space = bdd.and_(space, at_most_one(bdd, vs))
+    fs = [rule_to_bdd(bdd, d.rule, key_idx) for d in decisions]
+
+    fire_any = bdd.disj(fs)
+    dead = bdd.and_(space, bdd.not_(fire_any))
+    dead_examples = [_complete({keys[i]: v for i, v in a.items()}, keys)
+                     for a in bdd.sat_iter(dead, limit=4)]
+
+    conflicts = []
+    seen = set()
+    prios = sorted({d.priority for d in decisions}, reverse=True)
+    for p in prios:
+        idxs = [i for i, d in enumerate(decisions) if d.priority == p]
+        higher = bdd.disj([fs[i] for i, d in enumerate(decisions)
+                           if d.priority > p])
+        for a_pos, i in enumerate(idxs):
+            for j in idxs[a_pos + 1:]:
+                pool_i = tuple(sorted(m.name
+                                      for m in decisions[i].model_refs))
+                pool_j = tuple(sorted(m.name
+                                      for m in decisions[j].model_refs))
+                if pool_i == pool_j:
+                    continue
+                region = bdd.and_(bdd.and_(bdd.and_(space, fs[i]), fs[j]),
+                                  bdd.not_(higher))
+                for a in bdd.sat_iter(region, limit=4):
+                    assign = _complete({keys[k]: v for k, v in a.items()},
+                                       keys)
+                    sig = tuple(sorted(assign.items()))
+                    if sig in seen:
+                        continue
+                    seen.add(sig)
+                    tied = [d.name for k, d in enumerate(decisions)
+                            if d.priority == p
+                            and _eval_assignment(d.rule, assign)]
+                    conflicts.append((assign, tied))
+    return {"n_vars": len(keys), "dead_zones": bdd.sat_count(dead),
+            "conflicts": conflicts, "dead_examples": dead_examples}
+
+
+def subsumes(a: RuleNode, b: RuleNode, max_vars: int = 14) -> bool:
+    """True if a => b for every assignment (b is redundant given a's match
+    set when pools are equal).  Symbolic containment over ROBDDs — exact
+    at ANY width (``max_vars`` is kept for signature compatibility and
+    ignored; the old truth-table version silently returned False above
+    the cap, as if it had PROVEN non-containment)."""
+    from repro_torch.analysis.bdd import BDD, rule_to_bdd
+    keys = sorted({str(k) for k in leaf_keys(a) + leaf_keys(b)})
+    key_idx = {k: i for i, k in enumerate(keys)}
+    bdd = BDD(len(keys))
+    return bdd.implies(rule_to_bdd(bdd, a, key_idx),
+                       rule_to_bdd(bdd, b, key_idx))
 
 
 # ---------------------------------------------------------------------------

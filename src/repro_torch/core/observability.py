@@ -1,12 +1,20 @@
-"""Prometheus-style in-process metrics (copy of the ``Metrics`` part of
-``repro.core.observability``).  The port's scheduler reports through
-``METRICS``; the span model stays with the router, a later slice."""
+"""Observability (§14): metrics taxonomy + hierarchical span tracing.
+A copy of ``repro.core.observability``.
+
+Prometheus-style counters/histograms (in-process; the export surface is a
+text scrape endpoint format) and an OpenTelemetry-like span model with the
+paper's hierarchy: root -> signal spans -> decision span -> plugin spans ->
+upstream span.
+"""
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
-from typing import Dict, List
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 
 class Metrics:
@@ -58,4 +66,54 @@ class Metrics:
         return "\n".join(lines)
 
 
+@dataclass
+class Span:
+    name: str
+    start: float = field(default_factory=time.perf_counter)
+    end: Optional[float] = None
+    attributes: Dict[str, Any] = field(default_factory=dict)
+    children: List["Span"] = field(default_factory=list)
+
+    def child(self, name: str, **attrs) -> "Span":
+        s = Span(name, attributes=attrs)
+        self.children.append(s)
+        return s
+
+    def finish(self, **attrs):
+        self.end = time.perf_counter()
+        self.attributes.update(attrs)
+        return self
+
+    @property
+    def duration_ms(self) -> float:
+        return ((self.end or time.perf_counter()) - self.start) * 1e3
+
+    def flatten(self, depth=0):
+        yield depth, self
+        for c in self.children:
+            yield from c.flatten(depth + 1)
+
+    def render(self) -> str:
+        return "\n".join(f"{'  ' * d}{s.name} {s.duration_ms:.2f}ms "
+                         f"{s.attributes}" for d, s in self.flatten())
+
+
 METRICS = Metrics()
+
+
+@contextmanager
+def stage_scope(parent: Optional[Span], name: str, *,
+                metric: str = "stage_latency_ms", **attrs):
+    """Span + latency-histogram scope for one pipeline stage.
+
+    Creates ``name`` as a child of ``parent`` (or a standalone root span
+    when ``parent`` is None), finishes it on exit, and records the stage
+    duration into ``metric`` labelled by the stage name."""
+    span = parent.child(name, **attrs) if parent is not None \
+        else Span(name, attributes=dict(attrs))
+    try:
+        yield span
+    finally:
+        span.finish()
+        METRICS.observe(metric, span.duration_ms,
+                        stage=name.removeprefix("stage:"))

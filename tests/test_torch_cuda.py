@@ -63,6 +63,12 @@ FLASH = [
     # row 1 sees keys < 40 through a window of 16: its query rows >= 55
     # see nothing, the q tiles from row 64 on not one key
     (2, 129, 129, 4, 2, 32, True, 16, (129, 40), 0),
+    # the router fleet's prefill shapes at the longest prefill: qwen3-1.7b
+    # (16/8 heads, hd 128) and glm4-9b (32/2, G 16, hd 128)
+    (1, 479, 479, 16, 8, 128, True, 0, None, 0),
+    (2, 479, 479, 16, 8, 128, True, 0, (479, 37), 0),
+    (1, 479, 479, 32, 2, 128, True, 0, None, 0),
+    (2, 479, 479, 32, 2, 128, True, 256, (479, 300), 0),
 ]
 
 
@@ -121,7 +127,8 @@ MAX_BLOCKS = [1, 3, 8, 33, 128]
 @pytest.mark.parametrize("max_blocks", MAX_BLOCKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd", [(15, 5, 64), (3, 1, 20), (8, 2, 128),
-                                       (4, 4, 64)])
+                                       (4, 4, 64), (16, 8, 128),
+                                       (32, 2, 128)])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, Hq, Hkv, hd,
                                            max_blocks):
     blk = 16
@@ -487,6 +494,49 @@ def test_reduced_fleet_on_card_equals_cpu(cuda):
             assert flash_attention.launches > fa
             assert paged_flash_decode.launches > pd
         assert f.schedulers[arch].pool.live_refs() == 0
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_reduced_router_on_card_equals_cpu(cuda):
+    """``serve.build_router`` over the four reduced float32 members on the
+    card vs on the CPU: the demo requests under the default and the cost
+    and privacy tenants give equal decisions, models and contents, and
+    kernels 1, 2 and 4 ran on the card."""
+    from pathlib import Path
+
+    from repro_torch.core.types import Message, Request
+    from repro_torch.launch import serve
+    root = Path(__file__).resolve().parents[1]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        router, fleet = serve.build_router(gen_tokens=6, device=dev,
+                                           dtype="float32", batch=4,
+                                           warmup=False)
+        # measured service times differ between devices: the latency
+        # selector reads the profiles alone
+        router.selection_ctx.observe_latency = lambda model, ms: None
+        for pol in ("cost", "privacy"):
+            router.add_policy(pol, (root / "examples" / "policies" /
+                                    f"{pol}.vsr").read_text())
+        reqs = []
+        for i in range(12):
+            r = Request(messages=[Message("user", serve.DEMO_REQUESTS[i % 8])],
+                        user=f"user{i % 3}")
+            r.metadata["policy"] = ("default", "cost", "privacy")[i % 3]
+            reqs.append(r)
+        before = [fn.launches for fn in (flash_attention, paged_flash_decode,
+                                         paged_flash_decode_mla)]
+        try:
+            pairs = router.route_batch(reqs)
+        finally:
+            router.close()
+        outs[dev] = [(o.decision, o.model, r.content) for r, o in pairs]
+        if dev == "cuda":
+            after = [fn.launches for fn in (flash_attention,
+                                            paged_flash_decode,
+                                            paged_flash_decode_mla)]
+            assert all(a > b for a, b in zip(after, before))
+        assert all(s.pool.live_refs() == 0 for s in fleet.schedulers.values())
     assert outs["cuda"] == outs["cpu"]
 
 
