@@ -92,8 +92,38 @@ Phases, in order; any failure exits non-zero before the result line:
    the card's busy share over a batch and over its non-dispatch stages,
    and ``max_memory_allocated``; then a reduced float32 router and fleet
    of the four archs on the card against the CPU (decisions, models and
-   tokens equal).
-10. times: kernel, plain version and one PyTorch library call at the
+   tokens equal).  When ``qos`` runs too, the router and fleet stay for it.
+10. qos: SLO admission, shedding, degradation and preemption on the router
+   phase's full-width router and fleet (built here when that phase did not
+   run), launch counts zeroed just before: the ``qos`` tenant (the
+   reference's ``benchmarks/t_slo_burst.py`` policy on the router's model
+   names, lint strict: premium -> qwen3 at SLO priority 100, batch-class
+   -> glm4 degrading to qwen3, best-effort -> glm4, GLOBAL overload at
+   queue depth 8); an open-loop burst through ``AsyncFrontend`` (window 5
+   ms, batches of 8, depth bound 200, the detector sampling at every
+   admission and watching the frontend's queue): a warm-up and 8 premium
+   requests unloaded, then 12 batch-class + 12 best-effort flood requests
+   back to back and 8 premium, every future read (a failure on the
+   frontend's thread fails the phase).  Checks: no premium shed, every shed
+   with ``x-vsr-error: overload`` and ``retry-after: 0.25``, sheds,
+   degrades and preemptions == the admission metrics' deltas, at least
+   one shed and one degrade, the detector at ``overload``, no error
+   response, ``live_refs() == 0`` on every member, kernels 1, 2 and 6
+   launched, peak memory flat across the burst.  Prints premium TTFT
+   p50/p99 unloaded and under the burst, submit-to-answer times, the
+   counts, the detector's samples and last ``EngineLoad``, frontend
+   batches, the burst's wall and the card's busy share (profiler).  Then
+   scheduler-direct preemption round trips (``tests/test_qos.py``'s, with
+   8 victims filling the slots) on the smollm-360m lane (kernel 2) and
+   the deepseek-v2 lane (kernel 4): victims' tokens == an uninterrupted
+   run's but for near-ties, one park, a clean pool, the VIP's TTFT under
+   preemption vs FIFO.  Then ``sd-tiny`` joins the fleet and serve.py's
+   image requests go through ``route_batch`` of a ``text,image`` router:
+   image-lane answers with an 8 x 8 uint8 payload, ``sig`` == the CPU
+   lane's.  Last, a reduced float32 QoS router and fleet (smollm-360m,
+   deepseek-v2) with the detector forced ok / busy / overload on the card
+   against the CPU: equal decisions, sheds, degrades and tokens.
+11. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 and
    the contiguous ``flash_decode`` at the fleet's decode shape and at
@@ -144,7 +174,7 @@ W_SPEC = 5                                # verify width: pending token + k = 4
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
-          "mla_fleet", "router", "times")
+          "mla_fleet", "router", "qos", "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -852,7 +882,7 @@ MLA_MODEL_TOL = {"float32": 1e-3, "bfloat16": 2.0}
 MLA_F32_MOE_LAYERS = 2
 
 
-def phase_mla_model():
+def phase_mla_model(ctx):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as MD
@@ -888,8 +918,9 @@ def phase_mla_model():
                                  params, toks, [PROMPT_CAP, 300, 37, 128],
                                  MLA_MODEL_TOL[dname], per_row=True,
                                  moe_impl="ep")
-        verify_vs_decode(f"mla_model {MLA_ARCH} {dname}", paths, params,
-                         caches, MLA_MODEL_TOL[dname])
+        ctx[f"{MLA_ARCH} {dname} verify err"] = verify_vs_decode(
+            f"mla_model {MLA_ARCH} {dname}", paths, params, caches,
+            MLA_MODEL_TOL[dname])
         log(f"  {time.perf_counter() - t0:.1f} s, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params, caches
@@ -1899,12 +1930,617 @@ def phase_router(launches, card, ctx):
             router.call_fn = call_fn
         log(f"router: max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    finally:
+    except BaseException:
+        router.close()
+        raise
+    if ctx.pop("keep router", False):
+        # the qos phase serves on this router and fleet, and frees them
+        ctx["router"] = (router, fleet, encoder)
+    else:
         router.close()
     del router, fleet, encoder
     gc.collect()
     torch.cuda.empty_cache()
     reduced_router_card_vs_cpu("router")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: QoS — SLO admission, shedding, degradation and preemption
+# ---------------------------------------------------------------------------
+
+# the QoS tenant, on the reference's benchmarks/t_slo_burst.py policy with
+# the router's own model names (@FAST@ premium / degrade target, @BIG@ the
+# batch and best-effort pick); its jailbreak signal runs the encoder
+# (kernel 6) on every admitted row
+QOS_TENANT = "qos"
+QOS_DSL = '''
+SIGNAL keyword urgent { keywords: ["urgent"] }
+SIGNAL keyword bulk { keywords: ["bulk"] }
+SIGNAL jailbreak jb { method: "classifier", threshold: 0.5 }
+
+ROUTE safety_block (description = "jailbreaks get the canned refusal") {
+  PRIORITY 1001
+  WHEN jailbreak("jb")
+  MODEL "@FAST@"
+  PLUGIN fr fast_response { message: "Request blocked by safety policy." }
+}
+
+ROUTE premium (description = "interactive latency tier") {
+  PRIORITY 10
+  WHEN keyword("urgent")
+  MODEL "@FAST@"
+  SLO { class: "premium", priority: 100, ttft_ms: 2000.0 }
+}
+
+ROUTE bulk_batch (description = "degrade-to-cheap throughput tier") {
+  PRIORITY 1
+  WHEN keyword("bulk")
+  MODEL "@BIG@"
+  SLO { class: "batch", degrade_to: "@FAST@" }
+}
+
+ROUTE scavenger (description = "shed-under-overload tier") {
+  PRIORITY 1
+  WHEN NOT keyword("urgent")
+  MODEL "@BIG@"
+  SLO { class: "best_effort" }
+}
+
+GLOBAL { default_model: "@BIG@",
+         overload: { queue_depth: 8, shed_below: 100,
+                     retry_after_s: 0.25,
+                     default_class: "best_effort" } }
+'''
+# flood requests of each class: 12 + 12 keep the profiled burst's event
+# processing (~2 s a request) inside the phase's time
+QOS_FLOOD = 12
+QOS_PREMIUM = 8                # premium requests, unloaded and in the burst
+QOS_KERNELS = ("flash_attention", "paged_flash_decode", "multi_lora")
+PREEMPT_NEW = 16               # the round trip's victim tokens
+
+
+def qos_dsl(fast="qwen3", big="glm4"):
+    return QOS_DSL.replace("@FAST@", fast).replace("@BIG@", big)
+
+
+def qos_request(kind, i):
+    """The burst's requests (``t_slo_burst.py``'s texts): premium ones say
+    "urgent", batch ones "bulk"; each names the qos tenant and its class."""
+    from repro_torch.core.types import Message, Request
+    if kind == "premium":
+        text = f"urgent interactive question number {i} needs an answer"
+    else:
+        word = "bulk" if kind == "batch" else "background"
+        text = f"{word} offline summarization job number {i} over document {i}"
+    return Request(messages=[Message("user", text)],
+                   metadata={"policy": QOS_TENANT, "slo": kind})
+
+
+def metric_sum(prefix, **labels):
+    from repro_torch.core.observability import METRICS
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return sum(v for k, v in METRICS.counters.items()
+               if k.split("{")[0] == prefix and all(w in k for w in want))
+
+
+def pct(vals, p):
+    """The p-th percentile as ``t_slo_burst.py`` takes it (nearest rank
+    below)."""
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(p / 100 * len(vals)))] if vals \
+        else float("nan")
+
+
+def add_qos_tenant(router, fast="qwen3", big="glm4"):
+    """The QoS tenant into the router's registry, held to lint strict."""
+    from repro_torch.analysis import verify_config
+    prog = router.add_policy(QOS_TENANT, qos_dsl(fast, big))
+    fatal = [d for d in verify_config(prog.config) if d.fatal]
+    check(not fatal, f"qos: the tenant fails L4: {fatal}")
+    check(prog.overload is not None and prog.overload.queue_depth == 8,
+          "qos: the tenant's GLOBAL overload block did not compile")
+    return prog
+
+
+def qos_burst(router, label="qos"):
+    """The open-loop burst through ``AsyncFrontend`` (window 5 ms, batches
+    of at most 8, depth bound 200, the router's detector sampling at
+    every admission and watching the frontend's queue): one warm-up
+    premium request, the unloaded baseline (8 premium submitted
+    together), then the burst (12 batch-class and 12 best-effort flood
+    requests back to back, then 8 premium).  Every future's result is
+    read, so a failure on the frontend's thread fails here.  Returns the
+    report and the burst's (wall ms, busy ms) under the profiler."""
+    import torch
+    from repro_torch.core.types import RouterOverloadError
+    from repro_torch.serving.frontend import AsyncFrontend
+    det = router.overload
+    det.interval_s = 0.0
+    fe = AsyncFrontend(router, window_ms=5.0, max_batch=8, max_depth=200)
+    det.attach_frontend(fe)
+    samples = []                 # (state, load) at every admission sample
+    sample = det.sample
+
+    def recorded(policy=None, *, force=False):
+        state = sample(policy, force=force)
+        samples.append((state, det.load))
+        return state
+
+    det.sample = recorded
+    done_at = {}
+
+    def submit(req):
+        t0 = time.perf_counter()
+        fut = fe.submit(req)
+        fut.add_done_callback(
+            lambda f: done_at.__setitem__(id(f), time.perf_counter()))
+        return t0, fut
+
+    def waits(pairs):
+        out = []
+        for t0, fut in pairs:
+            fut.result()
+            out.append((done_at[id(fut)] - t0) * 1e3)
+        return out
+
+    rep = {}
+    try:
+        fe.submit(qos_request("premium", 999)).result()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = [submit(qos_request("premium", 1000 + i))
+                for i in range(QOS_PREMIUM)]
+        base_resp = [fut.result() for _, fut in base]
+        rep["base_wait"] = waits(base)
+        torch.cuda.synchronize()
+        rep["peak_base"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n_samples = len(samples)
+        c0 = {m: metric_sum(m) for m in (
+            "admission_rejected_total", "admission_degraded_total",
+            "preemptions_total")}
+        s0 = {s: metric_sum("overload_state_changes_total", state=s)
+              for s in ("ok", "busy", "overload")}
+        batches0 = fe.stats.batches
+        futs, bounced = [], 0
+
+        def burst():
+            nonlocal bounced
+            for i in range(2 * QOS_FLOOD):
+                try:
+                    futs.append(("flood", submit(qos_request(
+                        "batch" if i % 2 == 0 else "best_effort", i))))
+                except RouterOverloadError:
+                    bounced += 1
+            for i in range(QOS_PREMIUM):
+                futs.append(("premium", submit(qos_request("premium", i))))
+            for _, (_, fut) in futs:
+                fut.result()
+
+        t0 = time.perf_counter()
+        wall, busy = profile_run(f"{label} profile: the burst through "
+                                 f"AsyncFrontend", burst)
+        rep["profile_s"] = time.perf_counter() - t0
+        rep["peak_burst"] = torch.cuda.max_memory_allocated()
+    finally:
+        fe.close()
+        det.sample = sample
+    rep["batches"] = fe.stats.batches - batches0
+    rep["burst_requests"] = fe.stats.requests - QOS_PREMIUM - 1
+    rep["bounced"] = bounced
+    rep["deltas"] = {m: metric_sum(m) - v for m, v in c0.items()}
+    rep["state_changes"] = {
+        s: metric_sum("overload_state_changes_total", state=s) - v
+        for s, v in s0.items()}
+    rep["samples"] = samples[n_samples:]
+    rep["base"] = base_resp
+    rep["burst"] = [(kind, fut.result()) for kind, (_, fut) in futs]
+    rep["prem_wait"] = waits([p for k, p in futs if k == "premium"])
+    rep["fe"] = fe
+    return rep, wall, busy
+
+
+def check_qos_burst(label, router, fleet, rep, card):
+    """The burst's checks and numbers: no premium shed, every shed
+    carrying the overload header and retry-after 0.25, the counts equal
+    to the admission metrics' deltas, at least one shed and one degrade,
+    the detector at ``overload``, no error response but the sheds, every
+    member's pool clean."""
+    sheds = degrades = 0
+    prem_ttft = []
+    for kind, (resp, out) in rep["burst"]:
+        if resp.headers.get("x-vsr-error") == "overload":
+            sheds += 1
+            check(kind != "premium", f"{label}: a premium request was shed")
+            check(resp.headers.get("retry-after") == "0.25",
+                  f"{label}: shed without retry-after 0.25: {resp.headers}")
+            continue
+        check(resp.finish_reason != "error",
+              f"{label}: error response {resp.content!r}")
+        if "x-vsr-degraded" in resp.headers:
+            degrades += 1
+            check(out.model == "qwen3" and
+                  resp.usage.get("completion_tokens") == GEN,
+                  f"{label}: degraded row served by {out.model}: "
+                  f"{resp.usage}")
+        if kind == "premium":
+            check(out.decision == "premium" and out.model == "qwen3",
+                  f"{label}: premium routed {out.decision} -> {out.model}")
+            prem_ttft.append(float(resp.usage["vsr_ttft_ms"]))
+    base_ttft = [float(r.usage["vsr_ttft_ms"]) for r, _ in rep["base"]]
+    check(all(o.decision == "premium" and r.finish_reason != "error"
+              for r, o in rep["base"]),
+          f"{label}: the unloaded premium baseline was not served")
+    d = rep["deltas"]
+    preempted = d["preemptions_total"]
+    check(len(prem_ttft) == QOS_PREMIUM,
+          f"{label}: {QOS_PREMIUM - len(prem_ttft)} premium requests not "
+          f"served")
+    check(sheds == d["admission_rejected_total"] - rep["bounced"]
+          and rep["bounced"] == 0,
+          f"{label}: {sheds} sheds + {rep['bounced']} bounced vs "
+          f"admission_rejected_total +{d['admission_rejected_total']}")
+    check(degrades == d["admission_degraded_total"],
+          f"{label}: {degrades} degrades vs admission_degraded_total "
+          f"+{d['admission_degraded_total']}")
+    check(sheds >= 1 and degrades >= 1,
+          f"{label}: the burst shed {sheds} and degraded {degrades}")
+    states = [s for s, _ in rep["samples"]]
+    check("overload" in states,
+          f"{label}: the detector never reached overload: {states}")
+    for arch, sched in fleet.schedulers.items():
+        check(sched.pool.live_refs() == 0,
+              f"{label}: {arch} holds {sched.pool.live_refs()} block refs")
+    trip = [ld for s, ld in rep["samples"] if s == "overload"]
+    by_queue = sum(ld.queue_depth >= 8 for ld in trip)
+    fe = rep["fe"]
+    log(f"{label}: burst of {rep['burst_requests']} requests "
+        f"({2 * QOS_FLOOD} flood + {QOS_PREMIUM} premium; "
+        f"{rep['profile_s']:.1f} s with the profiler's processing) in "
+        f"{rep['batches']} frontend batches (all frontend batches "
+        f"{fe.stats.batches}, mean size {fe.stats.mean_batch:.2f}, recent "
+        f"sizes {list(fe.stats.batch_sizes)})")
+    log(f"{label}: shed {sheds}, degraded {degrades}, bounced "
+        f"{rep['bounced']}, preemptions {preempted} (metric deltas "
+        f"{json.dumps(d)}); no premium shed")
+    log(f"{label}: detector state changes over the burst "
+        f"{json.dumps(rep['state_changes'])}; samples {len(states)}: "
+        f"{' '.join(states)}; "
+        f"{by_queue} of {len(trip)} overload samples had queue depth >= 8; "
+        f"max queue depth {max((ld.queue_depth for _, ld in rep['samples']), default=0)}, "
+        f"max probed TTFT {max((ld.ttft_ewma_ms for _, ld in rep['samples']), default=0.0):.1f} ms; "
+        f"last EngineLoad {json.dumps(vars(rep['samples'][-1][1]))}")
+    log(f"{label}: premium TTFT ms (scheduler, vsr_ttft_ms) unloaded p50 "
+        f"{pct(base_ttft, 50):.2f} p99 {pct(base_ttft, 99):.2f}, under the "
+        f"burst p50 {pct(prem_ttft, 50):.2f} p99 {pct(prem_ttft, 99):.2f}; "
+        f"premium submit-to-answer ms unloaded p50 "
+        f"{pct(rep['base_wait'], 50):.2f} p99 {pct(rep['base_wait'], 99):.2f}"
+        f", under the burst p50 {pct(rep['prem_wait'], 50):.2f} p99 "
+        f"{pct(rep['prem_wait'], 99):.2f} [{card}]")
+    grow = (rep["peak_burst"] - rep["peak_base"]) / 2**20
+    log(f"{label}: max_memory_allocated over the baseline "
+        f"{rep['peak_base'] / 2**30:.3f} GiB, over the burst "
+        f"{rep['peak_burst'] / 2**30:.3f} GiB ({grow:+.1f} MiB)")
+    check(grow <= 256, f"{label}: the burst's peak memory grew {grow:.1f} "
+          f"MiB over the baseline's (an autograd graph on the frontend's "
+          f"thread?)")
+    return {"sheds": sheds, "degrades": degrades, "preemptions": preempted,
+            "base_p50": pct(base_ttft, 50), "burst_p50": pct(prem_ttft, 50)}
+
+
+def preempt_roundtrip(label, fleet, arch, err, card, max_new=PREEMPT_NEW):
+    """``tests/test_qos.py``'s round trip and ``t_slo_burst.py``'s
+    contention, scheduler-direct on one lane of the fleet: every slot
+    filled with a priority-0 victim, three steps, then a VIP.  With the
+    VIP at priority 0 (FIFO) it waits for a slot; at priority 100 it parks
+    a victim, which resumes through a prefix-matched admission.  The
+    victims' tokens must equal an uninterrupted run's in both, any
+    divergence shown to be a near-tie (bf16 GEMMs may round differently
+    over another batch's rows).  Returns (FIFO, preempt) VIP TTFT ms."""
+    from repro_torch.serving.fleet import hash_tokens
+    lane, sched = fleet.lanes[arch], fleet.schedulers[arch]
+    m = fleet.members[arch]
+    victims = [f"long running background analysis over corpus {i} with "
+               f"many follow up clauses {i}" for i in range(sched.slots)]
+    ref = [o["tokens"] for o in fleet.generate(arch, victims,
+                                               max_new=max_new)]
+
+    def contested(prio):
+        rids = [lane.submit(p, max_new=max_new, priority=0, slo="batch")
+                for p in victims]
+        for _ in range(3):
+            lane.step()
+        t0 = time.perf_counter()
+        hi = lane.submit("urgent premium question demanding an immediate "
+                         "first token", max_new=4, priority=prio,
+                         slo="premium")
+        done = {}
+        while sched.pending:
+            for seq in lane.step():
+                done[seq.rid] = seq
+        vip = done[hi]
+        check(len(vip.out) == 4, f"{label}: the VIP got {vip.out}")
+        return (vip.t_first - t0) * 1e3, [list(done[r].out) for r in rids], \
+            [done[r].parks for r in rids]
+
+    pre0 = sched.preempted
+    fifo_ttft, fifo_outs, _ = contested(0)
+    check(sched.preempted == pre0, f"{label}: a priority-0 VIP preempted")
+    pre_ttft, pre_outs, parks = contested(100)
+    check(sched.preempted == pre0 + 1 and sum(parks) == 1,
+          f"{label}: preempted {sched.preempted - pre0}, parks {parks}")
+    check(sched.pool.live_refs() == 0,
+          f"{label}: {sched.pool.live_refs()} block refs after the drain")
+    same = 0
+    for i, (want, a, b) in enumerate(zip(ref, fifo_outs, pre_outs)):
+        for run, got in (("fifo", a), ("preempt", b)):
+            if got == want:
+                same += 1
+                continue
+            j = next(n for n, (x, y) in enumerate(zip(want, got)) if x != y)
+            near_tie(f"{label} {run} run, victim {i}"
+                     + (" (parked)" if run == "preempt" and parks[i] else ""),
+                     m.params, m.cfg,
+                     hash_tokens(victims[i], m.cfg.vocab_size, m.prompt_cap),
+                     want[:j], want[j], got[j], err)
+    log(f"{label} preempt: {arch} {sched.slots} victims x {max_new} tokens, parked "
+        f"victim {parks.index(1)}; victims' tokens equal to the "
+        f"uninterrupted run's in {same} of {2 * len(ref)}; preempted "
+        f"+1; live_refs 0; VIP TTFT ms under preemption {pre_ttft:.2f} vs "
+        f"FIFO {fifo_ttft:.2f} [{card}]")
+    return fifo_ttft, pre_ttft
+
+
+def qos_image_lane(label, router, fleet, card):
+    """``sd-tiny`` joins the fleet (``add_member``); serve.py's image demo
+    requests through ``route_batch`` of a router on
+    ``build_dsl(("text", "image"))`` over that fleet: requests the
+    modality signal routes to ``sd`` come back from the image lane with an
+    hw x hw uint8 payload whose ``sig`` equals the CPU lane's."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.core.dsl import compile_source
+    from repro_torch.core.router import SemanticRouter
+    from repro_torch.core.types import Message, Request
+    from repro_torch.launch import serve
+    from repro_torch.serving.fleet import DIFFUSION_ARCHS, LocalFleet
+    t0 = time.perf_counter()
+    check(fleet.add_member("sd-tiny"), f"{label}: sd-tiny was already there")
+    hw = DIFFUSION_ARCHS["sd-tiny"]["hw"]
+    cfg, _ = compile_source(serve.build_dsl(("text", "image")))
+    cfg.classifier_backend = router.policies.get().config.classifier_backend
+    m2a = {m: p.arch for m, p in cfg.model_profiles.items() if p.arch}
+    call = fleet.call_fn(m2a)
+    raw = []
+
+    def batch_call(ep, payloads, headers):
+        out = call.batch_call(ep, payloads, headers)
+        raw.extend(out)
+        return out
+
+    def single(ep, payload, headers):
+        return batch_call(ep, [payload], [headers])[0]
+
+    single.batch_call = batch_call
+    img = SemanticRouter(cfg, call_fn=single, device=fleet.device)
+    texts = serve.LANE_DEMO_REQUESTS["image"]
+    try:
+        pairs = img.route_batch([Request(messages=[Message("user", t)])
+                                 for t in texts])
+    finally:
+        img.close()
+    sigs = {}
+    for text, (resp, out) in zip(texts, pairs):
+        if out.model != "sd":
+            continue
+        check(resp.usage.get("vsr_lane") == "image",
+              f"{label}: {text!r} came back from lane "
+              f"{resp.usage.get('vsr_lane')}")
+        payload = next(p["choices"][0]["message"]["image"] for p in raw
+                       if p["usage"]["vsr_lane"] == "image"
+                       and p["choices"][0]["message"]["content"]
+                       == resp.content)
+        data = np.asarray(payload["data"])
+        check(data.size == hw * hw and data.min() >= 0 and data.max() <= 255,
+              f"{label}: image payload of {data.size} values "
+              f"[{data.min()}, {data.max()}]")
+        sig = hashlib.blake2s(data.astype(np.uint8).tobytes(),
+                              digest_size=4).hexdigest()
+        check(sig == payload["sig"], f"{label}: sig {payload['sig']} is not "
+              f"the payload's {sig}")
+        sigs[text] = sig
+    check(sigs, f"{label}: the modality signal routed no image request to "
+          f"sd: {[(o.decision, o.model) for _, o in pairs]}")
+    cpu = LocalFleet(["sd-tiny"], batch=BATCH, device="cpu")
+    want = {t: o["image"]["sig"]
+            for t, o in zip(sigs, cpu.generate("sd-tiny", list(sigs)))}
+    check(want == sigs, f"{label}: image sigs on the card {sigs} != the "
+          f"CPU's {want}")
+    log(f"{label}: sd-tiny added in {time.perf_counter() - t0:.2f} s; "
+        f"{len(sigs)} of {len(texts)} image requests routed to sd came back "
+        f"from the image lane, {hw}x{hw} uint8, sigs {json.dumps(sigs)} == "
+        f"the CPU lane's; decisions "
+        f"{[(o.decision, o.model) for _, o in pairs]} [{card}]")
+
+
+class ForcedDetector:
+    """A detector pinned to one state (``tests/test_qos.py``'s)."""
+
+    def __init__(self, state):
+        self.state = state
+
+    def sample(self, policy=None, force=False):
+        return self.state
+
+
+def reduced_qos_card_vs_cpu(label):
+    """The reduced float32 QoS router and fleet (smollm-360m as the premium
+    and degrade model, deepseek-v2 as the big one) on the card and on the
+    CPU, with the detector forced to ok, busy and overload: equal
+    decisions, models, sheds, degrades and tokens.  Card launches are not
+    main-path launches and are restored."""
+    from repro_torch.core.dsl import compile_source
+    from repro_torch.core.router import SemanticRouter
+    from repro_torch.serving.fleet import LocalFleet
+    wrappers = kernel_wrappers()
+    saved = {n: fn.launches for n, fn in wrappers.items()}
+    archs = {"smollm": ARCH, "deepseek-v2": MLA_ARCH}
+    ov = {ARCH: {"dtype": "float32", "attn_impl": "pallas"},
+          MLA_ARCH: {"dtype": "float32"}}
+    reqs = [(kind, i) for i in range(3)
+            for kind in ("premium", "batch", "best_effort")]
+    outs, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        fleet = LocalFleet(list(archs.values()), batch=4, gen_tokens=8,
+                           warmup=False, decode_impl="flash_paged",
+                           arch_overrides=ov, device=dev)
+        cfg, _ = compile_source(qos_dsl("smollm", "deepseek-v2"))
+        router = SemanticRouter(cfg, call_fn=fleet.call_fn(archs),
+                                device=dev)
+        rows = []
+        try:
+            for state in ("ok", "busy", "overload"):
+                router.overload = ForcedDetector(state)
+                pairs = router.route_batch([qos_request(k, i)
+                                            for k, i in reqs])
+                rows += [(state, o.decision, o.model,
+                          r.headers.get("x-vsr-error"),
+                          r.headers.get("x-vsr-degraded"), r.content)
+                         for r, o in pairs]
+        finally:
+            router.close()
+        outs[dev] = rows
+        check(all(s.pool.live_refs() == 0 for s in fleet.schedulers.values()),
+              f"{label}: reduced {dev} QoS fleet leaked blocks")
+        if dev == "cuda":
+            counts = {n: wrappers[n].launches for n in (
+                "flash_attention", "paged_flash_decode",
+                "paged_flash_decode_mla")}
+        del router, fleet
+    for n, fn in wrappers.items():
+        fn.launches = saved[n]
+    card_rows, cpu_rows = outs["cuda"], outs["cpu"]
+    same = card_rows == cpu_rows
+    kinds = {(r[0], r[3] is not None, r[4] is not None) for r in cpu_rows}
+    log(f"{label}: reduced float32 QoS router + fleet (smollm-360m, "
+        f"deepseek-v2), detector forced ok / busy / overload, card kernels "
+        f"vs CPU plain path over {len(cpu_rows)} requests: decisions, "
+        f"models, sheds, degrades and tokens identical: {same}; "
+        f"(state, shed, degraded) seen {sorted(kinds)}; card launches "
+        f"{json.dumps(counts)}")
+    if not same:
+        for i, (a, b) in enumerate(zip(card_rows, cpu_rows)):
+            if a != b:
+                log(f"  request {i}: card {a} vs CPU {b}")
+    check(same, f"{label}: the reduced QoS router differs between card and "
+          f"CPU")
+    check(("overload", True, False) in kinds and
+          ("busy", False, True) in kinds,
+          f"{label}: the forced states shed or degraded nothing: {kinds}")
+    check(all(v > 0 for v in counts.values()),
+          f"{label}: a kernel did not launch on the reduced card router: "
+          f"{counts}")
+
+
+def phase_qos(card, ctx):
+    """SLO admission, shedding, degradation and preemption on the card:
+    the router phase's full-width router and fleet (handed over in
+    ``ctx``, or built here as that phase builds them when it did not
+    run) gain the QoS tenant; the burst through ``AsyncFrontend``; the
+    preemption round trips on the smollm-360m and deepseek-v2 lanes; the
+    image lane; the reduced float32 QoS router card vs CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.classifiers.encoder import (MODERNBERT_BASE_32K,
+                                                 EncoderBackend)
+    from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
+                                                      paged_flash_decode_mla)
+    label = "qos"
+    t_phase = time.perf_counter()
+    marks = {}
+    if "router" in ctx:
+        router, fleet, encoder = ctx.pop("router")
+        log(f"{label}: the router phase's full-width router and fleet")
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(MODERNBERT_BASE_32K, max_len=ENC_MAX_LEN)
+        encoder = EncoderBackend(cfg, *router_encoder_weights(cfg, "cuda", 0),
+                                 trained=set(ROUTER_TASKS))
+        router, fleet = build_demo_router(
+            ROUTER_ENCODER, encoder, reduced=False, gen_tokens=GEN,
+            device="cuda", batch=BATCH, max_seq=MAX_SEQ)
+        log(f"{label}: full-width router and fleet built and warmed up in "
+            f"{time.perf_counter() - t0:.1f} s")
+    marks["fleet"] = time.perf_counter()
+    try:
+        add_qos_tenant(router)
+        log(f"{label}: tenant {QOS_TENANT!r} loaded (lint strict), policies "
+            f"{router.policies.names()}, detector "
+            f"{type(router.overload).__name__} over the fleet's "
+            f"{len(fleet.schedulers)} lanes")
+        wrappers = kernel_wrappers()
+        torch.cuda.synchronize()
+        # the main path: counts zeroed just before, read just after
+        for fn in wrappers.values():
+            fn.launches = 0
+        marks["tenant"] = time.perf_counter()
+        rep, wall, busy = qos_burst(router, label)
+        burst = {n: wrappers[n].launches for n in QOS_KERNELS}
+        nums = check_qos_burst(label, router, fleet, rep, card)
+        log(f"{label}: burst wall {wall:.1f} ms under the profiler, card busy "
+            f"{busy:.1f} ms ({100 * busy / wall:.1f}%); launches over the "
+            f"warm-up, baseline and burst {json.dumps(burst)} [{card}]")
+        check(all(v > 0 for v in burst.values()),
+              f"{label}: a kernel of the burst's path did not launch: {burst}")
+        # scheduler-direct preemption, after the frontend's thread
+        # has stopped: one thread steps the lanes while counts are read
+        for fn in wrappers.values():
+            fn.launches = 0
+        err = ctx.get(f"{ARCH} bfloat16 verify err", MODEL_TOL["bfloat16"])
+        marks["burst"] = time.perf_counter()
+        ttft = {ARCH: preempt_roundtrip(label, fleet, ARCH, err, card)}
+        smollm = paged_flash_decode.launches
+        err = ctx.get(f"{MLA_ARCH} bfloat16 verify err",
+                      MLA_MODEL_TOL["bfloat16"])
+        ttft[MLA_ARCH] = preempt_roundtrip(label, fleet, MLA_ARCH, err, card)
+        marks["round trips"] = time.perf_counter()
+        mla = paged_flash_decode_mla.launches
+        log(f"{label}: round trip launches: paged_flash_decode {smollm} "
+            f"(smollm-360m lane), paged_flash_decode_mla {mla} (deepseek-v2 "
+            f"lane)")
+        check(smollm > 0 and mla > 0,
+              f"{label}: the round trips did not launch kernels 2 and 4")
+        counts = dict(burst, paged_flash_decode=burst["paged_flash_decode"]
+                      + smollm, paged_flash_decode_mla=mla)
+        qos_image_lane(label, router, fleet, card)
+        marks["image lane"] = time.perf_counter()
+        ctx["qos launches"] = counts
+        log(f"{label}: launches of the phase {json.dumps(counts)}; premium "
+            f"TTFT p50 ms unloaded {nums['base_p50']:.2f} vs burst "
+            f"{nums['burst_p50']:.2f}; sheds {nums['sheds']}, degrades "
+            f"{nums['degrades']}, burst preemptions {nums['preemptions']}; "
+            f"VIP TTFT ms preempt / FIFO "
+            f"{json.dumps({a: [round(p, 2), round(f, 2)] for a, (f, p) in ttft.items()})}"
+            f" [{card}]")
+    finally:
+        router.close()
+    del router, fleet, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced_qos_card_vs_cpu(label)
+    marks["reduced"] = time.perf_counter()
+    prev, secs = t_phase, {}
+    for k, t in marks.items():
+        secs[k] = round(t - prev, 1)
+        prev = t
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s, seconds per "
+        f"part {json.dumps(secs)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2307,11 +2943,15 @@ def main(argv=None) -> int:
         if "signals" in phases:
             phase_signals(launches, card, ctx)
         if "mla_model" in phases:
-            phase_mla_model()
+            phase_mla_model(ctx)
         if "mla_fleet" in phases:
             phase_mla_fleet(launches, card)
         if "router" in phases:
+            if "qos" in phases:
+                ctx["keep router"] = True
             phase_router(launches, card, ctx)
+        if "qos" in phases:
+            phase_qos(card, ctx)
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
     except Failure as e:

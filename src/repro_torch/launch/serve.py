@@ -1,19 +1,25 @@
-"""Serving launcher of the port: a local fleet of text members served
-through the full semantic-router pipeline with batched requests.
+"""Serving launcher of the port: a local fleet of text and image members
+served through the full semantic-router pipeline with batched requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --async \
+        --lanes text,image
     PYTHONPATH=src python -m repro_torch.launch.serve --full-width --batch 8
 
-The port of ``repro.launch.serve`` for the text lane: the same demo DSL,
-demo requests, tenant-policy loading and lint gate.  Not ported: the
-image and audio lanes, ``--async`` (the arrival-window front end),
-``--train-adapters`` and the overload detector (admission control stays
-a no-op while ``router.overload`` is None).  Every member serves through
-the port's CUDA kernels (``decode_impl="flash_paged"``, and
-``attn_impl="pallas"`` on GQA attention members); on the CPU they run as
-their plain versions.  ``--full-width`` serves the members at their
-published widths, with deepseek-v2's depth cut so that all four fit one
-80 GB card.
+The port of ``repro.launch.serve`` for the text and image lanes: the same
+demo DSL (``build_dsl``, with the image lane's modality route spliced in
+by ``--lanes text,image``), demo requests, tenant-policy loading, lint
+gate and overload detector (``build_router`` attaches one to the fleet;
+policies without a GLOBAL overload block never consult it).  ``--async``
+serves the requests through the arrival-window front end
+(``serving/frontend.AsyncFrontend``), the detector watching its queue
+too.  Not ported: the audio lane (``--lanes audio`` raises),
+``--train-adapters`` (training) and ``--model-axis`` (multi-GPU).  Every
+text member serves through the port's CUDA kernels
+(``decode_impl="flash_paged"``, and ``attn_impl="pallas"`` on GQA
+attention members); on the CPU they run as their plain versions.
+``--full-width`` serves the members at their published widths, with
+deepseek-v2's depth cut so that all four fit one 80 GB card.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from repro_torch.core.dsl import compile_source
 from repro_torch.core.router import SemanticRouter
 from repro_torch.core.types import Message, Request
 from repro_torch.models.config import BlockSpec, LayerGroup
-from repro_torch.serving.fleet import LocalFleet
+from repro_torch.serving.fleet import DIFFUSION_ARCHS, LocalFleet
+from repro_torch.serving.overload import OverloadDetector
 
 DSL_CONFIG = '''
 SIGNAL domain math {{ mmlu_categories: ["math"] }}
@@ -91,11 +98,38 @@ BACKEND local_pool vllm {{ address: "127.0.0.1", port: 8000 }}
 '''
 
 
-def build_dsl() -> str:
-    """The demo DSL for the text lane (the reference's
-    ``build_dsl(("text",))``, byte for byte)."""
-    return DSL_CONFIG.format(lane_routes="", lane_backends="",
-                             lane_profiles="")
+# non-text lanes: modality signal + route + lane-typed endpoint + profile,
+# spliced into the DSL when --lanes enables them
+LANE_DSL = {
+    "image": dict(
+        signals='SIGNAL modality img { modalities: ["diffusion", "both"] }\n',
+        routes='''
+ROUTE image_gen (description = "diffusion requests to the image lane") {
+  PRIORITY 400
+  WHEN modality("img")
+  MODEL "sd"
+  PLUGIN mi modality { rule: "img" }
+}
+''',
+        backends='BACKEND image_pool vllm '
+                 '{ port: 8001, modality: "image" }\n',
+        profiles=',\n    "sd": { cost_per_mtok: 1.2, quality: 0.7, '
+                 'arch: "sd-tiny" }'),
+}
+
+def build_dsl(lanes=("text",)) -> str:
+    """Assemble the demo DSL for the requested backend lanes ("text",
+    "image"); ``build_dsl(("text",))`` is the reference's, byte for
+    byte."""
+    if "audio" in lanes:
+        raise NotImplementedError(
+            "the audio lane (whisper-tiny: encoder, cross-attention and the "
+            "contiguous cache) is a later slice of the port")
+    extra = [LANE_DSL[l] for l in lanes if l in LANE_DSL]
+    return "".join(e["signals"] for e in extra) + DSL_CONFIG.format(
+        lane_routes="".join(e["routes"] for e in extra),
+        lane_backends="".join(e["backends"] for e in extra),
+        lane_profiles="".join(e["profiles"] for e in extra))
 
 
 DEMO_REQUESTS = [
@@ -108,6 +142,11 @@ DEMO_REQUESTS = [
     "Solve the integral of x^2 dx with calculus",
     "Write an algorithm to sort a list in python",
 ]
+
+LANE_DEMO_REQUESTS = {
+    "image": ["Draw an illustration of a fox in a forest",
+              "Generate an image of a sailboat logo"],
+}
 
 # deepseek-v2 at full width on one 80 GB card: its dense layer 0 and 3 of
 # its 59 MoE layers, every width kept (~13 B parameters), beside full
@@ -129,6 +168,8 @@ def fleet_overrides(archs, reduced: bool = True,
     one-card depth cut at full width, and ``dtype`` when given."""
     out = {}
     for arch in archs:
+        if arch in DIFFUSION_ARCHS:      # the denoiser has no ModelConfig
+            continue
         cfg = get_reduced(arch) if reduced else get_config(arch)
         ov = {}
         if any(s.mixer == "attn" for g in cfg.groups for s in g.period):
@@ -142,13 +183,15 @@ def fleet_overrides(archs, reduced: bool = True,
 
 
 def build_router(reduced: bool = True, gen_tokens: int = 8,
-                 classifier_backend: str = "hash", device="cuda",
-                 dtype: Optional[str] = None, **fleet_kw):
-    """The demo router over a ``LocalFleet`` of the DSL's profile archs.
+                 classifier_backend: str = "hash", lanes=("text",),
+                 device="cuda", dtype: Optional[str] = None, **fleet_kw):
+    """The demo router over a ``LocalFleet`` of the DSL's profile archs,
+    with an ``OverloadDetector`` watching the fleet as ``router.overload``.
     ``classifier_backend`` names a registered backend ("hash", "encoder"
-    or one installed with ``register_backend``); ``fleet_kw`` go to
-    ``LocalFleet`` (``batch``, ``max_seq``, ...)."""
-    cfg, diags = compile_source(build_dsl())
+    or one installed with ``register_backend``); ``lanes`` selects the
+    backend lanes ("text", "image"); ``fleet_kw`` go to ``LocalFleet``
+    (``batch``, ``max_seq``, ...)."""
+    cfg, diags = compile_source(build_dsl(lanes))
     for d in diags:
         print(d)
     if classifier_backend != "hash":
@@ -173,6 +216,11 @@ def build_router(reduced: bool = True, gen_tokens: int = 8,
                        device=device, **fleet_kw)
     m2a = {m: p.arch for m, p in cfg.model_profiles.items() if p.arch}
     router = SemanticRouter(cfg, call_fn=fleet.call_fn(m2a), device=device)
+    # QoS: admission control samples engine load through this detector;
+    # policies without a GLOBAL overload block never consult it
+    detector = OverloadDetector()
+    detector.attach_fleet(fleet)
+    router.overload = detector
     return router, fleet
 
 
@@ -183,11 +231,24 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0,
                     help="micro-batch size for route_batch(); 0 = "
                          "sequential route() per request")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="serve concurrently arriving requests through the "
+                         "arrival-window coalescing front-end")
+    ap.add_argument("--window-ms", type=float, default=15.0,
+                    help="front-end arrival-coalescing window (async mode)")
+    ap.add_argument("--stagger-ms", type=float, default=3.0,
+                    help="inter-arrival gap for the async demo workload")
     ap.add_argument("--classifier-backend", choices=["hash", "encoder"],
                     default="hash",
                     help="backend for neural signal classification; "
                          "'encoder' serves all learned signals of a batch "
                          "from one fused multi-task encoder pass")
+    ap.add_argument("--lanes", default="text",
+                    help="comma-separated backend lanes to serve "
+                         "(text,image; audio is a later slice of the "
+                         "port): non-text lanes add the modality signal "
+                         "routes, lane-typed endpoints and the diffusion "
+                         "fleet member")
     ap.add_argument("--policy-dir", default="",
                     help="directory of *.vsr policy files loaded as named "
                          "tenant policies (name = file stem); demo "
@@ -215,10 +276,11 @@ def main(argv=None):
                          "reduced configs")
     args = ap.parse_args(argv)
 
+    lanes = tuple(l.strip() for l in args.lanes.split(",") if l.strip())
     router, fleet = build_router(reduced=not args.full_width,
                                  gen_tokens=args.gen_tokens,
                                  classifier_backend=args.classifier_backend,
-                                 device=args.device)
+                                 lanes=lanes, device=args.device)
     router.policies.lint = args.lint
     if args.lint != "off":
         # verify the built-in default policy too (strict: refuse to serve
@@ -242,6 +304,8 @@ def main(argv=None):
                 on_error=lambda n, e: print(f"policy {n}: reload "
                                             f"failed: {e}")).start()
     demo = list(DEMO_REQUESTS)
+    for lane in lanes:
+        demo.extend(LANE_DEMO_REQUESTS.get(lane, []))
     reqs = []
     for i in range(args.requests):
         r = Request(messages=[Message("user", demo[i % len(demo)])],
@@ -253,33 +317,52 @@ def main(argv=None):
         reqs.append(r)
     t0 = time.time()
     results = []
+    fe = None
     try:
-        if args.batch > 0:
+        if args.async_mode:
+            from repro_torch.serving.frontend import AsyncFrontend
+            fe = AsyncFrontend(router, window_ms=args.window_ms)
+            router.overload.attach_frontend(fe)
+            futs = []
+            for r in reqs:                  # staggered concurrent arrivals
+                futs.append(fe.submit(r))
+                time.sleep(args.stagger_ms / 1e3)
+            results = [f.result() for f in futs]
+        elif args.batch > 0:
             for s in range(0, len(reqs), args.batch):
                 results.extend(router.route_batch(reqs[s: s + args.batch]))
         else:
             results = [router.route(r) for r in reqs]
     finally:
+        if fe is not None:
+            fe.close()
         if watcher is not None:
             watcher.stop()
         router.close()
     n = len(results)
     for i, (resp, out) in enumerate(results):
         text = demo[i % len(demo)]
+        lane = resp.usage.get("vsr_lane", "text") if resp.usage else "text"
         pol = (f" policy={reqs[i].metadata.get('policy', 'default'):10s}"
                if policy_names else "")
         print(f"[{i:02d}] {text[:52]:54s} -> {out.decision or '-':14s} "
-              f"model={out.model:14s}{pol} "
+              f"model={out.model:14s} lane={lane:5s}{pol} "
               f"{'FAST' if out.fast_response else 'gen '} "
               f"cache={'H' if out.cache_hit else '.'}")
     dt = time.time() - t0
-    mode = "batch=%d" % args.batch if args.batch else "sequential"
+    mode = ("async window=%.0fms" % args.window_ms if args.async_mode
+            else "batch=%d" % args.batch if args.batch else "sequential")
     print(f"\n{n} requests in {dt:.1f}s ({n / dt:.1f} req/s)  "
           f"cache_hit_rate={router.cache.hit_rate:.2f}  mode={mode}  "
           f"device={router.device}")
+    if fe is not None:
+        print(f"  frontend: {fe.stats.batches} batches, "
+              f"mean size {fe.stats.mean_batch:.2f} "
+              f"(sizes {fe.stats.batch_sizes})")
     for arch, m in fleet.members.items():
         lane = fleet.lanes[arch]
-        print(f"  backend {arch:22s} calls={m.calls:3d} "
+        print(f"  backend {arch:22s} lane={lane.modality:5s} "
+              f"calls={m.calls:3d} "
               f"tokens={m.tokens_out} prompts/drain={m.slots_per_call:.2f} "
               f"occupancy={lane.occupancy:.2f}")
     from repro_torch.core.observability import METRICS

@@ -1,10 +1,20 @@
-"""LocalFleet of the port: in-process text backends for router serving.
+"""LocalFleet of the port: in-process text and image backends for router
+serving.
 
-The port of ``repro.serving.fleet`` for paged text members.  Each member
-arch gets an :class:`ARLane` — a continuous-batching autoregressive lane
-over a paged :class:`DecodeScheduler` — and ``LocalFleet`` drains its
-lanes for ``generate`` and for the router transport ``call_fn`` /
-``batch_call``.  Content is synthetic (hash tokenizer, random weights);
+The port of ``repro.serving.fleet`` for paged text members and the image
+lane.  The fleet is a set of **backend lanes** (:class:`BackendLane`), one
+per member arch:
+
+* :class:`ARLane` — the continuous-batching autoregressive text lane over
+  a paged :class:`DecodeScheduler`;
+* :class:`DiffusionLane` — a non-autoregressive fixed-step iterative
+  denoiser stub (``sd-tiny``) with image-out payloads: slots hold latents
+  at different denoise depths and one ``step()`` advances every active
+  latent by one iteration, in torch ops on the fleet's device.
+
+``LocalFleet`` drains its lanes for ``generate`` and for the router
+transport ``call_fn`` / ``batch_call``, interleaving steps across every
+involved lane.  Content is synthetic (hash tokenizer, random weights);
 the serving path (slot admission, paged KV with prefix sharing and COW,
 per-row positions, per-request latency) is real and runs on the card
 through the port's CUDA kernels when ``decode_impl="flash_paged"`` and
@@ -14,8 +24,8 @@ Serving is single-device (no mesh, no sharding rules) and MoE members are
 dropless: their capacity factor is raised to ``n_experts / top_k``.
 ``speculative=SpecConfig(...)`` puts a draft model in front of every lane
 (draft proposal, one wide verify per round, greedy acceptance, adaptive
-k).  The audio and diffusion lanes, contiguous caches and
-``model_axis > 1`` are later slices and raise ``NotImplementedError``.
+k).  The audio lane (``whisper-tiny``: the registry does not list it),
+contiguous caches and ``model_axis > 1`` are later slices and raise.
 
 Concurrency: the fleet lock covers ONLY submission and bookkeeping.
 Draining happens outside it — per-lane step locks serialize the steps
@@ -29,10 +39,10 @@ from __future__ import annotations
 import hashlib
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field, fields as dc_fields
 from dataclasses import replace as dc_replace
-from typing import Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +55,12 @@ from repro_torch.serving import serve_lib
 from repro_torch.serving.paged import PoolStats
 from repro_torch.serving.scheduler import (PREFILL_BUCKETS, DecodeScheduler,
                                            SpecConfig, SpecRuntime)
+
+# non-AR diffusion stub archs servable as image lanes (not ModelConfigs —
+# the denoiser is the lane itself)
+DIFFUSION_ARCHS: Dict[str, dict] = {
+    "sd-tiny": dict(hw=8, steps=8),
+}
 
 
 def _validate_decode_impl(decode_impl: Optional[str]):
@@ -157,6 +173,11 @@ def hash_tokens(text: str, vocab: int, max_len: int) -> np.ndarray:
     return np.asarray(ids[-max_len:] or [4], np.int32)
 
 
+def _seed_of(text: str) -> int:
+    return int.from_bytes(
+        hashlib.blake2s(text.encode(), digest_size=4).digest(), "little")
+
+
 @dataclass
 class MemberStats:
     """Serving stats shared by every lane's member record."""
@@ -188,6 +209,15 @@ class FleetMember(MemberStats):
     spec: object = None                  # SpecRuntime (speculative decoding)
 
 
+@dataclass
+class DiffusionMember(MemberStats):
+    """Member record for a non-AR diffusion lane (no params/config — the
+    denoiser lives on the lane; ``tokens_out`` counts denoise
+    slot-iterations)."""
+    arch: str
+    batch: int
+
+
 # ---------------------------------------------------------------------------
 # backend lanes
 # ---------------------------------------------------------------------------
@@ -195,7 +225,8 @@ class FleetMember(MemberStats):
 class BackendLane:
     """Protocol for one execution lane of the fleet.
 
-    ``modality``    lane type: "text" (the port's only lane so far).
+    ``modality``    lane type: "text" or "image" ("audio" is a later
+                    slice of the port).
     ``submit(prompt, max_new=, priority=, slo=) -> rid``   queue one
                     request payload.
     ``step() -> [finished]``              advance the lane's batch one
@@ -335,6 +366,8 @@ class ARLane(BackendLane):
         sched.masked_slot_steps = 0
         sched.prefill_tokens = sched.cached_tokens = 0
         sched.preempted = 0
+        sched.ttft_ewma = 0.0
+        sched.ttft_samples = 0
         sched.prefill.prefills = 0
         sched.pool.stats = PoolStats()
         if sched.drafter is not None:
@@ -346,6 +379,154 @@ class ARLane(BackendLane):
 
     def _warmup_submit(self, width: int, fill: int = 4):
         self.sched.submit(np.full((width,), fill, np.int32), max_new=2)
+
+
+@dataclass
+class DiffusionJob:
+    """One queued / in-flight / finished image request."""
+    rid: int
+    prompt: str
+    t_submit: float
+    slot: int = -1
+    steps_done: int = 0
+    t_first: float = 0.0         # first denoise iteration wall clock
+    t_done: float = 0.0
+    image: Optional[np.ndarray] = None
+
+    @property
+    def ttft_ms(self) -> float:
+        return (self.t_first - self.t_submit) * 1e3
+
+    @property
+    def tpot_ms(self) -> float:
+        if self.steps_done <= 1:
+            return 0.0
+        return (self.t_done - self.t_first) * 1e3 / (self.steps_done - 1)
+
+
+class DiffusionLane(BackendLane):
+    """Fixed-step iterative denoiser stub (non-autoregressive lane).
+
+    Own batch semantics: a fixed pool of latent slots where each slot sits
+    at its OWN denoise depth (``t_idx`` per slot); every ``step()`` admits
+    queued prompts into free slots (prompt-seeded noise latent, drawn on
+    the host and moved to ``device``) and runs ONE denoise iteration over
+    all slots in torch ops on ``device`` ("cuda" by default).  A latent
+    that reaches ``steps`` iterations is quantized to a uint8 image
+    payload and its slot freed — the image analogue of continuous-batching
+    decode."""
+
+    modality = "image"
+
+    def __init__(self, member: DiffusionMember, *, hw: int = 8,
+                 steps: int = 8, device: DeviceLike = "cuda"):
+        self.m = member
+        self.hw = hw
+        self.steps = steps
+        self.slots = member.batch
+        self.device = resolve_device(device)
+        self.latents = torch.zeros((self.slots, hw, hw), dtype=torch.float32,
+                                   device=self.device)
+        self.t_idx = np.zeros((self.slots,), np.int32)
+        self.active: List[Optional[DiffusionJob]] = [None] * self.slots
+        self.queue: Deque[DiffusionJob] = deque()
+        self._rid = 0
+        self.decode_steps = 0
+        self.slot_steps = 0
+
+    def _denoise(self, lat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        # per-slot sigma schedule: sigma_t = 1 - t/N; the "noise
+        # prediction" is the latent's high-frequency residual, so the
+        # fixed-point is a smoothed (structured) image
+        sig = (1.0 - t.to(torch.float32) / float(self.steps))[:, None, None]
+        blur = (torch.roll(lat, 1, 1) + torch.roll(lat, -1, 1) +
+                torch.roll(lat, 1, 2) + torch.roll(lat, -1, 2)) / 4.0
+        eps_hat = lat - blur
+        return lat - sig * eps_hat
+
+    # -- protocol -----------------------------------------------------------
+
+    def submit(self, prompt: str, max_new: Optional[int] = None,
+               priority: int = 0, slo: str = "") -> int:
+        # the denoiser's fixed-step FIFO has no priority queue; QoS
+        # ordering applies to AR lanes
+        self._rid += 1
+        self.queue.append(DiffusionJob(self._rid, prompt,
+                                       time.perf_counter()))
+        return self._rid
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue) + sum(j is not None for j in self.active)
+
+    def _init_latent(self, prompt: str) -> np.ndarray:
+        rng = np.random.default_rng(_seed_of(prompt))
+        return rng.standard_normal((self.hw, self.hw)).astype(np.float32)
+
+    def step(self) -> List[DiffusionJob]:
+        done: List[DiffusionJob] = []
+        while self.queue and None in self.active:
+            slot = self.active.index(None)
+            job = self.queue.popleft()
+            job.slot = slot
+            self.latents[slot] = torch.from_numpy(
+                self._init_latent(job.prompt)).to(self.device)
+            self.t_idx[slot] = 0
+            self.active[slot] = job
+            self.m.prompts_in += 1
+        live = [i for i, j in enumerate(self.active) if j is not None]
+        if not live:
+            return done
+        self.latents = self._denoise(
+            self.latents, torch.as_tensor(self.t_idx, device=self.device))
+        now = time.perf_counter()
+        self.decode_steps += 1
+        self.slot_steps += len(live)
+        self.m.tokens_out += len(live)
+        for i in live:
+            job = self.active[i]
+            job.steps_done += 1
+            self.t_idx[i] += 1
+            if job.t_first == 0.0:
+                job.t_first = now
+            if job.steps_done >= self.steps:
+                job.t_done = now
+                lat = self.latents[i].cpu().numpy()
+                span = float(lat.max() - lat.min()) or 1.0
+                job.image = np.clip((lat - lat.min()) / span * 255.0,
+                                    0, 255).astype(np.uint8)
+                self.active[i] = None
+                self.t_idx[i] = 0
+                done.append(job)
+        return done
+
+    def result(self, job: DiffusionJob) -> dict:
+        sig = hashlib.blake2s(job.image.tobytes(),
+                              digest_size=4).hexdigest()
+        return {
+            "content": (f"[{self.m.arch}] image {self.hw}x{self.hw} "
+                        f"steps={job.steps_done} sig={sig}"),
+            "image": {"hw": self.hw, "sig": sig,
+                      "data": job.image.flatten().tolist()},
+            "tokens": [],
+            "ttft_ms": job.ttft_ms,
+            "tpot_ms": job.tpot_ms,
+            "service_ms": (job.t_done - job.t_submit) * 1e3,
+            "lane": self.modality,
+        }
+
+    @property
+    def occupancy(self) -> float:
+        return self.slot_steps / max(1, self.decode_steps)
+
+    def warmup(self):
+        t0 = time.perf_counter()
+        self.submit("warmup")
+        while self.pending:
+            self.step()
+        self.m.warmup_ms = (time.perf_counter() - t0) * 1e3
+        self.m.tokens_out = self.m.prompts_in = 0
+        self.decode_steps = self.slot_steps = 0
 
 
 # ---------------------------------------------------------------------------
@@ -434,12 +615,17 @@ class LocalFleet:
         for arch in archs:
             self.add_member(arch, warmup=warmup)
 
-    def _build_lane(self, arch: str) -> Tuple[FleetMember, BackendLane]:
+    def _build_lane(self, arch: str) -> Tuple[object, BackendLane]:
         """Construct one member + lane (params init, serving steps, paged
         pool sizing).  Pure build — no registration, no warmup."""
         b = self._build
         batch, max_seq = b["batch"], b["max_seq"]
         block_tokens, kv_blocks = b["block_tokens"], b["kv_blocks"]
+        if arch in DIFFUSION_ARCHS:
+            member: object = DiffusionMember(arch, batch=batch)
+            lane: BackendLane = DiffusionLane(member, device=self.device,
+                                              **DIFFUSION_ARCHS[arch])
+            return member, lane
         cfg = get_reduced(arch) if b["reduced"] else get_config(arch)
         if b["arch_overrides"].get(arch):
             cfg = _apply_arch_overrides(cfg, b["arch_overrides"][arch])
@@ -532,7 +718,8 @@ class LocalFleet:
                 return False
             self.members[arch] = member
             self.lanes[arch] = lane
-            self.schedulers[arch] = lane.sched
+            if isinstance(lane, ARLane):
+                self.schedulers[arch] = lane.sched
             self._step_locks[arch] = threading.Lock()
         return True
 
@@ -549,6 +736,9 @@ class LocalFleet:
             self._step_locks.pop(arch, None)
         return True
 
+    def modality_of(self, arch: str) -> str:
+        return self.lanes[arch].modality
+
     def _make_scheduler(self, m: FleetMember) -> DecodeScheduler:
         init_cache = lambda b, cfg=m.cfg: MD.init_paged_cache(
             cfg, m.batch, m.max_seq, m.num_blocks, m.block_tokens,
@@ -562,8 +752,8 @@ class LocalFleet:
     def generate(self, arch: str, prompts: List[str],
                  max_new: Optional[int] = None, priority: int = 0,
                  slo: str = "") -> List[dict]:
-        """Greedy generation via the arch's lane.  Any number of prompts
-        is accepted: overflow beyond the slot count is queued and admitted
+        """Greedy generation (or image synthesis) via the arch's lane.  Any
+        number of prompts is accepted: overflow beyond the slot count is queued and admitted
         as slots free."""
         with self._lock:
             self.members[arch].calls += 1
@@ -656,7 +846,10 @@ class LocalFleet:
             return model, arch, prompt, prio, slo
 
         def _wrap(model, prompt, out):
-            return {"choices": [{"message": {"content": out["content"]},
+            message = {"content": out["content"]}
+            if "image" in out:
+                message["image"] = out["image"]
+            return {"choices": [{"message": message,
                                  "finish_reason": "stop"}],
                     "model": model,
                     "usage": {"prompt_tokens": len(prompt) // 4,

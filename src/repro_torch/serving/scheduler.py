@@ -46,8 +46,12 @@ the output identical to plain decode (``DecodeScheduler._decode_spec``).
 
 Host state (positions, tables, last tokens) lives in numpy; each step
 copies positions (int32) and tables (int32, the kernels' index type) to
-the device.  The contiguous cache and the overload probes (TTFT EWMA,
-queue depth) are later slices of the port.
+the device.  The overload detector's probes are the reference's:
+``queue_depth`` (queued, prefilling and prefilled-waiting requests),
+``ttft_ewma`` / ``ttft_samples`` (noted where a request's first token is
+stamped) and ``ttft_probe_ms`` (the EWMA floored by
+``PrefillWorker.oldest_wait_s``).  The contiguous cache is a later slice
+of the port.
 """
 
 from __future__ import annotations
@@ -185,6 +189,19 @@ class PrefillWorker:
         """Requests prefilling or prefilled but not yet decoding."""
         return (1 if self.current is not None else 0) + len(self.ready)
 
+    def oldest_wait_s(self, now: float) -> float:
+        """Age of the oldest request that has not produced a first token
+        (queued, mid-prefill, or parked awaiting resume)."""
+        oldest = 0.0
+        for seq in self.sched.queue:
+            oldest = max(oldest, now - seq.t_submit)
+        if self.current is not None:
+            oldest = max(oldest, now - self.current.seq.t_submit)
+        for job in self.ready:
+            if job.seq.t_first == 0.0:
+                oldest = max(oldest, now - job.seq.t_submit)
+        return oldest
+
     # -- one unit of prefill work -------------------------------------------
 
     def step(self) -> bool:
@@ -295,6 +312,7 @@ class PrefillWorker:
         seq = job.seq
         if seq.t_first == 0.0:       # resumes keep their original TTFT
             seq.t_first = time.perf_counter()
+            s._note_ttft(seq.ttft_ms)
         seq.out.append(job.first)
         # KV for every full prompt block is now written: make the blocks
         # discoverable for prefix matching
@@ -498,6 +516,8 @@ class DecodeScheduler:
         self.prefill_tokens = 0          # prompt tokens actually prefilled
         self.cached_tokens = 0           # prompt tokens served from cache
         self.preempted = 0               # rows parked by priority preemption
+        self.ttft_ewma = 0.0             # EWMA TTFT ms (overload detector)
+        self.ttft_samples = 0            # EWMA sample count (0 == no data)
         # speculative decoding
         self.drafter: Optional[DraftWorker] = None
         self.spec_enabled = True
@@ -550,6 +570,29 @@ class DecodeScheduler:
     def pending(self) -> int:
         return len(self.queue) + self.prefill.backlog + \
             sum(s is not None for s in self.active)
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests not yet decoding (queued, prefilling, or awaiting a
+        slot) — the overload detector's queue-pressure input."""
+        return len(self.queue) + self.prefill.backlog
+
+    @property
+    def ttft_probe_ms(self) -> float:
+        """TTFT as the overload detector should see it: the served EWMA,
+        floored by the age of the oldest request still WAITING for its
+        first token — a prefill-induced stall (or a parked resume) is
+        visible the moment it happens instead of only after the stalled
+        request finally finishes."""
+        waiting = self.prefill.oldest_wait_s(time.perf_counter()) * 1e3
+        return max(self.ttft_ewma, waiting)
+
+    def _note_ttft(self, ms: float):
+        # counter, not an ``== 0.0`` sentinel: a genuinely-zero sample
+        # must not reset the average
+        self.ttft_ewma = ms if self.ttft_samples == 0 else \
+            0.8 * self.ttft_ewma + 0.2 * ms
+        self.ttft_samples += 1
 
     def step(self) -> List[SequenceState]:
         """Advance the lane: bind ready prefills into free slots, run the

@@ -593,6 +593,69 @@ def test_reduced_spec_fleet_on_card_equals_cpu(cuda, arch, layers):
     assert outs["cuda"] == outs["cpu"]
 
 
+def _preempt_roundtrip(fleet, arch):
+    """``tests/test_qos.py``'s round trip: three low-priority rows fill the
+    slots, a priority-100 arrival parks one; returns (uninterrupted
+    tokens, resumed tokens, VIP tokens)."""
+    lane, sched = fleet.lanes[arch], fleet.schedulers[arch]
+    victims = [f"background analysis over corpus {i} with clauses {i}"
+               for i in range(3)]
+    ref = [o["tokens"] for o in fleet.generate(arch, victims, max_new=6)]
+    pre0 = sched.preempted
+    rids = [lane.submit(p, max_new=6, priority=0, slo="batch")
+            for p in victims]
+    lane.step()
+    lane.step()
+    hi = lane.submit("urgent vip request", max_new=2, priority=100,
+                     slo="premium")
+    done = {s.rid: list(s.out) for s in sched.drain()}
+    assert sched.preempted == pre0 + 1
+    assert sched.pool.live_refs() == 0
+    return ref, [done[r] for r in rids], done[hi]
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-236b"])
+def test_reduced_preemption_roundtrip_on_card_equals_cpu(cuda, arch):
+    """Park/resume on a reduced float32 fleet with the decode kernel on
+    the card (kernel 2 or 4): the parked victim resumes with its
+    uninterrupted tokens, and every token equals the CPU fleet's."""
+    from repro_torch.serving.fleet import LocalFleet
+    kernel = paged_flash_decode_mla if arch == "deepseek-v2-236b" \
+        else paged_flash_decode
+    ov = {"dtype": "float32"}
+    if arch == "smollm-360m":
+        ov["attn_impl"] = "pallas"
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        f = LocalFleet([arch], batch=3, gen_tokens=6, warmup=False,
+                       decode_impl="flash_paged", arch_overrides={arch: ov},
+                       device=dev)
+        before = kernel.launches
+        outs[dev] = _preempt_roundtrip(f, arch)
+        ref, got, vip = outs[dev]
+        assert got == ref and len(vip) == 2
+        if dev == "cuda":
+            assert kernel.launches > before
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_image_lane_on_card_equals_cpu(cuda):
+    """The sd-tiny denoiser in torch ops on the card gives the CPU's image
+    payloads (elementwise float32: the same bits), and a served image
+    comes back through the router transport."""
+    from repro_torch.serving.fleet import LocalFleet
+    prompts = ["Draw an illustration of a fox in a forest",
+               "Generate an image of a sailboat logo", "a red fox",
+               "blue mountain", "late arrival"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        f = LocalFleet(["sd-tiny"], batch=2, device=dev)
+        assert f.lanes["sd-tiny"].latents.device.type == dev
+        outs[dev] = [o["image"] for o in f.generate("sd-tiny", prompts)]
+    assert outs["cuda"] == outs["cpu"]
+    assert all(len(o["data"]) == 64 for o in outs["cuda"])
+
+
 # ---------------------------------------------------------------------------
 # contiguous-cache decode and multi-adapter LoRA (kernel 6)
 # ---------------------------------------------------------------------------

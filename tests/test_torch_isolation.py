@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` and no line of
 ``chip_smoke.py`` or ``tests/test_torch_cuda.py`` imports JAX or the JAX
 package, and serving a request — plain and speculative — extracting a
-batch's signals and deciding on them, and routing a batch through
-``SemanticRouter.route_batch`` into a reduced fleet loads neither."""
+batch's signals and deciding on them, routing a batch through
+``SemanticRouter.route_batch`` into a reduced fleet, and serving a text and
+an image request through ``AsyncFrontend`` loads neither."""
 
 import ast
 import os
@@ -106,6 +107,22 @@ def test_serving_a_request_loads_no_jax():
         "assert all(r.finish_reason == 'stop' for r, _ in pairs)\n"
         "assert pairs[2][1].fast_response is not None\n"
         "assert sum(m.tokens_out for m in fleet.members.values()) == 6\n"
+        "from repro_torch.serving.frontend import AsyncFrontend\n"
+        "router, fleet = build_router(gen_tokens=2, device='cpu', batch=2, "
+        "lanes=('text', 'image'), warmup=False)\n"
+        "fe = AsyncFrontend(router, window_ms=5.0)\n"
+        "router.overload.attach_frontend(fe)\n"
+        "resp, out = fe.submit(Request([Message('user', 'Debug this python "
+        "function')])).result(timeout=120)\n"
+        "assert out.model == 'qwen3' and resp.usage['completion_tokens'] == "
+        "2, (out, resp)\n"
+        "resp, out = fe.submit(Request([Message('user', 'Draw an "
+        "illustration of a fox in a forest')])).result(timeout=120)\n"
+        "fe.close()\n"
+        "router.close()\n"
+        "assert out.model == 'sd' and resp.usage['vsr_lane'] == 'image', "
+        "(out, resp)\n"
+        "assert fe.stats.requests == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")
