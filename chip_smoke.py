@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero before the result line:
    chunks of positions, each position still == decode bitwise.
    Kernels 1 and 2 also at the router fleet's other GQA shapes: qwen3-1.7b
    (16/8 heads) and glm4-9b (32/2, G = 16), hd 128, prefill at S = 479
-   (causal, and lens + window) and decode over the fleet's table.
+   (causal, and lens + window) and decode over the fleet's table; kernel 1
+   also at the whisper encoder's bidirectional shape (S 1500, 6/6 heads of
+   64) and jamba's attention (32/8 heads of 128, causal, S 479).
    The multi-adapter LoRA kernel at the encoder path's shape (5 tasks x 12
    texts x 512 tokens, rows sorted by task), at sorted runs of 1, 127, 129
    and 257 rows (across its 128-row tile edges), at
@@ -71,7 +73,19 @@ Phases, in order; any failure exits non-zero before the result line:
 8. mla_fleet: the same cut model served through ``batch_call`` (the same
    12 requests, MLA kernel on, launches counted), the profiler batch, and
    a reduced float32 deepseek fleet on the card against the CPU.
-9. router: ``SemanticRouter.route_batch`` end to end, built by
+9. contig: the contiguous (slot-row) cache at full width.  smollm-360m
+   served from ``paged=False`` and from ``paged=True`` with ``xla`` and
+   ``flash_paged`` decode, the 12 requests each (kernel 1 on the prefill):
+   the 7 requests without the shared system prompt give identical tokens
+   on the contiguous and the paged ``xla`` fleets, bit for bit; every
+   other divergence must be a near-tie.  xlstm-350m at full width and
+   depth (mLSTM + sLSTM, exact prefill widths, no kernel); jamba-v0.1-52b
+   at every width cut to one period of its four (8 of 32 layers: 1
+   attention with kernel 1, 7 mamba, 4 MoE of 16 experts; ~13.3 B
+   parameters).  Each prints TTFT / TPOT p50, the profiler batch's busy
+   share and peak memory.  Then reduced float32 contiguous smollm, jamba
+   and xlstm fleets on the card against the CPU, token for token.
+10. router: ``SemanticRouter.route_batch`` end to end, built by
    ``repro_torch.launch.serve.build_router`` at full width: its demo DSL
    as the default policy (lint strict), the ``cost`` and ``privacy``
    tenants from ``examples/policies``, one bf16 fleet of smollm-360m,
@@ -92,8 +106,9 @@ Phases, in order; any failure exits non-zero before the result line:
    the card's busy share over a batch and over its non-dispatch stages,
    and ``max_memory_allocated``; then a reduced float32 router and fleet
    of the four archs on the card against the CPU (decisions, models and
-   tokens equal).  When ``qos`` runs too, the router and fleet stay for it.
-10. qos: SLO admission, shedding, degradation and preemption on the router
+   tokens equal).  When ``qos`` or ``audio`` runs too, the router and
+   fleet stay for it.
+11. qos: SLO admission, shedding, degradation and preemption on the router
    phase's full-width router and fleet (built here when that phase did not
    run), launch counts zeroed just before: the ``qos`` tenant (the
    reference's ``benchmarks/t_slo_burst.py`` policy on the router's model
@@ -122,10 +137,24 @@ Phases, in order; any failure exits non-zero before the result line:
    image-lane answers with an 8 x 8 uint8 payload, ``sig`` == the CPU
    lane's.  Last, a reduced float32 QoS router and fleet (smollm-360m,
    deepseek-v2) with the detector forced ok / busy / overload on the card
-   against the CPU: equal decisions, sheds, degrades and tokens.
-11. times: kernel, plain version and one PyTorch library call at the
+   against the CPU: equal decisions, sheds, degrades and tokens.  When
+   ``audio`` runs too, the router and fleet stay for it.
+12. audio: whisper-tiny at full width (4 + 4 layers, d 384, 1500 stub
+   frames, ``attn_impl="pallas"``) joins the router phase's fleet (with
+   sd-tiny if qos did not add it; both built here when neither ran), and
+   one ``route_batch`` of 10 requests (4 text, serve.py's 2 image and 4
+   audio ones) runs through a router on ``build_dsl(("text", "image",
+   "audio"))`` over that fleet, launch counts zeroed just before: every
+   audio request comes back from the audio lane with a transcript, the
+   transcripts differ by payload, kernel 1 ran at the encoder's shape
+   (1, 1500, 6, 64) once per encoder layer and audio request.  One more
+   batch under the profiler, then a reduced float32 whisper fleet on the
+   card against the CPU.
+13. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
-   run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 and
+   run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 (and
+   at the whisper encoder's bidirectional 1500 frames and jamba's 32/8
+   heads of 128, log lines) and
    the contiguous ``flash_decode`` at the fleet's decode shape and at
    DECODE_CASES, kernels 2-5 also at the wide table (log lines beside
    the rows), kernels 1 and 2 also at the qwen3-1.7b and glm4-9b shapes
@@ -174,7 +203,7 @@ W_SPEC = 5                                # verify width: pending token + k = 4
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
-          "mla_fleet", "router", "qos", "times")
+          "mla_fleet", "contig", "router", "qos", "audio", "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -240,8 +269,9 @@ def _rand(shape, dtype, gen):
 
 def flash_cases(dtype, gen):
     """(label, q, k, v, lens, causal, window) at the fleet's prefill
-    shapes: B=1, Hq=15, Hkv=5, hd=64, causal, S in the width buckets; plus
-    one lens + window case in which every query row sees a key."""
+    shapes: B=1, Hq=15, Hkv=5, hd=64, causal, S in the width buckets; one
+    lens + window case in which every query row sees a key; the whisper
+    encoder's and jamba's attention shapes."""
     import torch
     cases = []
     for S in (16, 64, PROMPT_CAP):
@@ -253,6 +283,18 @@ def flash_cases(dtype, gen):
     cases.append((f"lens+window S={S}", _rand((2, S, 15, 64), dtype, gen),
                   _rand((2, S, 5, 64), dtype, gen),
                   _rand((2, S, 5, 64), dtype, gen), lens, True, 256))
+    # the whisper encoder's bidirectional self-attention (1500 frames, 6/6
+    # heads of 64) and jamba's attention layer (32/8 heads of 128, causal)
+    B, S, H, hd = ENC_SHAPE
+    cases.append((f"whisper encoder bidirectional S={S}",
+                   _rand((B, S, H, hd), dtype, gen),
+                   _rand((B, S, H, hd), dtype, gen),
+                   _rand((B, S, H, hd), dtype, gen), None, False, 0))
+    S = PROMPT_CAP
+    cases.append((f"jamba 32/8 hd 128 causal S={S}",
+                   _rand((1, S, 32, 128), dtype, gen),
+                   _rand((1, S, 8, 128), dtype, gen),
+                   _rand((1, S, 8, 128), dtype, gen), None, True, 0))
     return cases
 
 
@@ -1001,9 +1043,10 @@ def profile_fleet(fleet, prompts, arch=ARCH, max_new=8):
 def served_batch(label, fleet, arch, kernels, card):
     """The 12 requests through ``batch_call`` with ``kernels`` (name ->
     wrapper) counted from zero just before and read just after.  Logs
-    answers, launches, pool and latency numbers and checks 12 answers of
-    32 tokens, every kernel launched and a clean pool.  Returns (launch
-    counts, tokens per request, prompt ids per request)."""
+    answers, launches, pool (paged members) and latency numbers and checks
+    12 answers of 32 tokens and, on a paged member, a clean pool and the
+    prefix-hit path.  Returns (launch counts, tokens per request, prompt
+    ids per request)."""
     import torch
     call = fleet.call_fn({arch: arch})
     reqs = payloads(arch)
@@ -1023,11 +1066,13 @@ def served_batch(label, fleet, arch, kernels, card):
     ttft = [a["usage"]["vsr_ttft_ms"] for a in answers]
     tpot = [(a["usage"]["vsr_service_ms"] - a["usage"]["vsr_ttft_ms"])
             / max(1, n - 1) for a, n in zip(answers, ntok)]
-    stats = sched.pool.stats
+    cache = "contiguous cache"
+    if sched.paged:
+        stats = sched.pool.stats
+        cache = (f"live_refs {sched.pool.live_refs()}, cached_tokens "
+                 f"{stats.cached_tokens}, cow_copies {stats.cow_copies}")
     log(f"{label}: {len(answers)} answers, tokens each {sorted(set(ntok))}, "
-        f"launches {json.dumps(counts)}, live_refs "
-        f"{sched.pool.live_refs()}, cached_tokens {stats.cached_tokens}, "
-        f"cow_copies {stats.cow_copies}, prefill calls "
+        f"launches {json.dumps(counts)}, {cache}, prefill calls "
         f"{sched.prefill.prefills}, decode steps {sched.decode_steps}, "
         f"occupancy {sched.occupancy:.2f}")
     log(f"{label}: wall {wall * 1e3:.1f} ms, decode tokens/s "
@@ -1038,9 +1083,12 @@ def served_batch(label, fleet, arch, kernels, card):
           f"{label}: expected 12 answers of {GEN} tokens, got {ntok}")
     check([len(s.out) for s in seqs] == ntok,
           f"{label}: results table out of step with the answers")
-    check(sched.pool.live_refs() == 0, f"{label}: blocks leaked after drain")
-    check(stats.cached_tokens > 0 and stats.cow_copies > 0,
-          f"{label}: the prefix-hit suffix prefill / COW copy did not run")
+    if sched.paged:
+        check(sched.pool.live_refs() == 0,
+              f"{label}: blocks leaked after drain")
+        check(stats.cached_tokens > 0 and stats.cow_copies > 0,
+              f"{label}: the prefix-hit suffix prefill / COW copy did not "
+              f"run")
     return counts, [list(s.out) for s in seqs], [s.ids for s in seqs]
 
 
@@ -1050,12 +1098,14 @@ def prompts_of(arch=ARCH):
 
 
 def reduced_card_vs_cpu(label, arch, overrides, card_kernels=None,
-                        speculative=None, per_round=None):
+                        speculative=None, per_round=None, paged="auto"):
     """Small input against the reference path: a reduced float32 fleet with
     the kernels on the card (speculative when ``speculative`` is given)
     vs the plain fleet on the CPU, token for token.  ``card_kernels``
     (name -> wrapper) are counted on the card run; each must launch, and
-    ``per_round`` times the speculative rounds when given."""
+    ``per_round`` times the speculative rounds when given.  ``paged`` as
+    ``LocalFleet``'s (SSM and cross-attention members are contiguous
+    under "auto")."""
     from repro_torch.serving.fleet import LocalFleet
     ov = {arch: dict(overrides, dtype="float32")}
     prompts = prompts_of(arch)
@@ -1063,7 +1113,7 @@ def reduced_card_vs_cpu(label, arch, overrides, card_kernels=None,
     for dev, spec in (("cuda", speculative), ("cpu", None)):
         small = LocalFleet([arch], batch=4, gen_tokens=8, warmup=False,
                            decode_impl="flash_paged", arch_overrides=ov,
-                           speculative=spec, device=dev)
+                           speculative=spec, paged=paged, device=dev)
         for fn in (card_kernels or {}).values():
             fn.launches = 0
         outs[dev] = [o["tokens"] for o in small.generate(arch, prompts)]
@@ -1071,9 +1121,12 @@ def reduced_card_vs_cpu(label, arch, overrides, card_kernels=None,
         if dev == "cuda":
             counts = {n: fn.launches for n, fn in (card_kernels or {}).items()}
             spec_rounds = sched.spec_rounds
-        check(sched.pool.live_refs() == 0, f"{label}: reduced fleet leaked")
+        if sched.paged:
+            check(sched.pool.live_refs() == 0,
+                  f"{label}: reduced fleet leaked")
     same = outs["cuda"] == outs["cpu"]
-    what = "speculative " if speculative is not None else ""
+    what = "speculative " if speculative is not None else \
+        "" if sched.paged else "contiguous "
     log(f"{label}: reduced float32 {what}fleet, card kernels vs CPU plain "
         f"path: tokens identical for {len(prompts)} prompts: {same}"
         + (f"; card launches {json.dumps(counts)}, spec rounds "
@@ -1527,7 +1580,157 @@ def phase_mla_fleet(launches, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the router — route_batch over four full-width members
+# phase 9: contig — the contiguous cache and the SSM members
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-v0.1-52b"
+XLSTM = "xlstm-350m"
+# payloads() indices whose prompt opens with the shared system prompt: a
+# paged fleet prefills their suffix over the gathered view, a contiguous
+# one the whole prompt, so only these may differ (by a near-tie)
+SHARED_PAYLOADS = (0, 2, 4, 6, 9)
+
+
+def jamba_cut_groups():
+    """jamba-v0.1-52b cut to one period of its four: 8 of its 32 layers
+    (attention at index 4, mamba elsewhere; the 16-expert MoE FFN on the
+    odd indices, dense on the even), every width kept (~13.3 B
+    parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import LayerGroup
+    return (LayerGroup(get_config(JAMBA).groups[0].period, 1),)
+
+
+def contig_fleet(label, arch, overrides, kernels, card, profile=(BATCH, 8),
+                 **kw):
+    """One full-width fleet of ``arch`` (``kw`` to ``LocalFleet``): the 12
+    requests through ``served_batch``, then the profiler batch
+    (``profile`` = (requests, tokens); None skips it: the profiler's
+    processing grows with the events, ~100 s for xlstm's 8 x 8) and the
+    peak memory since the build.  Returns (launch counts, tokens, prompt
+    ids, member)."""
+    import torch
+    from repro_torch.serving.fleet import LocalFleet
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fleet = LocalFleet([arch], reduced=False, batch=BATCH, max_seq=MAX_SEQ,
+                       gen_tokens=GEN, arch_overrides={arch: overrides}, **kw)
+    m = fleet.members[arch]
+    n_params = sum(p.numel() for p in m.params.parameters())
+    log(f"{label}: {len(m.params.blocks)} layers, {n_params / 1e9:.3f} B "
+        f"parameters, {'paged' if m.paged else 'contiguous'} cache, "
+        f"decode_impl {m.cfg.decode_impl}, attn_impl {m.cfg.attn_impl}, "
+        f"exact prefill {m.exact_prefill}; built + warmed up in "
+        f"{time.perf_counter() - t0:.1f} s (warmup {m.warmup_ms:.0f} ms)")
+    counts, toks, ids = served_batch(label, fleet, arch, kernels, card)
+    if profile is not None:
+        n, new = profile
+        profile_run(f"{label}: profile: {n} requests x {new} tokens",
+                    lambda: fleet.generate(arch, prompts_of(arch)[:n],
+                                           max_new=new))
+    log(f"{label}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return counts, toks, ids, m
+
+
+def phase_contig(card, ctx):
+    """The contiguous cache at full width: smollm-360m on ``paged=False``
+    against ``paged=True`` (``xla`` and ``flash_paged`` decode) on the same
+    12 requests; xlstm-350m at full width and depth; jamba cut to one
+    period; then reduced float32 contiguous smollm, jamba and xlstm fleets
+    on the card against the CPU."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    label = "contig"
+    t_phase = time.perf_counter()
+    kernels = {"flash_attention": flash_attention,
+               "paged_flash_decode": paged_flash_decode}
+    runs, base = {}, None
+    for name, kw in (("contiguous", dict(paged=False)),
+                     ("paged xla", dict(paged=True, decode_impl="xla")),
+                     ("paged flash_paged",
+                      dict(paged=True, decode_impl="flash_paged"))):
+        # the paged fleets were profiled in the fleet phase
+        counts, toks, ids, m = contig_fleet(
+            f"{label} {ARCH} {name}", ARCH, {"attn_impl": "pallas"},
+            kernels, card, profile=(BATCH, 8) if name == "contiguous"
+            else None, **kw)
+        runs[name] = (toks, ids)
+        layers = len(m.params.blocks)
+        if name == "contiguous":
+            base = m            # its weights recompute any divergence
+            check(counts["flash_attention"] == layers * 12 and
+                  counts["paged_flash_decode"] == 0,
+                  f"{label}: contiguous launches {counts} != {layers} "
+                  f"layers x 12 prefills of kernel 1 and no kernel 2")
+            ctx["contig launches"] = counts
+        check((counts["paged_flash_decode"] > 0) ==
+              (name == "paged flash_paged"),
+              f"{label} {name}: kernel 2 launches {counts}")
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    base_toks, base_ids = runs["contiguous"]
+    err = ctx.get(f"{ARCH} bfloat16 verify err", MODEL_TOL["bfloat16"])
+    for name in ("paged xla", "paged flash_paged"):
+        toks, ids = runs[name]
+        check([list(i) for i in ids] == [list(i) for i in base_ids],
+              f"{label}: prompts differ between the fleets")
+        same = [a == b for a, b in zip(base_toks, toks)]
+        log(f"{label}: {ARCH} contiguous vs {name}: tokens identical for "
+            f"{sum(same)}/{len(same)} requests (without a shared prefix: "
+            f"{sum(s for i, s in enumerate(same) if i not in SHARED_PAYLOADS)}"
+            f"/{len(same) - len(SHARED_PAYLOADS)})")
+        for i, (a, b) in enumerate(zip(base_toks, toks)):
+            if a == b:
+                continue
+            check(name != "paged xla" or i in SHARED_PAYLOADS,
+                  f"{label}: request {i} has no shared prefix, yet its "
+                  f"tokens differ between the contiguous and the paged xla "
+                  f"fleet (paged == contiguous must hold bitwise there)")
+            j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+            near_tie(f"{label} {name} request {i}", base.params, base.cfg,
+                     ids[i], a[:j], a[j], b[j], err)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks = {"smollm": time.perf_counter()}
+    counts, *_ = contig_fleet(f"{label} {XLSTM}", XLSTM, {}, kernels, card,
+                              profile=(2, 4))
+    check(not any(counts.values()), f"{label}: xlstm launched {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["xlstm"] = time.perf_counter()
+    counts, _, ids, m = contig_fleet(
+        f"{label} {JAMBA}", JAMBA,
+        {"groups": jamba_cut_groups(), "attn_impl": "pallas"}, kernels, card)
+    check(counts["flash_attention"] == 12 and
+          counts["paged_flash_decode"] == 0,
+          f"{label}: jamba launches {counts} != one attention layer x 12 "
+          f"exact-width prefills of kernel 1")
+    ctx["jamba launches"] = counts["flash_attention"]
+    ctx["jamba widths"] = sorted({len(i) for i in ids})
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["jamba"] = time.perf_counter()
+    reduced_card_vs_cpu(f"{label} {ARCH}", ARCH, {"attn_impl": "pallas"},
+                        {"flash_attention": flash_attention}, paged=False)
+    reduced_card_vs_cpu(f"{label} {JAMBA}", JAMBA, {"attn_impl": "pallas"},
+                        {"flash_attention": flash_attention})
+    reduced_card_vs_cpu(f"{label} {XLSTM}", XLSTM, {})
+    marks["reduced"] = time.perf_counter()
+    prev, secs = t_phase, {}
+    for k, t in marks.items():
+        secs[k] = round(t - prev, 1)
+        prev = t
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s, seconds per "
+        f"part {json.dumps(secs)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the router — route_batch over four full-width members
 # ---------------------------------------------------------------------------
 
 ROUTER_TENANTS = ("cost", "privacy")
@@ -1945,7 +2148,7 @@ def phase_router(launches, card, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: QoS — SLO admission, shedding, degradation and preemption
+# phase 11: QoS — SLO admission, shedding, degradation and preemption
 # ---------------------------------------------------------------------------
 
 # the QoS tenant, on the reference's benchmarks/t_slo_burst.py policy with
@@ -2528,7 +2731,13 @@ def phase_qos(card, ctx):
             f"VIP TTFT ms preempt / FIFO "
             f"{json.dumps({a: [round(p, 2), round(f, 2)] for a, (f, p) in ttft.items()})}"
             f" [{card}]")
-    finally:
+    except BaseException:
+        router.close()
+        raise
+    if ctx.pop("keep router after qos", False):
+        # the audio phase adds whisper-tiny to this fleet
+        ctx["router"] = (router, fleet, encoder)
+    else:
         router.close()
     del router, fleet, encoder
     gc.collect()
@@ -2544,7 +2753,190 @@ def phase_qos(card, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 12: audio — whisper-tiny joins the router's fleet
+# ---------------------------------------------------------------------------
+
+AUD = "whisper-tiny"
+# the encoder's bidirectional attention: one batch-1 launch per encoder
+# layer over the 1500 stub frames, 6/6 heads of 64
+ENC_SHAPE = (1, 1500, 6, 64)
+
+
+def audio_texts():
+    """serve.py's two audio demo requests and two more audio payloads."""
+    from repro_torch.launch import serve
+    return list(serve.LANE_DEMO_REQUESTS["audio"]) + [
+        "Transcribe the audio of the quarterly earnings call",
+        "Please transcribe this speech from the keynote"]
+
+
+def phase_audio(card, ctx):
+    """The audio lane at full width inside the router's fleet: whisper-tiny
+    (4 + 4 layers, d 384, 1500 frames, ``attn_impl="pallas"``) joins the
+    router phase's fleet (``add_member``, with sd-tiny when the qos phase
+    did not add it), and one ``route_batch`` of mixed text, image and
+    audio requests runs through a router on ``build_dsl(("text",
+    "image", "audio"))`` over that fleet (``t_multimodal_fleet.py``'s
+    measurement 1); launch counts zeroed just before.  Every audio request
+    comes back from the audio lane with a transcript, transcripts differ
+    by payload, and kernel 1 ran at the encoder's shape once per encoder
+    layer and audio request.  One more batch under the profiler; then a
+    reduced float32 whisper fleet on the card against the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.classifiers.encoder import (MODERNBERT_BASE_32K,
+                                                 EncoderBackend)
+    from repro_torch.core.dsl import compile_source
+    from repro_torch.core.router import SemanticRouter
+    from repro_torch.core.types import Message, Request
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MD
+    label = "audio"
+    t_phase = time.perf_counter()
+    if "router" in ctx:
+        router, fleet, encoder = ctx.pop("router")
+        log(f"{label}: the router phase's full-width router and fleet")
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(MODERNBERT_BASE_32K, max_len=ENC_MAX_LEN)
+        encoder = EncoderBackend(cfg, *router_encoder_weights(cfg, "cuda", 0),
+                                 trained=set(ROUTER_TASKS))
+        router, fleet = build_demo_router(
+            ROUTER_ENCODER, encoder, reduced=False, gen_tokens=GEN,
+            device="cuda", batch=BATCH, max_seq=MAX_SEQ)
+        log(f"{label}: full-width router and fleet built and warmed up in "
+            f"{time.perf_counter() - t0:.1f} s")
+    real = MD.flash_attention
+    shapes = []
+
+    def spy(q, *args, **kw):
+        # records the shape of every kernel 1 call the model makes; the
+        # wrapper itself counts the launches
+        shapes.append(tuple(q.shape))
+        return real(q, *args, **kw)
+
+    rt = None
+    try:
+        t0 = time.perf_counter()
+        # the fleet's build options give the new member the CUDA prefill
+        # kernel, as serve.fleet_overrides does for a router with audio
+        fleet._build["arch_overrides"][AUD] = {"attn_impl": "pallas"}
+        check(fleet.add_member(AUD), f"{label}: {AUD} was already there")
+        if "sd-tiny" not in fleet.members:
+            fleet.add_member("sd-tiny")
+        m = fleet.members[AUD]
+        log(f"{label}: {AUD} added in {time.perf_counter() - t0:.2f} s "
+            f"(warmup {m.warmup_ms:.0f} ms): "
+            f"{len(m.params.enc_blocks)} + {len(m.params.blocks) // 2} "
+            f"layers, d {m.cfg.d_model}, {m.cfg.cross_ctx_len} frames, "
+            f"{sum(p.numel() for p in m.params.parameters()) / 1e6:.2f} M "
+            f"parameters, {'paged' if m.paged else 'contiguous'} cache, "
+            f"attn_impl {m.cfg.attn_impl}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        cfg, _ = compile_source(serve.build_dsl(("text", "image", "audio")))
+        cfg.classifier_backend = \
+            router.policies.get().config.classifier_backend
+        m2a = {n: p.arch for n, p in cfg.model_profiles.items() if p.arch}
+        call = fleet.call_fn(m2a)
+        raw = []
+
+        def batch_call(ep, payloads, headers):
+            out = call.batch_call(ep, payloads, headers)
+            raw.extend(out)
+            return out
+
+        def single(ep, payload, headers):
+            return batch_call(ep, [payload], [headers])[0]
+
+        single.batch_call = batch_call
+        rt = SemanticRouter(cfg, call_fn=single, device=fleet.device)
+        audio = audio_texts()
+        texts = (serve.DEMO_REQUESTS[1:3] + serve.DEMO_REQUESTS[6:8] +
+                 serve.LANE_DEMO_REQUESTS["image"] + audio)
+        reqs = [Request(messages=[Message("user", t)]) for t in texts]
+        wrappers = kernel_wrappers()
+        torch.cuda.synchronize()
+        MD.flash_attention = spy
+        # the main path: counts zeroed just before, read just after
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pairs = rt.route_batch(reqs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {n: fn.launches for n, fn in wrappers.items()}
+        MD.flash_attention = real
+        check(all(r.finish_reason != "error" for r, _ in pairs),
+              f"{label}: an error response: {[r.content for r, _ in pairs]}")
+        trans = {}
+        for text, (resp, out) in zip(texts, pairs):
+            lane = resp.usage.get("vsr_lane")
+            if text in audio:
+                check(out.model == "whisper" and lane == "audio",
+                      f"{label}: {text!r} went to {out.model} / lane {lane}")
+                check("transcript" in resp.content,
+                      f"{label}: no transcript in {resp.content!r}")
+                trans[text] = resp.content
+            else:
+                check(lane != "audio", f"{label}: {text!r} reached the "
+                      f"audio lane")
+        check(len(set(trans.values())) == len(audio),
+              f"{label}: transcripts do not differ by payload: {trans}")
+        n_enc = sum(sh == ENC_SHAPE for sh in shapes)
+        enc_layers = len(m.params.enc_blocks)
+        check(n_enc == enc_layers * len(audio),
+              f"{label}: kernel 1 ran {n_enc} times at the encoder's shape "
+              f"{ENC_SHAPE}, not {enc_layers} layers x {len(audio)} audio "
+              f"requests")
+        check(len(shapes) == counts["flash_attention"],
+              f"{label}: {len(shapes)} kernel 1 calls, "
+              f"{counts['flash_attention']} launches counted")
+        ctx["audio launches"] = counts
+        ctx["audio encoder launches"] = n_enc
+        ttft = [p["usage"]["vsr_ttft_ms"] for p in raw
+                if p["usage"]["vsr_lane"] == "audio"]
+        service = [p["usage"]["vsr_service_ms"] for p in raw
+                   if p["usage"]["vsr_lane"] == "audio"]
+        log(f"{label}: route_batch of {len(reqs)} ({len(audio)} audio, "
+            f"{len(serve.LANE_DEMO_REQUESTS['image'])} image) in "
+            f"{wall:.1f} ms; decisions "
+            f"{[(o.decision, o.model) for _, o in pairs]}; launches "
+            f"{json.dumps(counts)}; kernel 1 at the encoder's shape "
+            f"{n_enc} of {len(shapes)} (other shapes "
+            f"{sorted(set(sh for sh in shapes if sh != ENC_SHAPE))}); audio "
+            f"TTFT ms p50 {statistics.median(ttft):.2f}, service ms p50 "
+            f"{statistics.median(service):.2f} [{card}]")
+        for text in audio:
+            log(f"  {text[:48]!r} -> {trans[text][:72]!r}")
+        t_batch = time.perf_counter()
+        # the profiler's processing grows with the events: one batch of
+        # the audio requests alone
+        areqs = [Request(messages=[Message("user", t)]) for t in audio]
+        profile_run(f"{label}: profile: one route_batch of the {len(audio)} "
+                    f"audio requests", lambda: rt.route_batch(areqs))
+        log(f"{label}: the profiled batch took "
+            f"{time.perf_counter() - t_batch:.1f} s with its processing")
+        log(f"{label}: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    finally:
+        MD.flash_attention = real
+        if rt is not None:
+            rt.close()
+        router.close()
+    del router, fleet, encoder, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(label, AUD, {"attn_impl": "pallas"},
+                        {"flash_attention": flash_attention})
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush, reps=25, warm=3):
@@ -2590,11 +2982,12 @@ def ptxas_lines(name):
     return out
 
 
-def time_flash(arch, S, heads, gen, flush, card):
-    """Kernel 1 (bf16, B = 1, causal) at ``arch``'s (Hq, Hkv, hd) and S
-    tokens: kernel, plain version and SDPA over the repeated KV heads, and
-    the bound (q, k, v and out once; the causal half of QK^T and PV).
-    Returns (ms, plain, lib, t_ops, t_bytes)."""
+def time_flash(arch, S, heads, gen, flush, card, causal=True, note=""):
+    """Kernel 1 (bf16, B = 1) at ``arch``'s (Hq, Hkv, hd) and S tokens,
+    causal or bidirectional: kernel, plain version and SDPA over the
+    repeated KV heads, and the bound (q, k, v and out once; QK^T and PV
+    over the causal half, or every pair).  Returns (ms, plain, lib, t_ops,
+    t_bytes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
@@ -2604,23 +2997,25 @@ def time_flash(arch, S, heads, gen, flush, card):
     q = _rand((1, S, Hq, hd), dt, gen)
     k = _rand((1, S, Hkv, hd), dt, gen)
     v = _rand((1, S, Hkv, hd), dt, gen)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush)
-    plain = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), flush)
+    plain = time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
                     flush)
     G = Hq // Hkv
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), flush)
-    flops = 4 * hd * Hq * S * (S + 1) / 2
+        qt, kt, vt, is_causal=causal), flush)
+    flops = 4 * hd * Hq * (S * (S + 1) / 2 if causal else S * S)
     nbytes = (2 * S * Hq * hd + 2 * S * Hkv * hd) * q.element_size()
     t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"times flash_attention bf16 {arch} {Hq}/{Hkv} heads hd {hd} S={S}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+    log(f"times flash_attention bf16 {arch} {Hq}/{Hkv} heads hd {hd} S={S} "
+        f"{'causal' if causal else 'bidirectional'}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
         f"{max(t_ops, t_bytes):.6f} ms "
-        f"({'operations' if t_ops > t_bytes else 'bytes'}) [{card}]")
+        f"({'operations' if t_ops > t_bytes else 'bytes'}: {flops:.4e} FLOP, "
+        f"{nbytes} B){note} [{card}]")
     return ms, plain, lib, t_ops, t_bytes
 
 
@@ -2728,6 +3123,40 @@ def time_mla(label, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
     return ms, plain, lib, t_ops, t_bytes
 
 
+def time_ssm(gen, flush, card):
+    """One layer of each recurrent mixer at its config's published widths
+    (bf16, plain PyTorch: the reference scans in ``lax.scan`` and
+    ``associative_scan``, no Pallas kernel): the chunked prefill forward
+    of one row at S = 64 and 256 (one chunk each) and the decode step over
+    8 rows, median of CUDA-event runs (log lines)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.models import ssm as S
+    from repro_torch.models.config import BlockSpec
+    dt = torch.bfloat16
+    for arch, mixer in ((JAMBA, "mamba"), (XLSTM, "mlstm"), (XLSTM, "slstm")):
+        cfg = get_config(arch)
+        blk = MD.Block(cfg, BlockSpec(mixer, "none"), dt, "cuda")
+        p = getattr(blk, mixer)
+        MD._ssm_init(cfg, p, S.ssm_leaves(cfg, mixer, None), gen)
+        forward, step = S.FORWARD[mixer]
+        times = {}
+        for n in (64, 256):
+            x = _rand((1, n, cfg.d_model), dt, gen)
+            times[f"prefill S={n}"] = time_ms(
+                lambda: forward(p, cfg, x, return_state=True), flush,
+                reps=10)
+        x1 = _rand((BATCH, 1, cfg.d_model), dt, gen)
+        st = S.zero_state(cfg, mixer, BATCH, dt, "cuda")
+        times[f"decode step B={BATCH}"] = time_ms(
+            lambda: step(p, cfg, x1, st), flush)
+        log(f"times {mixer} ({arch}, d {cfg.d_model}, one layer, bf16, "
+            f"plain PyTorch): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f" [{card}]")
+
+
 def phase_times(rows, errs, launches, card, ctx):
     import torch
     import torch.nn.functional as F
@@ -2781,6 +3210,18 @@ def phase_times(rows, errs, launches, card, ctx):
         time_paged(f"paged_flash_decode {arch} {heads[0]}/{heads[1]} heads "
                    f"hd {heads[2]}", *decode_case(dt, gen, heads), flush,
                    card)
+    # kernel 1 at the whisper encoder's bidirectional shape (the audio
+    # phase's launches) and at jamba's attention layer, causal, at the
+    # longest prefill (log lines)
+    time_flash(AUD, ENC_SHAPE[1], (ENC_SHAPE[2], ENC_SHAPE[2], ENC_SHAPE[3]),
+               gen, flush, card, causal=False,
+               note=f", launches {ctx.get('audio encoder launches', 0)} in "
+                    f"the audio phase")
+    time_flash(JAMBA, PROMPT_CAP, (32, 8, 128), gen, flush, card,
+               note=f", launches {ctx.get('jamba launches', 0)} in the "
+                    f"contig phase at widths {ctx.get('jamba widths')}")
+    # the recurrent mixers' scans, which have no kernel (log lines)
+    time_ssm(gen, flush, card)
 
     # kernels 4 and 5 at deepseek's widths: decode at the MLA fleet's
     # decode shapes (phase 2's full-width rows), verify at W = 5 over the
@@ -2946,12 +3387,18 @@ def main(argv=None) -> int:
             phase_mla_model(ctx)
         if "mla_fleet" in phases:
             phase_mla_fleet(launches, card)
+        if "contig" in phases:
+            phase_contig(card, ctx)
         if "router" in phases:
-            if "qos" in phases:
+            if "qos" in phases or "audio" in phases:
                 ctx["keep router"] = True
             phase_router(launches, card, ctx)
         if "qos" in phases:
+            if "audio" in phases:
+                ctx["keep router after qos"] = True
             phase_qos(card, ctx)
+        if "audio" in phases:
+            phase_audio(card, ctx)
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
     except Failure as e:

@@ -37,28 +37,39 @@ def _block_leaves(prefix: str, tree: Mapping, r: int, state: dict) -> None:
             state[prefix + name] = _tensor(leaf[r])
 
 
-def params_from_jax(tree: Mapping) -> dict:
-    """Reference pytree -> ``Model.state_dict()``-keyed dict of float32
-    CPU tensors.  Each group's blocks map leaf for leaf (``norm1``,
-    ``attn`` or ``mla``, ``norm2``, ``ffn`` or ``moe`` with its
-    ``shared`` experts), so groups of different kinds (deepseek's dense
-    layer 0 and its MoE layers) need nothing special; the float32 router
-    stays float32."""
-    state = {"embed": _tensor(tree["embed"]),
-             "final_norm": _tensor(tree["final_norm"])}
-    if "lm_head" in tree:
-        state["lm_head"] = _tensor(tree["lm_head"])
+def _groups(tree: Mapping, prefix: str, blocks: str, state: dict) -> None:
+    """Unroll the reference's ``{prefix}{i}`` groups into ``{blocks}.{n}``
+    in the order group, repeat, period slot."""
     n = 0
     i = 0
-    while f"g{i}" in tree:
-        gp = tree[f"g{i}"]
+    while f"{prefix}{i}" in tree:
+        gp = tree[f"{prefix}{i}"]
         period = len(gp)
         repeats = np.shape(gp["b0"]["norm1"])[0]
         for r in range(repeats):
             for j in range(period):
-                _block_leaves(f"blocks.{n}.", gp[f"b{j}"], r, state)
+                _block_leaves(f"{blocks}.{n}.", gp[f"b{j}"], r, state)
                 n += 1
         i += 1
+
+
+def params_from_jax(tree: Mapping) -> dict:
+    """Reference pytree -> ``Model.state_dict()``-keyed dict of float32
+    CPU tensors.  Each group's blocks map leaf for leaf (``norm1``, the
+    mixer's ``attn`` / ``mla`` / ``mamba`` / ``mlstm`` / ``slstm`` leaves
+    with the sLSTM's own ``ffn``, ``norm2``, ``ffn`` or ``moe`` with its
+    ``shared`` experts), so groups of different kinds (deepseek's dense
+    layer 0 and its MoE layers, jamba's period of eight) need nothing
+    special; float32 leaves (the router, the SSM gates and decays) stay
+    float32.  The whisper encoder's ``enc_g{i}`` groups become
+    ``enc_blocks``, beside ``enc_final_norm``."""
+    state = {"embed": _tensor(tree["embed"]),
+             "final_norm": _tensor(tree["final_norm"])}
+    for name in ("lm_head", "enc_final_norm"):
+        if name in tree:
+            state[name] = _tensor(tree[name])
+    _groups(tree, "g", "blocks", state)
+    _groups(tree, "enc_g", "enc_blocks", state)
     return state
 
 

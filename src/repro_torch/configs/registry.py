@@ -1,8 +1,8 @@
 """Architecture registry of the port.
 
-Lists only the archs the port can serve; the reference registry
-(``repro.configs.registry``) lists every fleet arch.  Later slices add
-entries as their mixers and FFNs land.
+Lists the archs the port can serve: every fleet arch of the reference
+registry (``repro.configs.registry``) but the two training configs
+(``llama3.2-1b``, ``qwen3-moe-235b-a22b``), which arrive with training.
 """
 
 from __future__ import annotations
@@ -14,9 +14,13 @@ from repro_torch.models.config import ModelConfig
 # arch id -> module name
 ARCHS = {
     "deepseek-v2-236b": "deepseek_v2_236b",
-    "glm4-9b": "glm4_9b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "qwen3-1.7b": "qwen3_1_7b",
     "smollm-360m": "smollm_360m",
+    "glm4-9b": "glm4_9b",
+    "whisper-tiny": "whisper_tiny",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 

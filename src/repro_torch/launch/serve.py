@@ -1,20 +1,20 @@
-"""Serving launcher of the port: a local fleet of text and image members
-served through the full semantic-router pipeline with batched requests.
+"""Serving launcher of the port: a local fleet of text, image and audio
+members served through the full semantic-router pipeline with batched
+requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --async \
-        --lanes text,image
+        --lanes text,image,audio
     PYTHONPATH=src python -m repro_torch.launch.serve --full-width --batch 8
 
-The port of ``repro.launch.serve`` for the text and image lanes: the same
-demo DSL (``build_dsl``, with the image lane's modality route spliced in
-by ``--lanes text,image``), demo requests, tenant-policy loading, lint
+The port of ``repro.launch.serve``: the same demo DSL (``build_dsl``,
+with the image and audio lanes' modality routes spliced in by ``--lanes
+text,image,audio``), demo requests, tenant-policy loading, lint
 gate and overload detector (``build_router`` attaches one to the fleet;
 policies without a GLOBAL overload block never consult it).  ``--async``
 serves the requests through the arrival-window front end
 (``serving/frontend.AsyncFrontend``), the detector watching its queue
-too.  Not ported: the audio lane (``--lanes audio`` raises),
-``--train-adapters`` (training) and ``--model-axis`` (multi-GPU).  Every
+too.  Not ported: ``--train-adapters`` (training) and ``--model-axis`` (multi-GPU).  Every
 text member serves through the port's CUDA kernels
 (``decode_impl="flash_paged"``, and ``attn_impl="pallas"`` on GQA
 attention members); on the CPU they run as their plain versions.
@@ -115,16 +115,25 @@ ROUTE image_gen (description = "diffusion requests to the image lane") {
                  '{ port: 8001, modality: "image" }\n',
         profiles=',\n    "sd": { cost_per_mtok: 1.2, quality: 0.7, '
                  'arch: "sd-tiny" }'),
+    "audio": dict(
+        signals='SIGNAL modality audio_req { modalities: ["audio"] }\n',
+        routes='''
+ROUTE transcribe (description = "audio payloads to the transcription lane") {
+  PRIORITY 400
+  WHEN modality("audio_req")
+  MODEL "whisper"
+  PLUGIN ma modality { rule: "audio_req" }
+}
+''',
+        backends='BACKEND audio_pool vllm '
+                 '{ port: 8002, modality: "audio" }\n',
+        profiles=',\n    "whisper": { cost_per_mtok: 0.2, quality: 0.6, '
+                 'arch: "whisper-tiny" }'),
 }
 
 def build_dsl(lanes=("text",)) -> str:
     """Assemble the demo DSL for the requested backend lanes ("text",
-    "image"); ``build_dsl(("text",))`` is the reference's, byte for
-    byte."""
-    if "audio" in lanes:
-        raise NotImplementedError(
-            "the audio lane (whisper-tiny: encoder, cross-attention and the "
-            "contiguous cache) is a later slice of the port")
+    "image", "audio"); the reference's, byte for byte."""
     extra = [LANE_DSL[l] for l in lanes if l in LANE_DSL]
     return "".join(e["signals"] for e in extra) + DSL_CONFIG.format(
         lane_routes="".join(e["routes"] for e in extra),
@@ -146,6 +155,8 @@ DEMO_REQUESTS = [
 LANE_DEMO_REQUESTS = {
     "image": ["Draw an illustration of a fox in a forest",
               "Generate an image of a sailboat logo"],
+    "audio": ["Transcribe this voice memo from the standup",
+              "Please transcribe the attached podcast recording"],
 }
 
 # deepseek-v2 at full width on one 80 GB card: its dense layer 0 and 3 of
@@ -189,7 +200,7 @@ def build_router(reduced: bool = True, gen_tokens: int = 8,
     with an ``OverloadDetector`` watching the fleet as ``router.overload``.
     ``classifier_backend`` names a registered backend ("hash", "encoder"
     or one installed with ``register_backend``); ``lanes`` selects the
-    backend lanes ("text", "image"); ``fleet_kw`` go to ``LocalFleet``
+    backend lanes ("text", "image", "audio"); ``fleet_kw`` go to ``LocalFleet``
     (``batch``, ``max_seq``, ...)."""
     cfg, diags = compile_source(build_dsl(lanes))
     for d in diags:
@@ -245,10 +256,9 @@ def main(argv=None):
                          "from one fused multi-task encoder pass")
     ap.add_argument("--lanes", default="text",
                     help="comma-separated backend lanes to serve "
-                         "(text,image; audio is a later slice of the "
-                         "port): non-text lanes add the modality signal "
-                         "routes, lane-typed endpoints and the diffusion "
-                         "fleet member")
+                         "(text,image,audio): non-text lanes add the "
+                         "modality signal routes, lane-typed endpoints and "
+                         "the diffusion/transcription fleet members")
     ap.add_argument("--policy-dir", default="",
                     help="directory of *.vsr policy files loaded as named "
                          "tenant policies (name = file stem); demo "

@@ -6,8 +6,10 @@ the repeats into one ``nn.ModuleList`` of blocks (layer ``n`` of group
 ``i`` is block ``sum(previous groups) + r * len(period) + j``).
 
 The dataclasses are kept field-for-field identical to the reference so one
-config means the same thing in both packages; the port serves the subset
-``models/model.py`` checks for (paged GQA attention + dense SwiGLU FFN).
+config means the same thing in both packages.  The port serves every mixer
+(attention, bidirectional and cross-attention, MLA, mamba, mLSTM, sLSTM)
+and FFN kind (dense, MoE, none); ``models/model.py:check_supported``
+refuses only ``attn_impl="blocked"`` and ``decode_impl="shardmap"``.
 """
 
 from __future__ import annotations

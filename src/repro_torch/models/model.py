@@ -1,30 +1,37 @@
-"""Fleet-model stack of the port: init / paged prefill / decode for the
-attention and MLA mixers with dense or MoE FFNs (``repro.models.model``'s
-twin).
+"""Fleet-model stack of the port: init / prefill / decode / verify for
+every mixer of the fleet configs — attention (causal, bidirectional,
+cross), MLA, Mamba, mLSTM and sLSTM — with dense, MoE or no FFN, and the
+whisper encoder (``repro.models.model``'s twin).
 
 The reference scans each layer group with ``lax.scan``; here the model is
 an ``nn.Module`` whose ``blocks`` ``ModuleList`` unrolls every group's
-repeats, and the stack is a Python loop.  Parameters keep the reference's
-names and (d_in, d_out) layout, so ``bridge.params_from_jax`` maps one onto
-the other leaf for leaf.
+repeats (the encoder's in ``enc_blocks``), and the stack is a Python loop.
+Parameters keep the reference's names and (d_in, d_out) layout, so
+``bridge.params_from_jax`` maps one onto the other leaf for leaf.
 
-The serving cache is paged: ``init_paged_cache`` returns the reference's
-pytree as a dict of tensors (``cache["g{i}"]["b{j}"]["k"]`` is
-``(repeats, num_blocks, block_tokens, Hkv, hd)``; an MLA block holds
-``ckv`` and ``krope``).  Where the reference donates the cache to a jitted
-step and gets a new one back, the port writes the pools IN PLACE and
-returns the same dict.
+Two serving caches, both the reference's pytree as a dict of tensors
+stacked over each group's repeats:
 
-``verify`` is the speculative-decoding forward: W tokens per row through
-one wide pass, logits at every position, each equal to a decode step's.
-Contiguous caches, cross-attention and SSM blocks are later slices:
-configs that need them raise ``NotImplementedError``.
+* paged (``init_paged_cache``): KV leaves are physical block pools
+  ``(repeats, num_blocks, block_tokens, Hkv, hd)`` (MLA: ``ckv``,
+  ``krope``) shared by every slot through ``cache["tbl"]``;
+* contiguous (``init_cache``): one slot row per batch index — attention
+  ``k``/``v`` ``(repeats, B, max_seq, Hkv, hd)``, cross-attention
+  ``ck``/``cv`` ``(repeats, B, cross_ctx_len, Hkv, hd)``, MLA latents,
+  and the recurrent state of the SSM mixers.  Configs with SSM state or
+  cross-attention context serve only from it (``paged_supported``).
+
+Where the reference donates the cache to a jitted step and gets a new one
+back, the port writes the cache tensors IN PLACE and returns the same
+dict.  ``verify`` is the speculative-decoding forward over the paged
+cache: W tokens per row through one wide pass, logits at every position,
+each equal to a decode step's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -37,7 +44,8 @@ from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
                                                   paged_flash_verify_mla)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models import ssm as S
+from repro_torch.models.config import BlockSpec, LayerGroup, ModelConfig
 
 Tensor = torch.Tensor
 
@@ -45,17 +53,13 @@ ATTN_IMPLS = ("einsum", "pallas")
 DECODE_IMPLS = ("xla", "flash_paged")
 
 
+SSM_MIXERS = ("mamba", "mlstm", "slstm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    for g in cfg.groups:
-        for s in g.period:
-            if s.mixer not in ("attn", "mla") or s.ffn not in ("dense", "moe"):
-                raise NotImplementedError(
-                    f"{cfg.name}: block {s.mixer}/{s.ffn} is not ported yet "
-                    f"(the port serves attn or mla with a dense or moe FFN)")
-    if cfg.encoder_groups or cfg.cross_ctx_len:
-        raise NotImplementedError(f"{cfg.name}: encoder / cross-attention "
-                                  f"is not ported yet")
+    """Raise ``NotImplementedError`` for what the port does not have:
+    ``attn_impl="blocked"`` (a training path) and ``decode_impl=
+    "shardmap"`` (multi-device).  Every mixer and FFN kind is served."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not "
                                   f"ported; the port has {ATTN_IMPLS}")
@@ -107,9 +111,19 @@ def _moe_leaves(cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
+def _ssm_dict(leaves: dict, device) -> nn.ParameterDict:
+    """``ssm.ssm_leaves`` -> nested ``ParameterDict`` of empty leaves."""
+    return nn.ParameterDict({
+        k: (_ssm_dict(v, device) if isinstance(v, dict)
+            else _param(v[0], v[1], device))
+        for k, v in leaves.items()})
+
+
 class Block(nn.Module):
     """One block built from its ``BlockSpec``; keys mirror the reference's
-    ``{"norm1", "attn" | "mla": {...}, "norm2", "ffn" | "moe": {...}}``."""
+    ``{"norm1", "attn" | "mla" | "mamba" | "mlstm" | "slstm": {...},
+    "norm2", "ffn" | "moe": {...}}`` (no ``norm2`` under ``ffn="none"``;
+    self, bidirectional and cross-attention all hold ``attn``)."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device):
         super().__init__()
@@ -118,6 +132,9 @@ class Block(nn.Module):
         self.norm1 = _param((d,), dtype, device)
         if spec.mixer == "mla":
             self.mla = nn.ParameterDict(_mla_leaves(cfg, dtype, device))
+        elif spec.mixer in SSM_MIXERS:
+            setattr(self, spec.mixer,
+                    _ssm_dict(S.ssm_leaves(cfg, spec.mixer, dtype), device))
         else:
             attn = {"wq": _param((d, H * hd), dtype, device),
                     "wk": _param((d, Hkv * hd), dtype, device),
@@ -127,19 +144,27 @@ class Block(nn.Module):
                 attn["q_norm"] = _param((hd,), dtype, device)
                 attn["k_norm"] = _param((hd,), dtype, device)
             self.attn = nn.ParameterDict(attn)
-        self.norm2 = _param((d,), dtype, device)
+        if spec.ffn != "none":
+            self.norm2 = _param((d,), dtype, device)
         if spec.ffn == "moe":
             self.moe = nn.ParameterDict(_moe_leaves(cfg, dtype, device))
-        else:
+        elif spec.ffn == "dense":
             self.ffn = nn.ParameterDict({
                 "w_gate": _param((d, cfg.d_ff), dtype, device),
                 "w_up": _param((d, cfg.d_ff), dtype, device),
                 "w_down": _param((cfg.d_ff, d), dtype, device)})
 
 
+def _unrolled(cfg: ModelConfig, groups: Sequence[LayerGroup], dtype, dev):
+    return nn.ModuleList(
+        Block(cfg, spec, dtype, dev)
+        for g in groups for _ in range(g.repeats) for spec in g.period)
+
+
 class Model(nn.Module):
     """Embedding, the unrolled block stack, final norm (tied or separate
-    LM head)."""
+    LM head); an encoder-decoder config (whisper) adds the unrolled
+    encoder ``enc_blocks`` and its ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
         super().__init__()
@@ -151,9 +176,10 @@ class Model(nn.Module):
         self.final_norm = _param((cfg.d_model,), dtype, dev)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab_size), dtype, dev)
-        self.blocks = nn.ModuleList(
-            Block(cfg, spec, dtype, dev)
-            for g in cfg.groups for _ in range(g.repeats) for spec in g.period)
+        self.blocks = _unrolled(cfg, cfg.groups, dtype, dev)
+        if cfg.encoder_groups:
+            self.enc_blocks = _unrolled(cfg, cfg.encoder_groups, dtype, dev)
+            self.enc_final_norm = _param((cfg.d_model,), dtype, dev)
 
 
 def _dense_init(p: nn.Parameter, gen: torch.Generator, scale=None):
@@ -164,21 +190,51 @@ def _dense_init(p: nn.Parameter, gen: torch.Generator, scale=None):
     p.copy_(w.to(p.dtype))
 
 
+def _ssm_init(cfg: ModelConfig, pd: nn.ParameterDict, leaves: dict,
+              gen: torch.Generator):
+    """Fill an SSM block's leaves by ``ssm.ssm_leaves``' rules."""
+    for name, spec in leaves.items():
+        p = pd[name]
+        if isinstance(spec, dict):
+            _ssm_init(cfg, p, spec, gen)
+            continue
+        rule = spec[2]
+        if rule == "dense":
+            _dense_init(p, gen)
+        elif rule == "zeros":
+            p.zero_()
+        elif rule == "ones":
+            p.fill_(1.0)
+        elif isinstance(rule, tuple):
+            _dense_init(p, gen, scale=rule[1])
+        else:
+            p.copy_(rule(cfg).to(p.dtype))
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Model:
     """Random weights with the reference's scheme (normal / sqrt(fan_in)
-    with fan_in = ``shape[-2]``, embedding and router 0.02, norms 1),
-    drawn on ``generator``'s device in registration order — the draws
-    differ from ``jax.random``'s; tests that compare the packages bridge
-    the reference's weights instead (``bridge.params_from_jax``)."""
+    with fan_in = ``shape[-2]``, embedding and router 0.02, norms 1, the
+    SSM leaves by ``ssm.ssm_leaves``' rules), drawn on ``generator``'s
+    device in registration order — the draws differ from ``jax.random``'s;
+    tests that compare the packages bridge the reference's weights instead
+    (``bridge.params_from_jax``)."""
     model = Model(cfg, device)
     _dense_init(model.embed, generator, scale=0.02)
     model.final_norm.fill_(1.0)
     if not cfg.tie_embeddings:
         _dense_init(model.lm_head, generator)
-    for blk in model.blocks:
+    if cfg.encoder_groups:
+        model.enc_final_norm.fill_(1.0)
+    for blk in list(model.blocks) + list(getattr(model, "enc_blocks", [])):
+        mixer = blk.spec.mixer
+        if mixer in SSM_MIXERS:
+            _ssm_init(cfg, getattr(blk, mixer),
+                      S.ssm_leaves(cfg, mixer, None), generator)
         for name, p in blk.named_parameters():
+            if name.startswith(mixer + ".") and mixer in SSM_MIXERS:
+                continue
             leaf = name.rsplit(".", 1)[-1]
             if "norm" in leaf:
                 p.fill_(1.0)
@@ -187,6 +243,67 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             else:
                 _dense_init(p, generator)
     return model
+
+
+# ===========================================================================
+# contiguous cache
+# ===========================================================================
+
+def _block_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int, batch: int,
+                 max_seq: int, dtype, dev) -> dict:
+    lead = (repeats, batch)
+
+    def z(shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
+
+    if spec.mixer in ("attn", "bidir_attn"):
+        kv = (max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": z(kv), "v": z(kv)}
+    if spec.mixer == "cross_attn":
+        kv = (cfg.cross_ctx_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"ck": z(kv), "cv": z(kv)}
+    if spec.mixer == "mla":
+        return {"ckv": z((max_seq, cfg.kv_lora_rank)),
+                "krope": z((max_seq, cfg.rope_head_dim))}
+    st = S.zero_state(cfg, spec.mixer, batch, dtype, dev)
+    return {k: v[None].repeat((repeats,) + (1,) * v.dim())
+            for k, v in st.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: DeviceLike = "cuda") -> dict:
+    """Contiguous serving cache: ``cache["g{i}"]["b{j}"]`` holds block j's
+    state for ``batch`` rows stacked over group i's repeats — attention
+    ``k``/``v`` ``(repeats, batch, max_seq, Hkv, hd)``, cross-attention
+    ``ck``/``cv`` over ``cross_ctx_len`` context tokens, MLA ``ckv``/
+    ``krope``, or the SSM mixer's recurrent state (``ssm.zero_state``);
+    ``cache["pos"]`` is the current length (a scalar int32; the scheduler
+    replaces it with a (batch,) vector of per-row positions)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for i, g in enumerate(cfg.groups):
+        cache[f"g{i}"] = {
+            f"b{j}": _block_cache(cfg, spec, g.repeats, batch, max_seq,
+                                  dtype, dev)
+            for j, spec in enumerate(g.period)}
+    return cache
+
+
+def _cache_write(buf: Tensor, val: Tensor, pos) -> None:
+    """Write ``val`` (B, T, ...) into ``buf`` (B, S, ...) IN PLACE at
+    sequence position ``pos``: an int (uniform across the batch) or a (B,)
+    tensor of per-row positions (continuous-batching decode, T = 1).  The
+    start is clamped so the write fits, as ``dynamic_update_slice``'s."""
+    val = val.to(buf.dtype)
+    S, T = buf.shape[1], val.shape[1]
+    if not isinstance(pos, Tensor) or pos.dim() == 0:
+        p = min(max(int(pos), 0), S - T)
+        buf[:, p:p + T] = val
+        return
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, pos.long().clamp(0, S - 1)] = val[:, 0]
 
 
 # ===========================================================================
@@ -205,6 +322,8 @@ def paged_supported(cfg: ModelConfig) -> bool:
 def _block_paged_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int,
                        num_blocks: int, block_tokens: int, dtype, dev):
     lead = (repeats, num_blocks, block_tokens)
+    if spec.mixer not in ("attn", "mla"):
+        raise ValueError(f"paged cache unsupported for mixer {spec.mixer!r}")
     if spec.mixer == "mla":
         return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
                                    device=dev),
@@ -287,19 +406,39 @@ def _sdpa_impl(cfg: ModelConfig, q, k, v, *, causal: bool,
 
 
 def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
-               paged_fresh=False):
-    """Paged self-attention in prefill, decode or verify mode.  ``bcache``
-    is ``{"k": pool, "v": pool}`` for this layer; pools are written in
-    place.
+               paged_fresh=False, bidir=False):
+    """Self-attention in every serving mode.  ``bcache`` is this layer's
+    ``{"k", "v"}``: paged pools when ``tbl`` (B, max_blocks) is given, else
+    the contiguous ``(B, max_seq, Hkv, hd)`` rows, or None (the encoder's
+    "full" mode: no cache).  Cache tensors are written in place.
 
-    ``paged_fresh`` marks a from-scratch prefill (no cached prefix):
+    Paged: ``paged_fresh`` marks a from-scratch prefill (no cached prefix):
     attention then runs on the local K/V — right-padded rows rely on
     causality alone, so no ``lens`` reaches the kernel — and only the
     writes go through the table.  A suffix prefill (``pos`` = per-row
     start offsets) attends over the gathered view so cached prefix blocks
-    are read, never recomputed."""
+    are read, never recomputed.  Contiguous: prefill attends on the local
+    K/V and writes them at ``pos``; decode writes each row's K/V at its own
+    position and attends over the row up to it."""
     x = L.rms_norm(h, p.norm1, cfg.norm_eps)
     q, k, v = L.attn_qkv(p.attn, cfg, x, x, rope, rope)
+    causal = not bidir
+    if mode == "full" or bcache is None:
+        out = _sdpa_impl(cfg, q, k, v, causal=causal,
+                         sliding_window=cfg.sliding_window)
+        return h + L.attn_out(p.attn, out)
+    if tbl is None:
+        if mode == "prefill":
+            out = _sdpa_impl(cfg, q, k, v, causal=causal,
+                             sliding_window=cfg.sliding_window)
+            _cache_write(bcache["k"], k, pos)
+            _cache_write(bcache["v"], v, pos)
+        else:  # decode: pos (B,) per-row positions, or a scalar
+            _cache_write(bcache["k"], k, pos)
+            _cache_write(bcache["v"], v, pos)
+            out = L.sdpa(q, bcache["k"], bcache["v"], causal=False,
+                         q_offset=pos, kv_len=pos + 1, sliding_window=0)
+        return h + L.attn_out(p.attn, out)
     kpool, vpool = bcache["k"], bcache["v"]
     _paged_write(kpool, k, tbl, pos)
     _paged_write(vpool, v, tbl, pos)
@@ -336,11 +475,34 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     return h + L.attn_out(p.attn, out)
 
 
+def _cross_attn(cfg, p: Block, h, cross_ctx, mode, bcache):
+    """Cross-attention to a per-request context (whisper's encoded frames,
+    a vision member's patch embeddings): prefill projects ``cross_ctx``
+    (B, T, d) to K/V, attends, and stores them in the layer's ``ck``/``cv``
+    (in place); decode attends to the stored K/V.  Plain ``layers.sdpa``
+    in both modes, as the reference's (no kernel)."""
+    x = L.rms_norm(h, p.norm1, cfg.norm_eps)
+    if mode == "decode":
+        B, Sq, _ = x.shape
+        q = (x @ p.attn["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p.attn["q_norm"], cfg.norm_eps)
+        out = L.sdpa(q, bcache["ck"], bcache["cv"], causal=False)
+        return h + L.attn_out(p.attn, out)
+    q, k, v = L.attn_qkv(p.attn, cfg, x, cross_ctx, None, None)
+    out = L.sdpa(q, k, v, causal=False)
+    if mode == "prefill" and bcache is not None:
+        bcache["ck"].copy_(k)
+        bcache["cv"].copy_(v)
+    return h + L.attn_out(p.attn, out)
+
+
 def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
               paged_fresh=False):
-    """Paged MLA in prefill, decode or verify mode.  ``bcache`` is
-    ``{"ckv": pool, "krope": pool}`` for this layer; pools are written in
-    place.
+    """MLA in prefill, decode or verify mode.  ``bcache`` is ``{"ckv",
+    "krope"}`` for this layer: paged pools when ``tbl`` is given, else the
+    contiguous rows (prefill: ``_mla_naive`` on the local latents; decode:
+    absorbed ``mla_attention`` over the row).  Written in place.
 
     Fresh prefill runs ``_mla_naive`` on the local latents.  A suffix
     prefill runs the EXPANDED form over the gathered view, not the
@@ -356,6 +518,14 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     mp = p.mla
     q_nope, q_rope = L.mla_q(mp, cfg, x, rope)
     c_kv, k_rope = L.mla_kv_latent(mp, cfg, x, rope)
+    if tbl is None:   # the contiguous cache
+        _cache_write(bcache["ckv"], c_kv, pos)
+        _cache_write(bcache["krope"], k_rope, pos)
+        if mode == "prefill":
+            return h + _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope)
+        return h + L.mla_attention(mp, cfg, q_nope, q_rope, bcache["ckv"],
+                                   bcache["krope"], causal=False,
+                                   q_offset=pos, kv_len=pos + 1)
     ckv_p, krope_p = bcache["ckv"], bcache["krope"]
     _paged_write(ckv_p, c_kv, tbl, pos)
     _paged_write(krope_p, k_rope, tbl, pos)
@@ -412,34 +582,79 @@ def _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope, q_offset=None):
     return out.reshape(B, Sq, H * cfg.v_head_dim) @ mp["wo"]
 
 
-def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, mode: str,
-                 bcache, pos, tbl, moe_impl: str,
+def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
+                 mode: str, bcache, pos, tbl, moe_impl: str,
                  paged_fresh=False) -> Tensor:
-    mixer = _mla_attn if p.spec.mixer == "mla" else _self_attn
-    h = mixer(cfg, p, h, rope, mode, bcache, pos, tbl,
-              paged_fresh=paged_fresh)
+    mixer = p.spec.mixer
+    if mixer in ("attn", "bidir_attn"):
+        h = _self_attn(cfg, p, h, rope, mode, bcache, pos, tbl,
+                       paged_fresh=paged_fresh, bidir=mixer == "bidir_attn")
+    elif mixer == "cross_attn":
+        h = _cross_attn(cfg, p, h, cross_ctx, mode, bcache)
+    elif mixer == "mla":
+        h = _mla_attn(cfg, p, h, rope, mode, bcache, pos, tbl,
+                      paged_fresh=paged_fresh)
+    else:   # SSM: a recurrent state per row, copied into the cache in place
+        x = L.rms_norm(h, p.norm1, cfg.norm_eps)
+        forward, step = S.FORWARD[mixer]
+        if mode == "decode":
+            y, state = step(getattr(p, mixer), cfg, x, bcache)
+        else:
+            y, state = forward(getattr(p, mixer), cfg, x, state=None,
+                               return_state=mode == "prefill")
+        if state is not None and bcache is not None:
+            for leaf, t in state.items():
+                bcache[leaf].copy_(t)
+        h = h + y
+    if p.spec.ffn == "none":
+        return h
     x = L.rms_norm(h, p.norm2, cfg.norm_eps)
     if p.spec.ffn == "moe":
         return h + M.moe_apply(p.moe, cfg, x, moe_impl)
     return h + L.ffn_apply(p.ffn, x)
 
 
-def _run_groups(cfg: ModelConfig, params: Model, h: Tensor, *, rope, mode,
-                cache, pos, tbl, moe_impl: str, paged_fresh=False) -> Tensor:
+def _run_groups(cfg: ModelConfig, blocks: nn.ModuleList,
+                groups: Sequence[LayerGroup], h: Tensor, *, rope, mode,
+                cache, pos, tbl, moe_impl: str, cross_ctx=None,
+                paged_fresh=False) -> Tensor:
     """The stack, unrolled: group i, repeat r, period slot j is block
-    ``n``; its KV pools are ``cache["g{i}"]["b{j}"][leaf][r]`` (views,
-    written in place)."""
+    ``n``; its cache leaves are ``cache["g{i}"]["b{j}"][leaf][r]`` (views,
+    written in place), or None when ``cache`` is (the encoder)."""
     n = 0
-    for i, g in enumerate(cfg.groups):
-        gc = cache[f"g{i}"]
+    for i, g in enumerate(groups):
+        gc = cache[f"g{i}"] if cache is not None else None
         for r in range(g.repeats):
             for j in range(len(g.period)):
-                bc = {leaf: pool[r] for leaf, pool in gc[f"b{j}"].items()}
-                h = _apply_block(cfg, params.blocks[n], h, rope=rope,
-                                 mode=mode, bcache=bc, pos=pos, tbl=tbl,
-                                 moe_impl=moe_impl, paged_fresh=paged_fresh)
+                bc = None if gc is None else \
+                    {leaf: t[r] for leaf, t in gc[f"b{j}"].items()}
+                h = _apply_block(cfg, blocks[n], h, rope=rope,
+                                 cross_ctx=cross_ctx, mode=mode, bcache=bc,
+                                 pos=pos, tbl=tbl, moe_impl=moe_impl,
+                                 paged_fresh=paged_fresh)
                 n += 1
     return h
+
+
+def _encode(cfg: ModelConfig, params: Model, frames: Tensor,
+            moe_impl: str) -> Tensor:
+    """Run the encoder stack over stub frame embeddings (whisper):
+    bidirectional self-attention over every frame, no cache."""
+    Sf = frames.shape[1]
+    rope = L.rope_tables(torch.arange(Sf, device=frames.device),
+                         cfg.head_dim, cfg.rope_theta)
+    h = _run_groups(cfg, params.enc_blocks, cfg.encoder_groups, frames,
+                    rope=rope, mode="full", cache=None, pos=0, tbl=None,
+                    moe_impl=moe_impl)
+    return L.rms_norm(h, params.enc_final_norm, cfg.norm_eps)
+
+
+def _prepare_cross(cfg: ModelConfig, params: Model, cross_ctx, moe_impl):
+    if cross_ctx is None:
+        return None
+    if cfg.is_encoder_decoder:
+        return _encode(cfg, params, cross_ctx, moe_impl)
+    return cross_ctx  # vision: pre-embedded patches (stub frontend)
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -453,69 +668,88 @@ def _logits(cfg: ModelConfig, params: Model, h: Tensor) -> Tensor:
     return h @ params.lm_head
 
 
+def _take_last(h: Tensor, lens) -> Tensor:
+    """Each row's last real position: ``lens - 1``, or the last one."""
+    if lens is None:
+        return h[:, -1:, :]
+    idx = torch.as_tensor(lens, device=h.device).long() - 1
+    return torch.gather(h, 1, idx[:, None, None].expand(h.shape[0], 1,
+                                                        h.shape[2]))
+
+
 # ===========================================================================
 # public API
 # ===========================================================================
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
-            *, moe_impl: str = "gshard", lens: Optional[Tensor] = None,
-            start: Optional[Tensor] = None, tbl: Optional[Tensor] = None,
+            cross_ctx: Optional[Tensor] = None, *, moe_impl: str = "gshard",
+            lens: Optional[Tensor] = None, start: Optional[Tensor] = None,
+            tbl: Optional[Tensor] = None,
             paged_fresh: bool = False) -> Tuple[Tensor, dict]:
-    """Paged prefill: returns (last-token logits (B,V), cache).
+    """Prefill: returns (last-token logits (B,V), cache).
 
-    ``tbl`` (B, max_blocks) routes each row's KV writes into the shared
-    block pool.  ``lens`` (B,) gives each row's real prompt length when
-    rows are right-padded: logits are taken at ``lens - 1``.  ``start``
-    (B,) is the absolute position of ``tokens[:, 0]`` — for a prefix-cache
-    hit only the unmatched suffix is passed in and attention reads the
-    cached prefix blocks through the table (``paged_fresh=True`` marks a
-    no-prefix prefill).  ``moe_impl`` selects the MoE FFN as in the
-    reference (its default "gshard" is not ported: MoE configs pass "ep",
-    "ep_serve" or "sort"); the reference's ``cross_ctx`` arrives with the
-    slice that ports cross-attention."""
+    ``lens`` (B,) gives each row's real prompt length when rows are
+    right-padded: logits are taken at ``lens - 1``.  ``moe_impl`` selects
+    the MoE FFN as in the reference (its default "gshard" is not ported:
+    MoE configs pass "ep", "ep_serve" or "sort").
+
+    Contiguous (no ``tbl``): the prompt starts at position 0 of the
+    contiguous ``cache`` (``init_cache``) and ``cache["pos"]`` becomes its
+    width.  ``cross_ctx`` (B, T, d) is the cross-attention context: stub
+    audio frames that the encoder runs over first (whisper), or a vision
+    member's pre-embedded patches.
+
+    Paged (``tbl`` (B, max_blocks) given): ``cache`` is the shared block
+    pool and each row's KV writes go through its table row.  ``start`` (B,)
+    is the absolute position of ``tokens[:, 0]`` — for a prefix-cache hit
+    only the unmatched suffix is passed in and attention reads the cached
+    prefix blocks through the table (``paged_fresh=True`` marks a
+    no-prefix prefill)."""
     check_supported(cfg)
-    if tbl is None:
-        raise NotImplementedError("the contiguous cache is not ported yet: "
-                                  "pass a block table (paged prefill)")
     dev = tokens.device
     B, Sq = tokens.shape
     h = params.embed[tokens.long()]
+    if tbl is None:
+        rope = L.rope_tables(torch.arange(Sq, device=dev), _rope_dim(cfg),
+                             cfg.rope_theta)
+        cross = _prepare_cross(cfg, params, cross_ctx, moe_impl)
+        h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                        mode="prefill", cache=cache, pos=0, tbl=None,
+                        moe_impl=moe_impl, cross_ctx=cross)
+        cache["pos"] = torch.full((), Sq, dtype=torch.int32, device=dev)
+        return _logits(cfg, params, _take_last(h, lens))[:, 0, :], cache
     pos = (torch.zeros((B,), dtype=torch.long, device=dev) if start is None
            else torch.as_tensor(start, device=dev).long())
     positions = pos[:, None] + torch.arange(Sq, device=dev)[None, :]
     rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
-    h = _run_groups(cfg, params, h, rope=rope, mode="prefill", cache=cache,
-                    pos=pos, tbl=tbl, moe_impl=moe_impl,
-                    paged_fresh=paged_fresh)
-    if lens is None:
-        h_last = h[:, -1:, :]
-    else:
-        idx = torch.as_tensor(lens, device=dev).long() - 1
-        h_last = torch.gather(h, 1, idx[:, None, None].expand(B, 1, h.shape[2]))
-    return _logits(cfg, params, h_last)[:, 0, :], cache
+    h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                    mode="prefill", cache=cache, pos=pos, tbl=tbl,
+                    moe_impl=moe_impl, paged_fresh=paged_fresh)
+    return _logits(cfg, params, _take_last(h, lens))[:, 0, :], cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Model, tokens: Tensor,
                 cache: dict, *, moe_impl: str = "gshard"
                 ) -> Tuple[Tensor, dict]:
-    """One decode step: tokens (B,1) + paged cache -> (logits (B,V), cache).
+    """One decode step: tokens (B,1) + cache -> (logits (B,V), cache).
 
-    ``cache["pos"]`` (B,) holds per-row positions: each row writes, rotates
-    and attends at its own depth; the KV pools are written in place and
-    ``cache["pos"]`` comes back advanced by one.  ``moe_impl`` as in
-    ``prefill``."""
+    ``cache["pos"]`` is a scalar (every row at one depth) or a (B,) vector
+    of per-row positions (continuous batching): each row writes, rotates
+    and attends at its own depth.  The cache — paged when it holds
+    ``"tbl"``, else contiguous — is written in place and ``cache["pos"]``
+    comes back advanced by one.  ``moe_impl`` as in ``prefill``."""
     check_supported(cfg)
-    if "tbl" not in cache:
-        raise NotImplementedError("the contiguous cache is not ported yet")
-    pos = cache["pos"]
-    tbl = cache["tbl"]
+    pos = cache["pos"].long()
+    tbl = cache.get("tbl")
     h = params.embed[tokens.long()]
-    rope = L.rope_tables(pos.long()[:, None], _rope_dim(cfg), cfg.rope_theta)
-    h = _run_groups(cfg, params, h, rope=rope, mode="decode", cache=cache,
-                    pos=pos.long(), tbl=tbl, moe_impl=moe_impl)
-    cache["pos"] = pos + 1
+    rope_pos = pos[None] if pos.dim() == 0 else pos[:, None]
+    rope = L.rope_tables(rope_pos, _rope_dim(cfg), cfg.rope_theta)
+    h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                    mode="decode", cache=cache, pos=pos, tbl=tbl,
+                    moe_impl=moe_impl)
+    cache["pos"] = cache["pos"] + 1
     return _logits(cfg, params, h)[:, 0, :], cache
 
 
@@ -544,6 +778,7 @@ def verify(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
     h = params.embed[tokens.long()]
     positions = pos[:, None] + torch.arange(W, device=pos.device)[None, :]
     rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
-    h = _run_groups(cfg, params, h, rope=rope, mode="verify", cache=cache,
-                    pos=pos, tbl=tbl, moe_impl=moe_impl)
+    h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                    mode="verify", cache=cache, pos=pos, tbl=tbl,
+                    moe_impl=moe_impl)
     return _logits(cfg, params, h), cache

@@ -1,12 +1,17 @@
-"""LocalFleet of the port: in-process text and image backends for router
-serving.
+"""LocalFleet of the port: in-process Mixture-of-Modality backends (text,
+image, audio) for router serving.
 
-The port of ``repro.serving.fleet`` for paged text members and the image
-lane.  The fleet is a set of **backend lanes** (:class:`BackendLane`), one
-per member arch:
+The port of ``repro.serving.fleet``.  The fleet is a set of **backend
+lanes** (:class:`BackendLane`), one per member arch:
 
 * :class:`ARLane` — the continuous-batching autoregressive text lane over
-  a paged :class:`DecodeScheduler`;
+  a :class:`DecodeScheduler`, paged (attention / MLA stacks) or
+  contiguous (SSM members, cross-attention members, ``paged=False``);
+* :class:`AudioLane` — transcription over an encoder/decoder config
+  (``whisper-tiny``): the request payload is the *audio* (stub frontend —
+  deterministic pseudo frame embeddings), fed as per-request
+  cross-attention context to the same slot scheduler; output is a
+  transcript payload;
 * :class:`DiffusionLane` — a non-autoregressive fixed-step iterative
   denoiser stub (``sd-tiny``) with image-out payloads: slots hold latents
   at different denoise depths and one ``step()`` advances every active
@@ -15,17 +20,18 @@ per member arch:
 ``LocalFleet`` drains its lanes for ``generate`` and for the router
 transport ``call_fn`` / ``batch_call``, interleaving steps across every
 involved lane.  Content is synthetic (hash tokenizer, random weights);
-the serving path (slot admission, paged KV with prefix sharing and COW,
-per-row positions, per-request latency) is real and runs on the card
-through the port's CUDA kernels when ``decode_impl="flash_paged"`` and
-``attn_impl="pallas"`` are selected.
+the serving path (slot admission, paged KV with prefix sharing and COW or
+contiguous slot rows, per-row positions, per-request latency) is real and
+runs on the card through the port's CUDA kernels when
+``decode_impl="flash_paged"`` (paged members) and ``attn_impl="pallas"``
+are selected.
 
 Serving is single-device (no mesh, no sharding rules) and MoE members are
 dropless: their capacity factor is raised to ``n_experts / top_k``.
 ``speculative=SpecConfig(...)`` puts a draft model in front of every lane
 (draft proposal, one wide verify per round, greedy acceptance, adaptive
-k).  The audio lane (``whisper-tiny``: the registry does not list it),
-contiguous caches and ``model_axis > 1`` are later slices and raise.
+k) on the paged lanes.  ``model_axis > 1`` (multi-device) is not ported
+and raises.
 
 Concurrency: the fleet lock covers ONLY submission and bookkeeping.
 Draining happens outside it — per-lane step locks serialize the steps
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced, list_archs
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import model as MD
 from repro_torch.models import moe as M
 from repro_torch.serving import serve_lib
@@ -75,7 +81,7 @@ def _validate_decode_impl(decode_impl: Optional[str]):
 
 def _spec_draft_archs() -> List[str]:
     """Archs usable as a speculative draft: AR text models the paged cache
-    supports (pure attention/MLA stacks)."""
+    supports (pure attention/MLA stacks; no audio member)."""
     return [a for a in list_archs()
             if (cfg := get_reduced(a)).family != "audio"
             and MD.paged_supported(cfg)]
@@ -197,10 +203,15 @@ class FleetMember(MemberStats):
     arch: str
     cfg: object
     params: object               # MD.Model on the fleet's device
+    prefill_row: object          # (params, toks(1,L), lens, cache1[, cross])
     decode_rows: object          # (params, toks(B,1), cache) per-row decode
+    merge_row: object            # slot admission into the contiguous cache
     batch: int                   # decode slots
     max_seq: int
     prompt_cap: int              # longest admissible prompt
+    exact_prefill: bool          # SSM state: no pad-bucketing allowed
+    # paged KV pool (prefix caching) — False/None for contiguous members
+    paged: bool = False
     prefill_paged_fresh: object = None   # no-prefix paged admission
     prefill_paged_suffix: object = None  # suffix-only paged admission
     copy_block: object = None            # COW block copy
@@ -225,8 +236,7 @@ class DiffusionMember(MemberStats):
 class BackendLane:
     """Protocol for one execution lane of the fleet.
 
-    ``modality``    lane type: "text" or "image" ("audio" is a later
-                    slice of the port).
+    ``modality``    lane type: "text", "image" or "audio".
     ``submit(prompt, max_new=, priority=, slo=) -> rid``   queue one
                     request payload.
     ``step() -> [finished]``              advance the lane's batch one
@@ -235,7 +245,8 @@ class BackendLane:
     ``result(job) -> dict``               transport payload: ``content``,
                                           ``tokens``, ``ttft_ms``,
                                           ``tpot_ms``, ``service_ms``,
-                                          ``lane``.
+                                          ``lane``, plus modality extras
+                                          (``image`` / ``transcript``).
     ``warmup()``    run every production step once; must not pollute
                     serving stats.
     ``occupancy``   mean active slots per step.
@@ -303,6 +314,8 @@ class ARLane(BackendLane):
 
     def _warmup_widths(self) -> List[int]:
         m = self.m
+        if m.exact_prefill:
+            return [4]
         return [b for b in PREFILL_BUCKETS if b <= m.prompt_cap] + \
             [m.prompt_cap]
 
@@ -311,7 +324,8 @@ class ARLane(BackendLane):
         request per prompt-length bucket runs the real admit+decode path,
         then cache-hit prompts run the suffix prefill and the COW copy —
         so the first served request pays no kernel build, allocator growth
-        or library autotuning inside its ``ttft_ms``."""
+        or library autotuning inside its ``ttft_ms``.  (Exact-length archs
+        run one width; their decode and merge still run.)"""
         m, sched = self.m, self.sched
         t0 = time.perf_counter()
         widths = list(dict.fromkeys(self._warmup_widths()))
@@ -321,21 +335,22 @@ class ARLane(BackendLane):
             self._warmup_submit(w, fill=4 + wi)
         while self.pending:
             self.step()
-        # a fully-cached prompt runs the suffix prefill AND the COW copy
-        self._warmup_submit(widths[0], fill=4)
-        # partially-matched prompts run the remaining suffix widths
-        blk = m.block_tokens
-        prev = widths[0]
-        for wi, w in enumerate(widths[1:]):
-            tail = min(prev + 1, m.prompt_cap - blk)
-            if tail <= 0:
-                break
-            ids = np.concatenate([np.full((blk,), 4, np.int32),
-                                  np.full((tail,), 90 + wi, np.int32)])
-            self.sched.submit(ids, max_new=2)
-            prev = w
-        while self.pending:
-            self.step()
+        if sched.paged:
+            # a fully-cached prompt runs the suffix prefill AND the COW copy
+            self._warmup_submit(widths[0], fill=4)
+            # partially-matched prompts run the remaining suffix widths
+            blk = m.block_tokens
+            prev = widths[0]
+            for wi, w in enumerate(widths[1:]):
+                tail = min(prev + 1, m.prompt_cap - blk)
+                if tail <= 0:
+                    break
+                ids = np.concatenate([np.full((blk,), 4, np.int32),
+                                      np.full((tail,), 90 + wi, np.int32)])
+                self.sched.submit(ids, max_new=2)
+                prev = w
+            while self.pending:
+                self.step()
         if sched.drafter is not None:
             # the drains above ran the wide verify, the draft proposal loop
             # and the FRESH draft catch-up prefills; a lane that backs off
@@ -369,7 +384,8 @@ class ARLane(BackendLane):
         sched.ttft_ewma = 0.0
         sched.ttft_samples = 0
         sched.prefill.prefills = 0
-        sched.pool.stats = PoolStats()
+        if sched.paged:
+            sched.pool.stats = PoolStats()
         if sched.drafter is not None:
             sched.drafter.reset_stats()
             sched.spec_rounds = sched.spec_offered = 0
@@ -379,6 +395,45 @@ class ARLane(BackendLane):
 
     def _warmup_submit(self, width: int, fill: int = 4):
         self.sched.submit(np.full((width,), fill, np.int32), max_new=2)
+
+
+class AudioLane(ARLane):
+    """Transcription lane: the request payload is the audio (stub conv
+    frontend — deterministic pseudo frame embeddings drawn from a numpy
+    generator seeded by the payload), attended by the decoder as
+    per-request cross-attention context; the decoder starts from a BOS
+    token and emits the transcript."""
+
+    modality = "audio"
+
+    def _frames(self, payload: str) -> torch.Tensor:
+        cfg = self.m.cfg
+        rng = np.random.default_rng(_seed_of(payload))
+        f = rng.standard_normal((1, cfg.cross_ctx_len, cfg.d_model))
+        return torch.as_tensor(f, dtype=torch_dtype(cfg.dtype),
+                               device=self.fleet.device)
+
+    def submit(self, prompt: str, max_new: Optional[int] = None,
+               priority: int = 0, slo: str = "") -> int:
+        return self.sched.submit(np.asarray([4], np.int32), max_new=max_new,
+                                 cross=self._frames(prompt),
+                                 priority=priority, slo=slo)
+
+    def _warmup_widths(self) -> List[int]:
+        # audio requests always decode from a 1-token BOS prompt
+        return [1]
+
+    def _warmup_submit(self, width: int, fill: int = 4):
+        self.sched.submit(np.full((width,), fill, np.int32), max_new=2,
+                          cross=self._frames("warmup"))
+
+    def result(self, seq) -> dict:
+        out = super().result(seq)
+        transcript = " ".join(f"tok{t}" for t in seq.out)
+        out["content"] = (f"[{self.m.arch}] transcript "
+                          f"{len(seq.out)} tokens: {transcript[:80]}")
+        out["transcript"] = transcript
+        return out
 
 
 @dataclass
@@ -549,8 +604,11 @@ class LocalFleet:
         """The reference's keywords, plus ``device`` ("cuda" by default;
         raises without a GPU unless ``device="cpu"``).
 
-        ``paged`` "auto" and True page every member (the port's lanes are
-        all paged); ``kv_blocks`` overrides the physical pool size
+        ``paged="auto"`` pages every member the paged cache supports (pure
+        attention / MLA stacks) and keeps SSM and cross-attention members
+        on the contiguous cache; ``paged=False`` keeps every member
+        contiguous; ``paged=True`` raises for a member that cannot page.
+        ``kv_blocks`` overrides the physical pool size
         (default: one full table per slot + headroom for retained prefix
         blocks).  ``prefill_chunk`` caps the tokens per admission-prefill
         call, ``prefill_budget`` caps prefill calls interleaved per decode
@@ -563,7 +621,7 @@ class LocalFleet:
         ``arch_overrides`` maps member archs to ModelConfig field
         overrides (plus ``depth_mult``; ``groups`` cuts a member's depth).
         ``speculative`` enables draft-model speculative decoding on every
-        lane: ``SpecConfig.draft_arch`` (its registry config, reduced or
+        paged lane: ``SpecConfig.draft_arch`` (its registry config, reduced or
         full as the fleet, with no ``arch_overrides``) proposes ``k`` tokens
         per round, the member verifies all k+1 positions in one wide forward
         (``decode_impl="flash_paged"``: the CUDA verify kernels), and greedy
@@ -579,15 +637,12 @@ class LocalFleet:
         generator cannot make tens of billions of parameters in a smoke
         run.
 
-        Not ported yet: ``model_axis > 1``, ``paged=False``."""
+        Not ported yet: ``model_axis > 1``."""
         if model_axis > 1:
             raise NotImplementedError("model_axis > 1 (multi-device) is not "
                                       "ported yet")
         _validate_decode_impl(decode_impl)
         _validate_speculative(speculative, paged=paged)
-        if paged is False:
-            raise NotImplementedError("the contiguous cache is not ported "
-                                      "yet: use paged='auto' or True")
         _validate_arch_overrides(arch_overrides, list(archs))
         self.device = resolve_device(device)
         self.gen_tokens = gen_tokens
@@ -604,7 +659,8 @@ class LocalFleet:
         self._done_cap = 4096
         self._waiting: set = set()       # keys some drain is waiting on
         self._build = dict(reduced=reduced, batch=batch, max_seq=max_seq,
-                           moe_impl=moe_impl, block_tokens=block_tokens,
+                           moe_impl=moe_impl, paged=paged,
+                           block_tokens=block_tokens,
                            kv_blocks=kv_blocks, decode_impl=decode_impl,
                            speculative=speculative,
                            arch_overrides=arch_overrides or {})
@@ -619,7 +675,7 @@ class LocalFleet:
         """Construct one member + lane (params init, serving steps, paged
         pool sizing).  Pure build — no registration, no warmup."""
         b = self._build
-        batch, max_seq = b["batch"], b["max_seq"]
+        batch, max_seq, paged = b["batch"], b["max_seq"], b["paged"]
         block_tokens, kv_blocks = b["block_tokens"], b["kv_blocks"]
         if arch in DIFFUSION_ARCHS:
             member: object = DiffusionMember(arch, batch=batch)
@@ -635,29 +691,43 @@ class LocalFleet:
             M.check_impl(b["moe_impl"])
         cfg = _dropless(cfg)
         MD.check_supported(cfg)
-        if not MD.paged_supported(cfg) or max_seq % block_tokens:
+        exact = any(s.mixer in MD.SSM_MIXERS
+                    for g in cfg.groups for s in g.period)
+        can_page = MD.paged_supported(cfg) and max_seq % block_tokens == 0
+        if paged is True and not can_page:
             raise ValueError(
                 f"{arch}: paged KV unsupported (SSM/cross-attn state or "
                 f"max_seq % block_tokens != 0)")
-        bpr = max_seq // block_tokens
-        # 1 trash + a full table per slot + retained-prefix headroom
-        # (~4 rows) for the cross-request hit rate
-        nblk = kv_blocks or (1 + (batch + 4) * bpr)
+        use_paged = can_page if paged == "auto" else bool(paged)
+        pre_row, dec, merge = serve_lib.build_row_serve_steps(
+            cfg, moe_impl=b["moe_impl"])
+        pf = ps = cpb = None
+        nblk = 0
+        if use_paged:
+            pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(
+                cfg, moe_impl=b["moe_impl"])
+            bpr = max_seq // block_tokens
+            # 1 trash + a full table per slot + retained-prefix headroom
+            # (~4 rows) for the cross-request hit rate
+            nblk = kv_blocks or (1 + (batch + 4) * bpr)
         spec_rt = None
-        if b["speculative"] is not None:
+        if b["speculative"] is not None and use_paged \
+                and cfg.family != "audio":
             spec_rt = self._build_spec_runtime(b["speculative"], cfg, nblk)
         params = self._init_params(cfg)
-        pf, ps, dec, cpb = serve_lib.build_paged_serve_steps(
-            cfg, moe_impl=b["moe_impl"])
-        member = FleetMember(arch, cfg, params, dec, batch, max_seq,
+        member = FleetMember(arch, cfg, params, pre_row, dec, merge, batch,
+                             max_seq,
                              prompt_cap=max_seq - self.gen_tokens - 1,
+                             exact_prefill=exact,
+                             paged=use_paged,
                              prefill_paged_fresh=pf,
                              prefill_paged_suffix=ps,
                              copy_block=cpb,
                              block_tokens=block_tokens,
                              num_blocks=nblk,
                              spec=spec_rt)
-        return member, ARLane(self, member)
+        lane_cls = AudioLane if cfg.family == "audio" else ARLane
+        return member, lane_cls(self, member)
 
     def _init_params(self, cfg) -> MD.Model:
         """Weights from the fleet's seed.  Reduced members draw on the CPU
@@ -740,11 +810,23 @@ class LocalFleet:
         return self.lanes[arch].modality
 
     def _make_scheduler(self, m: FleetMember) -> DecodeScheduler:
-        init_cache = lambda b, cfg=m.cfg: MD.init_paged_cache(
-            cfg, m.batch, m.max_seq, m.num_blocks, m.block_tokens,
-            device=self.device)
+        make_cross = None
+        if m.cfg.cross_ctx_len:
+            # a request that brings no context (a vision member's text
+            # prompt) attends to zero patches
+            make_cross = lambda b, cfg=m.cfg: torch.zeros(
+                (b, cfg.cross_ctx_len, cfg.d_model),
+                dtype=torch_dtype(cfg.dtype), device=self.device)
+        if m.paged:
+            init_cache = lambda b, cfg=m.cfg: MD.init_paged_cache(
+                cfg, m.batch, m.max_seq, m.num_blocks, m.block_tokens,
+                device=self.device)
+        else:
+            init_cache = lambda b, cfg=m.cfg: MD.init_cache(
+                cfg, b, m.max_seq, device=self.device)
         return DecodeScheduler(m, gen_tokens=self.gen_tokens,
-                               init_cache_fn=init_cache, spec=m.spec,
+                               init_cache_fn=init_cache,
+                               make_cross_fn=make_cross, spec=m.spec,
                                **self._sched_opts)
 
     # -- generation ---------------------------------------------------------
@@ -752,7 +834,8 @@ class LocalFleet:
     def generate(self, arch: str, prompts: List[str],
                  max_new: Optional[int] = None, priority: int = 0,
                  slo: str = "") -> List[dict]:
-        """Greedy generation (or image synthesis) via the arch's lane.  Any
+        """Greedy generation (or image / transcript synthesis) via the
+        arch's lane.  Any
         number of prompts is accepted: overflow beyond the slot count is queued and admitted
         as slots free."""
         with self._lock:
@@ -847,8 +930,9 @@ class LocalFleet:
 
         def _wrap(model, prompt, out):
             message = {"content": out["content"]}
-            if "image" in out:
-                message["image"] = out["image"]
+            for extra in ("image", "transcript"):
+                if extra in out:
+                    message[extra] = out[extra]
             return {"choices": [{"message": message,
                                  "finish_reason": "stop"}],
                     "model": model,

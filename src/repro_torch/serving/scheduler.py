@@ -1,9 +1,9 @@
-"""Disaggregated prefill/decode continuous-batching scheduler (paged).
+"""Disaggregated prefill/decode continuous-batching scheduler.
 
-The port of ``repro.serving.scheduler`` for paged text lanes.  Each fleet
-member owns one :class:`DecodeScheduler` holding a persistent decode state
-over a fixed pool of batch slots, plus a :class:`PrefillWorker` — the
-admission-side half of the lane:
+The port of ``repro.serving.scheduler``.  Each fleet member owns one
+:class:`DecodeScheduler` holding a persistent decode state over a fixed
+pool of batch slots, plus a :class:`PrefillWorker` — the admission-side
+half of the lane:
 
 * the decode worker runs ONE batched decode step per ``step()`` over all
   slots with per-row positions (KV writes, rope phases and attention masks
@@ -11,16 +11,21 @@ admission-side half of the lane:
 * the prefill worker runs admission prefills on its OWN cadence: at most
   ``prefill_budget`` prefill calls per scheduler step while decode rows
   are live (unbounded while the engine is idle), each optionally CHUNKED
-  to ``prefill_chunk`` tokens.  Prefills write KV blocks straight into the
-  shared :class:`BlockPool` under a row-private block table; when the
-  prefill completes, the table is handed to the decode worker (``ready``
-  queue → slot binding).
+  to ``prefill_chunk`` tokens.  Paged prefills write KV blocks straight
+  into the shared :class:`BlockPool` under a row-private block table; when
+  the prefill completes, the table is handed to the decode worker
+  (``ready`` queue → slot binding).  Contiguous members (SSM state,
+  cross-attention context, or ``paged=False``) run one monolithic prefill
+  into a zeroed batch-1 row cache, copied into the slot at binding
+  (``merge_row``).
 
 Correctness notes (as in the reference):
 
 * Admission prefill is right-padded to a length bucket but samples at the
   row's last real position; pad garbage beyond the prompt is overwritten
-  by decode steps before it ever enters a mask.
+  by decode steps before it ever enters a mask.  Architectures with
+  recurrent (SSM) state use EXACT lengths instead — a padded suffix would
+  corrupt the carried state.
 * Chunked prefill is token-exact vs the monolithic path: the first chunk
   (start == 0) runs local causal attention, later chunks take the
   gathered-view suffix program with per-row start offsets.  Intermediate
@@ -30,7 +35,8 @@ Correctness notes (as in the reference):
   been written yet.
 * The decode batch shape is fixed, so a freed slot still occupies a lane
   of the batched step — but it is MASKED out: its block-table row points
-  at the trash block and its sampled token is discarded.
+  at the trash block (paged) / its own overwritten row (contiguous), and
+  its sampled token is discarded.
 
 Preemption (QoS): a prefilled arrival that outranks the lowest-priority
 running row evicts it at slot-binding time; when the POOL is the
@@ -50,8 +56,7 @@ the device.  The overload detector's probes are the reference's:
 ``queue_depth`` (queued, prefilling and prefilled-waiting requests),
 ``ttft_ewma`` / ``ttft_samples`` (noted where a request's first token is
 stamped) and ``ttft_probe_ms`` (the EWMA floored by
-``PrefillWorker.oldest_wait_s``).  The contiguous cache is a later slice
-of the port.
+``PrefillWorker.oldest_wait_s``).
 """
 
 from __future__ import annotations
@@ -73,11 +78,12 @@ from repro_torch.serving.paged import BlockPool
 PREFILL_BUCKETS = (16, 64)
 
 
-def bucket_len(n: int, cap: int) -> int:
-    """Padded prefill width for a prompt of ``n`` tokens (<= cap).  The
-    reference's ``exact`` widths serve recurrent (SSM) state, not ported
-    yet."""
+def bucket_len(n: int, cap: int, *, exact: bool) -> int:
+    """Padded prefill width for a prompt of ``n`` tokens (<= cap);
+    ``exact`` (recurrent SSM state) pads nothing."""
     n = min(n, cap)
+    if exact:
+        return n
     for b in PREFILL_BUCKETS:
         if n <= b <= cap:
             return b
@@ -134,6 +140,7 @@ class SequenceState:
     slo: str = ""                   # SLO class label (observability)
     folded: int = 0                 # out tokens folded into ids by _park
     parks: int = 0                  # times this sequence was preempted
+    cross: Optional[object] = None  # per-request cross-attn context (1,T,d)
 
     @property
     def ttft_ms(self) -> float:
@@ -150,16 +157,21 @@ class SequenceState:
 @dataclass
 class PrefillJob:
     """One admission prefill in flight (or completed, awaiting a slot).
-    The job owns its block list/table from ``_begin`` until slot binding
-    hands both to the decode worker."""
+
+    Paged jobs own their block list/table from ``_begin`` until slot
+    binding hands both to the decode worker; contiguous jobs carry the
+    prefilled batch-1 row cache to merge at binding."""
     seq: SequenceState
     plen: int = 0                   # row position after the full prefill
     first: Optional[int] = None     # sampled first token (set at completion)
+    # paged state
     row: Optional[List[int]] = None
     trow: Optional[np.ndarray] = None
     start: int = 0                  # next prompt index to prefill
     hashes: List[int] = field(default_factory=list)
     matched: int = 0
+    # contiguous state
+    row_cache: Optional[dict] = None
 
     @property
     def done(self) -> bool:
@@ -240,9 +252,12 @@ class PrefillWorker:
 
     def _begin(self, seq: SequenceState) -> Optional[PrefillJob]:
         s, m = self.sched, self.sched.m
-        # over-long prompts keep the TAIL: generation needs the newest context
+        # over-long prompts keep the TAIL on both cache layouts: generation
+        # needs the newest context
         seq.ids = seq.ids[-m.prompt_cap:]
         n = len(seq.ids)
+        if not s.paged:
+            return PrefillJob(seq=seq, plen=n)
         blk = m.block_tokens
         hashes = chain_hashes(seq.ids.tolist(), blk)
         matched = s.pool.match(hashes)
@@ -286,11 +301,28 @@ class PrefillWorker:
     def _chunk_step(self, job: PrefillJob):
         s, m = self.sched, self.sched.m
         seq = job.seq
+        if not s.paged:
+            # contiguous: one monolithic bucketed (or exact) prefill into a
+            # fresh batch-1 cache (a job prefilled ahead of a free slot
+            # holds its own until binding merges it into the shared cache)
+            n = job.plen
+            width = bucket_len(n, m.prompt_cap, exact=m.exact_prefill)
+            toks = np.zeros((1, width), np.int32)
+            toks[0, :n] = seq.ids
+            args = [m.params, s._dev(toks), s._dev([n]), s._init_cache(1)]
+            if s._make_cross is not None:
+                args.append(seq.cross if seq.cross is not None
+                            else s._make_cross(1))
+            nxt, job.row_cache = m.prefill_row(*args)
+            job.first = int(nxt[0])
+            seq.prefill_tokens = n
+            s.prefill_tokens += n
+            return
         n = job.plen
         clen = n - job.start
         if self.chunk is not None:
             clen = min(clen, self.chunk)
-        width = bucket_len(clen, m.prompt_cap)
+        width = bucket_len(clen, m.prompt_cap, exact=False)
         toks = np.zeros((1, width), np.int32)
         toks[0, :clen] = seq.ids[job.start:job.start + clen]
         fn = m.prefill_paged_fresh if job.start == 0 \
@@ -314,9 +346,10 @@ class PrefillWorker:
             seq.t_first = time.perf_counter()
             s._note_ttft(seq.ttft_ms)
         seq.out.append(job.first)
-        # KV for every full prompt block is now written: make the blocks
-        # discoverable for prefix matching
-        s.pool.register(job.row[:len(job.hashes)], job.hashes)
+        if s.paged:
+            # KV for every full prompt block is now written: make the
+            # blocks discoverable for prefix matching
+            s.pool.register(job.row[:len(job.hashes)], job.hashes)
         # priority-ordered handoff (FIFO within a class; parked resumes
         # ahead of same-priority)
         q = self.ready
@@ -434,7 +467,7 @@ class DraftWorker:
             trow = s._dev(s.tbl[i][None])
             while start < end:
                 clen = min(end - start, m.prompt_cap)
-                width = bucket_len(clen, m.prompt_cap)
+                width = bucket_len(clen, m.prompt_cap, exact=False)
                 toks = np.zeros((1, width), np.int32)
                 toks[0, :clen] = full[start:start + clen]
                 fn = self.rt.prefill_fresh if start == 0 \
@@ -473,16 +506,19 @@ class DraftWorker:
 
 
 class DecodeScheduler:
-    """Slot-based continuous-batching scheduler for one paged member.
+    """Slot-based continuous-batching scheduler for one fleet member.
 
-    ``member`` supplies the model and the serving steps; the scheduler
-    owns the persistent decode cache, the slot bookkeeping, the admission
-    queue, and the prefill worker.  Not thread-safe by itself —
+    ``member`` supplies the model and the serving steps (``member.paged``
+    picks the cache layout); the scheduler owns the persistent decode
+    cache, the slot bookkeeping, the admission queue, and the prefill
+    worker.  ``make_cross_fn(b)`` gives a default cross-attention context
+    for members that attend to one (zero patches for a vision member's
+    requests that bring none).  Not thread-safe by itself —
     :class:`LocalFleet` serializes access.
     """
 
     def __init__(self, member, *, gen_tokens: int, init_cache_fn,
-                 prefill_chunk: Optional[int] = None,
+                 make_cross_fn=None, prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = 1,
                  prefill_lookahead: int = 0,
                  spec: Optional[SpecRuntime] = None):
@@ -490,12 +526,17 @@ class DecodeScheduler:
         self.gen_tokens = gen_tokens
         self.slots = member.batch
         self.max_seq = member.max_seq
+        self._init_cache = init_cache_fn
+        self._make_cross = make_cross_fn
         self.cache = init_cache_fn(self.slots)
         self.device = self.cache["pos"].device
-        self.pool = BlockPool(member.num_blocks, member.block_tokens)
-        self.max_blocks = member.max_seq // member.block_tokens
-        self.tbl = np.zeros((self.slots, self.max_blocks), np.int32)
-        self.row_blocks: List[Optional[List[int]]] = [None] * self.slots
+        self.cache["pos"] = self._dev(np.zeros((self.slots,)))
+        self.paged = bool(getattr(member, "paged", False))
+        if self.paged:
+            self.pool = BlockPool(member.num_blocks, member.block_tokens)
+            self.max_blocks = member.max_seq // member.block_tokens
+            self.tbl = np.zeros((self.slots, self.max_blocks), np.int32)
+            self.row_blocks: List[Optional[List[int]]] = [None] * self.slots
         self.pos = np.zeros((self.slots,), np.int64)
         self.last_tok = np.zeros((self.slots,), np.int32)
         self.active: List[Optional[SequenceState]] = [None] * self.slots
@@ -521,7 +562,7 @@ class DecodeScheduler:
         # speculative decoding
         self.drafter: Optional[DraftWorker] = None
         self.spec_enabled = True
-        if spec is not None:
+        if spec is not None and self.paged:
             self.drafter = DraftWorker(self, spec)
         self.spec_rounds = 0             # wide verify dispatches
         self.spec_offered = 0            # draft tokens offered to verify
@@ -536,14 +577,18 @@ class DecodeScheduler:
     # -- public API ---------------------------------------------------------
 
     def submit(self, ids: np.ndarray, *, max_new: Optional[int] = None,
-               priority: int = 0, slo: str = "") -> int:
+               cross: Optional[object] = None, priority: int = 0,
+               slo: str = "") -> int:
         """Queue one tokenized prompt; returns a request id whose result
-        is delivered by a later ``step()``.  ``priority`` orders admission
-        (higher first, FIFO within a class) and arms preemption."""
+        is delivered by a later ``step()``.  ``cross`` is an optional
+        per-request cross-attention context (the audio lane's frames);
+        members without cross-attention ignore it.  ``priority`` orders
+        admission (higher first, FIFO within a class) and arms
+        preemption."""
         self._rid += 1
         seq = SequenceState(rid=self._rid, ids=np.asarray(ids, np.int32),
                             max_new=max_new or self.gen_tokens,
-                            t_submit=time.perf_counter(),
+                            t_submit=time.perf_counter(), cross=cross,
                             priority=priority, slo=slo)
         self._enqueue(seq)
         return self._rid
@@ -638,9 +683,9 @@ class DecodeScheduler:
 
     def _bind_ready(self, done: List[SequenceState]):
         """Hand completed prefills to the decode worker: assign a slot,
-        point it at the prefilled blocks, seed pos/last_tok.  Preemption
-        fires here when a ready row outranks the lowest-priority running
-        row."""
+        point it at the prefilled KV (block table / merged row cache), seed
+        pos/last_tok.  Preemption fires here when a ready row outranks the
+        lowest-priority running row."""
         m = self.m
         w = self.prefill
         while w.ready:
@@ -650,8 +695,11 @@ class DecodeScheduler:
             slot = self.active.index(None)
             job = w.ready.popleft()
             seq = job.seq
-            self.row_blocks[slot] = job.row
-            self.tbl[slot] = job.trow
+            if self.paged:
+                self.row_blocks[slot] = job.row
+                self.tbl[slot] = job.trow
+            else:
+                self.cache = m.merge_row(self.cache, job.row_cache, slot)
             seq.slot = slot
             self.pos[slot] = job.plen
             self.last_tok[slot] = job.first
@@ -686,9 +734,9 @@ class DecodeScheduler:
         """Preempt an in-flight row for a later token-exact resume through
         the normal admission path.  The last sampled token's KV was never
         written, so it is POPPED and re-derived by the resume prefill;
-        every other generated token folds into ``ids`` and the row's
-        blocks are released WITH their chain hashes (matchable at
-        resume)."""
+        every other generated token folds into ``ids`` and (paged) the
+        row's blocks are released WITH their chain hashes (matchable at
+        resume); a contiguous row is simply re-prefilled at resume."""
         slot = seq.slot
         if len(seq.out) > seq.folded:
             seq.out.pop()            # KV never written: re-derive at resume
@@ -696,7 +744,7 @@ class DecodeScheduler:
             seq.ids = np.concatenate(
                 [seq.ids, np.asarray(seq.out[seq.folded:], np.int32)])
         seq.folded = len(seq.out)
-        if self.row_blocks[slot] is not None:
+        if self.paged and self.row_blocks[slot] is not None:
             self.pool.release(self.row_blocks[slot],
                               chain_hashes(seq.ids.tolist(),
                                            self.m.block_tokens))
@@ -721,11 +769,13 @@ class DecodeScheduler:
                 return self._decode_spec(live, done, W)
         m = self.m
         dead = [i for i in range(self.slots) if self.active[i] is None]
-        # freed slots are masked out of the step: pos 0 + an all-trash
-        # table row, so their garbage KV writes land in the trash block
+        # freed slots are masked out of the step: pos 0 + (paged) an
+        # all-trash table row, so their garbage KV writes land in the trash
+        # block / their own row (overwritten at the next merge)
         assert not set(dead) & set(live)
         self.cache["pos"] = self._dev(self.pos)
-        self.cache["tbl"] = self._dev(self.tbl)
+        if self.paged:
+            self.cache["tbl"] = self._dev(self.tbl)
         toks = self._dev(self.last_tok[:, None])
         nxt, self.cache = m.decode_rows(m.params, toks, self.cache)
         nxt = nxt.cpu().numpy()
@@ -834,7 +884,8 @@ class DecodeScheduler:
         seq.t_done = time.perf_counter()
         if seq.t_first == 0.0:
             seq.t_first = seq.t_done
-        if seq.slot >= 0 and self.row_blocks[seq.slot] is not None:
+        if self.paged and seq.slot >= 0 and \
+                self.row_blocks[seq.slot] is not None:
             # register the row's full blocks (prompt AND decoded tokens),
             # then drop our references; out tokens up to ``folded`` already
             # live inside ids, and the last sampled token's KV was never

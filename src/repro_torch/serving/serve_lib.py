@@ -1,5 +1,6 @@
-"""Serving-step builders of the port: paged prefill + decode, and the
-speculative-decoding steps (wide verify, fused draft proposal).
+"""Serving-step builders of the port: contiguous (slot-row) and paged
+prefill + decode, and the speculative-decoding steps (wide verify, fused
+draft proposal).
 
 The reference jits each step and donates the cache; here every step is a
 plain callable that runs eagerly and updates the cache's KV pools in
@@ -19,6 +20,25 @@ from repro_torch.models.config import ModelConfig
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the logits (first maximum on ties, as ``jnp.argmax``)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_prefill_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
+    def prefill_step(params, tokens, cache, cross_ctx=None):
+        logits, cache = MD.prefill(cfg, params, tokens, cache, cross_ctx,
+                                   moe_impl=moe_impl)
+        return greedy(logits), cache
+    return prefill_step
+
+
+def make_prefill_row_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
+    """Length-aware prefill: ``lens`` (B,) marks each row's real prompt
+    length; the sampled token comes from each row's last real position,
+    not the right-pad tail."""
+    def prefill_row(params, tokens, lens, cache, cross_ctx=None):
+        logits, cache = MD.prefill(cfg, params, tokens, cache, cross_ctx,
+                                   moe_impl=moe_impl, lens=lens)
+        return greedy(logits), cache
+    return prefill_row
 
 
 def make_decode_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
@@ -91,6 +111,41 @@ def build_spec_steps(target_cfg: ModelConfig, draft_cfg: ModelConfig, *,
                 draft_cfg, fresh=True, moe_impl=moe_impl),
             "draft_prefill_suffix": make_prefill_paged_fn(
                 draft_cfg, fresh=False, moe_impl=moe_impl)}
+
+
+@torch.no_grad()
+def merge_row(cache: dict, row_cache: dict, slot: int) -> dict:
+    """Insert a prefilled batch-1 contiguous cache into batch slot ``slot``
+    of the shared decode cache, IN PLACE, over every leaf but ``pos``
+    (scheduler-owned).  Leaves are ``(repeats, B, ...)``: the row is axis
+    1."""
+    for key, group in cache.items():
+        if key == "pos":
+            continue
+        for bkey, leaves in group.items():
+            for name, leaf in leaves.items():
+                leaf[:, slot] = row_cache[key][bkey][name][:, 0]
+    return cache
+
+
+def build_row_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep"):
+    """Continuous-batching serving steps over the contiguous cache.
+
+    Returns ``(prefill_row, decode, merge_row)``:
+
+    * ``prefill_row(params, tokens (1, L), lens (1,), cache1, [cross])`` —
+      single-row prefill into a zeroed batch-1 cache; the sampled token is
+      taken at the row's last REAL position (``lens``-aware), so bucketed
+      right-padding never conditions on pad tokens.
+    * ``decode(params, tokens (B, 1), cache)`` — one step over ALL slots;
+      ``cache["pos"]`` is a (B,) per-row position vector, so each slot
+      writes/attends at its own depth.
+    * ``merge_row(cache, row_cache, slot)`` — copy a prefilled batch-1
+      cache into batch slot ``slot`` of the shared decode cache, in place
+      (``pos`` is scheduler-owned and excluded).
+    """
+    return (make_prefill_row_fn(cfg, moe_impl=moe_impl),
+            make_decode_fn(cfg, moe_impl=moe_impl), merge_row)
 
 
 def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool,

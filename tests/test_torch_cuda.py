@@ -69,6 +69,11 @@ FLASH = [
     (2, 479, 479, 16, 8, 128, True, 0, (479, 37), 0),
     (1, 479, 479, 32, 2, 128, True, 0, None, 0),
     (2, 479, 479, 32, 2, 128, True, 256, (479, 300), 0),
+    # the whisper encoder's bidirectional self-attention over its 1500
+    # stub frames (6/6 heads of 64) and jamba's attention layer (32/8 heads
+    # of 128, causal) at the longest prefill
+    (1, 1500, 1500, 6, 6, 64, False, 0, None, 0),
+    (1, 479, 479, 32, 8, 128, True, 0, None, 0),
 ]
 
 
@@ -494,6 +499,49 @@ def test_reduced_fleet_on_card_equals_cpu(cuda):
             assert flash_attention.launches > fa
             assert paged_flash_decode.launches > pd
         assert f.schedulers[arch].pool.live_refs() == 0
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_contiguous_equals_paged_xla_tokens_on_card(cuda):
+    """``paged=False`` and ``paged=True`` (``decode_impl="xla"``) fleets of
+    one seed on the card, bf16, prompts with no shared prefix: the paged
+    decode attends over the gathered view, which has the contiguous row's
+    layout, so the tokens are identical bit for bit."""
+    from repro_torch.serving.fleet import LocalFleet
+    arch = "smollm-360m"
+    prompts = ["a b c d e f g h i j k l m n o p q r s t", "short one",
+               "the third prompt shares nothing with the other two",
+               " ".join(f"w{i}" for i in range(70))]
+    outs = {}
+    for paged in (False, True):
+        f = LocalFleet([arch], batch=2, gen_tokens=8, warmup=False,
+                       paged=paged, decode_impl="xla",
+                       arch_overrides={arch: {"attn_impl": "pallas"}},
+                       device=cuda)
+        assert f.members[arch].paged == paged
+        outs[paged] = [o["tokens"] for o in f.generate(arch, prompts)]
+    assert outs[False] == outs[True]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m",
+                                  "whisper-tiny"])
+def test_reduced_contiguous_fleet_on_card_equals_cpu(cuda, arch):
+    """Reduced float32 SSM and audio members (the contiguous cache; kernel
+    1 on jamba's attention and whisper's encoder and decoder prefill) on
+    the card vs the CPU: identical tokens."""
+    from repro_torch.serving.fleet import LocalFleet
+    ov = {arch: {"dtype": "float32", "attn_impl": "pallas"}}
+    prompts = ["a b c d e f g h i j k l m n o p q r s t", "short one",
+               "the third prompt", "transcribe my voice memo"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        f = LocalFleet([arch], batch=2, gen_tokens=6, warmup=False,
+                       arch_overrides=ov, device=dev)
+        assert not f.members[arch].paged
+        fa = flash_attention.launches
+        outs[dev] = [o["tokens"] for o in f.generate(arch, prompts)]
+        if dev == "cuda":
+            assert (flash_attention.launches > fa) == (arch != "xlstm-350m")
     assert outs["cuda"] == outs["cpu"]
 
 

@@ -140,8 +140,9 @@ def test_unported_keywords_and_device_rule(monkeypatch):
         LocalFleet([ARCH], speculative=object(), **kw)
     with pytest.raises(NotImplementedError):
         LocalFleet([ARCH], model_axis=2, **kw)
-    with pytest.raises(NotImplementedError):
-        LocalFleet([ARCH], paged=False, **kw)
+    # the contiguous cache is ported: paged=False serves from slot rows
+    contig = LocalFleet([ARCH], paged=False, **kw)
+    assert not contig.members[ARCH].paged
     with pytest.raises(NotImplementedError):
         LocalFleet([ARCH], decode_impl="shardmap", **kw)
     with pytest.raises(ValueError, match="unknown decode_impl"):
@@ -149,7 +150,10 @@ def test_unported_keywords_and_device_rule(monkeypatch):
     with pytest.raises(ValueError, match="unknown ModelConfig field"):
         LocalFleet([ARCH], arch_overrides={ARCH: {"d_modle": 8}}, **kw)
     with pytest.raises(KeyError):
-        LocalFleet(["jamba-v0.1-52b"], **kw)
+        LocalFleet(["llama3.2-1b"], **kw)    # training configs: not yet
+    # jamba (SSM state) is registered; it cannot page
+    with pytest.raises(ValueError, match="paged KV unsupported"):
+        LocalFleet(["jamba-v0.1-52b"], paged=True, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LocalFleet([ARCH], batch=2, warmup=False)

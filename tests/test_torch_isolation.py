@@ -109,7 +109,7 @@ def test_serving_a_request_loads_no_jax():
         "assert sum(m.tokens_out for m in fleet.members.values()) == 6\n"
         "from repro_torch.serving.frontend import AsyncFrontend\n"
         "router, fleet = build_router(gen_tokens=2, device='cpu', batch=2, "
-        "lanes=('text', 'image'), warmup=False)\n"
+        "lanes=('text', 'image', 'audio'), warmup=False)\n"
         "fe = AsyncFrontend(router, window_ms=5.0)\n"
         "router.overload.attach_frontend(fe)\n"
         "resp, out = fe.submit(Request([Message('user', 'Debug this python "
@@ -118,11 +118,16 @@ def test_serving_a_request_loads_no_jax():
         "2, (out, resp)\n"
         "resp, out = fe.submit(Request([Message('user', 'Draw an "
         "illustration of a fox in a forest')])).result(timeout=120)\n"
-        "fe.close()\n"
-        "router.close()\n"
         "assert out.model == 'sd' and resp.usage['vsr_lane'] == 'image', "
         "(out, resp)\n"
-        "assert fe.stats.requests == 2\n"
+        "resp, out = fe.submit(Request([Message('user', 'Transcribe this "
+        "voice memo from the standup')])).result(timeout=120)\n"
+        "assert out.model == 'whisper' and resp.usage['vsr_lane'] == "
+        "'audio', (out, resp)\n"
+        "assert 'transcript' in resp.content, resp\n"
+        "fe.close()\n"
+        "router.close()\n"
+        "assert fe.stats.requests == 3\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")

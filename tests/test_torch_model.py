@@ -172,14 +172,19 @@ def test_init_params_scheme_and_device_rule(monkeypatch):
 
 
 def test_unported_configs_raise():
+    """``attn_impl="blocked"`` and ``decode_impl="shardmap"`` still raise;
+    cross-attention context and the contiguous cache are served."""
     cfg = get_config(ARCH)
-    for bad in (dict(attn_impl="blocked"), dict(decode_impl="shardmap"),
-                dict(cross_ctx_len=4)):
+    for bad in (dict(attn_impl="blocked"), dict(decode_impl="shardmap")):
         with pytest.raises(NotImplementedError):
             MD.check_supported(cfg.replace(**bad))
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        MD.prefill(get_reduced(ARCH), None,
-                   torch.zeros((1, 4), dtype=torch.int32), {})
+    MD.check_supported(cfg.replace(cross_ctx_len=4))
+    small = get_reduced(ARCH).replace(dtype="float32")
+    model = MD.init_params(small, torch.Generator().manual_seed(0), "cpu")
+    logits, cache = MD.prefill(small, model,
+                               torch.zeros((1, 4), dtype=torch.int32),
+                               MD.init_cache(small, 1, MAX_SEQ, "cpu"))
+    assert logits.shape == (1, small.vocab_size) and int(cache["pos"]) == 4
 
 
 # ---------------------------------------------------------------------------
@@ -261,5 +266,7 @@ def test_mla_unported_options_raise():
         MD.prefill(cfg, model, toks, cache, tbl=tbl, paged_fresh=True)
     from repro_torch.models.config import BlockSpec, LayerGroup
     mamba = cfg.replace(groups=(LayerGroup((BlockSpec("mamba", "moe"),), 1),))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        MD.check_supported(mamba)
+    MD.check_supported(mamba)           # SSM mixers are served ...
+    assert not MD.paged_supported(mamba)
+    with pytest.raises(ValueError, match="mamba"):   # ... contiguous only
+        MD.init_paged_cache(mamba, 1, MAX_SEQ, NB, BLK, device="cpu")

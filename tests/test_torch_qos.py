@@ -852,10 +852,19 @@ def test_text_image_demo_router_matches_reference():
 
 
 def test_audio_lane_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve.build_dsl(("text", "audio"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve.main(["--device", "cpu", "--lanes", "text,audio"])
+    """The audio lane, once a later slice, is served: ``build_dsl`` with
+    audio is the reference's byte for byte, and ``serve.main --lanes
+    text,audio`` answers the transcription requests from the audio lane."""
+    assert serve.build_dsl(("text", "audio")) == \
+        jserve.build_dsl(("text", "audio"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--device", "cpu", "--lanes", "text,audio",
+                    "--requests", "10", "--batch", "5",
+                    "--gen-tokens", "2"])
+    out = buf.getvalue()
+    assert "-> transcribe" in out and "lane=audio" in out, out[-2000:]
+    assert "backend whisper-tiny" in out
 
 
 def test_serve_main_async_text_image_runs_to_the_end():
