@@ -150,7 +150,32 @@ Phases, in order; any failure exits non-zero before the result line:
    (1, 1500, 6, 64) once per encoder layer and audio request.  One more
    batch under the profiler, then a reduced float32 whisper fleet on the
    card against the CPU.
-13. times: kernel, plain version and one PyTorch library call at the
+13. train: checkpoint and training, launching none of the six kernels
+   (counts zeroed just before the main path and checked to stay 0).
+   (a) smollm-360m at published widths and depth (32 layers, d 960,
+   15/5 heads of 64, vocab 49 152, tied, bf16; seeded torch weights)
+   through ``repro_torch.launch.train.main``: ``TokenStream`` batch 8 x
+   seq 512, lr 3e-4, warmup 1, remat on, 12 steps; every loss finite, the
+   last below the first; step ms p50, tokens/s, the model-FLOP share (6 N
+   T over 989 TFLOP/s), peak memory.  Then the crash drill in a temporary
+   directory (deleted after): ``--ckpt-every 6 --fail-at-step 9`` must end
+   in SystemExit(17), the re-run resumes at step 6 and its final loss
+   equals the uninterrupted run's within rel 1e-4 (if the card's atomics
+   break that, both runs again with deterministic algorithms, whose step
+   time is printed); checkpoint bytes, write and read seconds; one more
+   step under the profiler.  (b) ``examples/train_moe.py``'s ~100 M-class
+   MoE (d 512, 8 attention + MoE layers of 16 experts top-2) for 4 steps
+   under "gshard" and "ep": finite losses, nonzero ``moe_lb`` /
+   ``moe_z``.  (c) ``build_router(train_adapters=True)`` (the default
+   encoder, three tasks x 60 steps): "trained", then "loaded" from the
+   same cache, equal adapters; ``train_adapter`` for jailbreak on the
+   full-width encoder (ModernBERT-base widths, max_len 512, float32, TF32
+   off) at 60 steps over 72 texts: loss below ln 3, seconds, peak memory,
+   then the fused ``classify_all`` (kernel 6) on the trained adapter.
+   (d) reduced float32 llama3.2-1b and qwen3-moe ("gshard") trained 8
+   steps on the card and on the CPU from the same weights: losses within
+   rel 1e-4; the card's checkpoint restores on the CPU bit for bit.
+14. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 (and
    at the whisper encoder's bidirectional 1500 frames and jamba's 32/8
@@ -203,7 +228,7 @@ W_SPEC = 5                                # verify width: pending token + k = 4
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
-          "mla_fleet", "contig", "router", "qos", "audio", "times")
+          "mla_fleet", "contig", "router", "qos", "audio", "train", "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -2936,7 +2961,392 @@ def phase_audio(card, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: times
+# phase 13: train — checkpoint and training
+# ---------------------------------------------------------------------------
+
+TRAIN_DEVICE = "cuda"
+TRAIN_STEPS = 12
+TRAIN_ARGS = ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch", "8",
+              "--seq", "512", "--lr", "3e-4", "--log-every", "3",
+              "--device", TRAIN_DEVICE]
+TRAIN_REL = 1e-4          # the reference test's resume tolerance
+ADAPTER_STEPS = 60        # train_or_load_adapters' default
+ADAPTER_PER_CLASS = 24
+
+
+def moe_100m():
+    """``examples/train_moe.py``'s qwen3-moe-family model: d 512, 8 attention
+    + MoE layers of 16 experts top-2, d_ff_expert 1024, vocab 8192."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    return get_config("qwen3-moe-235b-a22b").replace(
+        d_model=512, n_heads=8, n_kv_heads=4, head_dim=64, vocab_size=8192,
+        groups=(LayerGroup((BlockSpec("attn", "moe"),), 8),),
+        n_experts=16, moe_top_k=2, d_ff_expert=1024)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def crash_drill(label, ck, full):
+    """``--ckpt-every 6 --fail-at-step 9`` must end in SystemExit(17); the
+    re-run resumes at step 6.  Returns (resumed losses, the two runs'
+    stats, the step-6 checkpoint's bytes)."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as T
+    st1, st2 = {}, {}
+    try:
+        T.main(TRAIN_ARGS + ["--ckpt-dir", ck, "--ckpt-every", "6",
+                             "--fail-at-step", "9"], stats=st1)
+    except SystemExit as e:
+        check(e.code == 17, f"{label}: the injected failure exited "
+              f"{e.code!r}, not 17")
+    else:
+        check(False, f"{label}: --fail-at-step 9 did not exit")
+    check(latest_step(ck) == 6, f"{label}: latest checkpoint "
+          f"{latest_step(ck)}, not 6")
+    nbytes = dir_bytes(os.path.join(ck, "step_00000006"))
+    resumed = T.main(TRAIN_ARGS + ["--ckpt-dir", ck, "--ckpt-every", "6"],
+                     stats=st2)
+    check(len(resumed) == TRAIN_STEPS - 6,
+          f"{label}: resumed {len(resumed)} steps, not {TRAIN_STEPS - 6}")
+    rel = abs(resumed[-1] - full[-1]) / abs(full[-1])
+    log(f"{label}: resumed at 6, final loss {resumed[-1]!r} vs "
+        f"uninterrupted {full[-1]!r} (rel {rel:.3e})")
+    return resumed, rel, (st1, st2), nbytes
+
+
+def train_smollm(card):
+    """(a) smollm-360m at published widths and depth through
+    ``launch/train.py``'s ``main``: 12 steps uninterrupted, then the crash
+    drill; one more step under the profiler."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_lib import make_step_fn
+    label = "train smollm-360m"
+    cfg = get_config(ARCH)
+    n_params = sum(p.numel() for p in MD.Model(cfg, "cpu").parameters())
+    tokens = 8 * 512
+    wrappers = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts zeroed just before, read just after
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = {}
+    full = T.main(TRAIN_ARGS, stats=stats)
+    torch.cuda.synchronize()
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(counts.values()), f"{label}: the training path launched "
+          f"a kernel: {counts}")
+    check(len(full) == TRAIN_STEPS and all(map(math.isfinite, full)),
+          f"{label}: losses {full}")
+    check(full[-1] < full[0], f"{label}: the last loss {full[-1]} is not "
+          f"below the first {full[0]}")
+    steps_ms = [1e3 * t for t in stats["step_s"][1:]]
+    p50 = statistics.median(steps_ms)
+    flops = 6 * n_params * tokens
+    log(f"{label}: {n_params / 1e6:.2f} M parameters, {len(cfg.groups)} "
+        f"group x {cfg.n_blocks} layers, d {cfg.d_model}, batch 8 x seq 512 "
+        f"= {tokens} tokens a step, bf16, remat on, lr 3e-4 warmup 1; "
+        f"losses {[round(x, 4) for x in full]}")
+    log(f"{label}: step ms p50 {p50:.2f} (steps 1-{TRAIN_STEPS - 1}; step 0 "
+        f"{1e3 * stats['step_s'][0]:.1f}), {tokens / p50 * 1e3:.0f} tokens/s,"
+        f" model-FLOP share {100 * flops / (p50 / 1e3) / PEAK_OPS['bfloat16']:.2f}%"
+        f" (6 N T = {flops / 1e12:.3f} TFLOP a step over 989 TFLOP/s), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, launches "
+        f"{json.dumps(counts)} [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        resumed, rel, (st1, st2), nbytes = crash_drill(
+            label, os.path.join(tmp, "ck"), full)
+        log(f"{label}: checkpoint {nbytes} bytes ({nbytes / 2**30:.3f} GiB: "
+            f"parameters stored as float32, m, v), write s "
+            f"{[round(x, 2) for x in st1['save_s'] + st2['save_s']]}, read "
+            f"s {st2['restore_s']:.2f} [{card}]")
+        if rel > TRAIN_REL:
+            # the card's atomics (embedding and gather backward) reorder
+            # bf16 sums: retry with deterministic algorithms, not a looser
+            # tolerance, and print what determinism costs
+            log(f"{label}: rel {rel:.3e} > {TRAIN_REL}: deterministic "
+                f"algorithms on, uninterrupted run and drill again")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                dstats = {}
+                full = T.main(TRAIN_ARGS, stats=dstats)
+                d50 = statistics.median(1e3 * t for t in
+                                        dstats["step_s"][1:])
+                log(f"{label}: deterministic step ms p50 {d50:.2f} vs "
+                    f"{p50:.2f} ({d50 - p50:+.2f} ms) [{card}]")
+                resumed, rel, _, _ = crash_drill(
+                    label + " (deterministic)", os.path.join(tmp, "ck2"),
+                    full)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        check(rel <= TRAIN_REL, f"{label}: resumed final loss off by rel "
+              f"{rel:.3e} > {TRAIN_REL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+    model = MD.init_params(cfg, gen, TRAIN_DEVICE)
+    opt = init_opt_state(model)
+    step = make_step_fn(cfg, AdamWConfig(warmup_steps=1))
+    toks, labels = (torch.from_numpy(a) for a in
+                    TokenStream(cfg.vocab_size, 8, 512).batch_at(0))
+    step(model, opt, toks, labels)
+    torch.cuda.synchronize()
+    profile_run(f"{label}: profile: one train step",
+                lambda: step(model, opt, toks, labels))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_moe(card):
+    """(b) ``moe_100m`` for a few steps under ``moe_impl`` "gshard" and
+    "ep" (on one card the sort/gather path)."""
+    import torch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_lib import make_step_fn
+    cfg = moe_100m()
+    stream = TokenStream(cfg.vocab_size, 8, 256)
+    for impl in ("gshard", "ep"):
+        label = f"train moe_100m {impl}"
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+        model = MD.init_params(cfg, gen, TRAIN_DEVICE)
+        n = sum(p.numel() for p in model.parameters())
+        opt = init_opt_state(model)
+        step = make_step_fn(cfg, AdamWConfig(warmup_steps=1), moe_impl=impl)
+        out, times = [], []
+        for i in range(4):
+            toks, labels = (torch.from_numpy(a) for a in stream.batch_at(i))
+            t0 = time.perf_counter()
+            model, opt, met = step(model, opt, toks, labels)
+            out.append({k: float(met[k]) for k in
+                        ("loss", "ce", "moe_lb", "moe_z")})
+            times.append(1e3 * (time.perf_counter() - t0))
+        check(all(math.isfinite(v) for m in out for v in m.values()),
+              f"{label}: {out}")
+        check(all(m["moe_lb"] > 0 and m["moe_z"] > 0 for m in out),
+              f"{label}: aux losses vanish: {out}")
+        log(f"{label}: {n / 1e6:.1f} M parameters, batch 8 x 256; per step "
+            f"loss / ce / moe_lb / moe_z "
+            f"{[tuple(round(m[k], 4) for k in m) for m in out]}; step ms "
+            f"{[round(t, 1) for t in times]} [{card}]")
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_adapters_phase(card):
+    """(c) ``build_router(train_adapters=True)`` as ``serve.py
+    --train-adapters`` runs it (the default encoder, three tasks x 60
+    steps): "trained", then "loaded" from the same cache; then
+    ``train_adapter`` for jailbreak on the full-width encoder."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.classifiers import adapters as A
+    from repro_torch.classifiers import backend as BK
+    from repro_torch.classifiers import tokenizer as TOK
+    from repro_torch.classifiers.encoder import (MODERNBERT_BASE_32K,
+                                                 EncoderBackend,
+                                                 init_adapters, init_encoder,
+                                                 train_adapter)
+    from repro_torch.data.pipeline import router_corpus
+    from repro_torch.launch import serve
+    label = "train adapters"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_adapters_")
+    saved = BK._BACKENDS.pop("encoder", None)
+    try:
+        reports, backends = [], []
+        for want in ("trained", "loaded"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                router, fleet = serve.build_router(
+                    classifier_backend="encoder", device=TRAIN_DEVICE, batch=2,
+                    warmup=False, train_adapters=True, adapter_cache=tmp)
+            secs = time.perf_counter() - t0
+            router.close()
+            line = [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("signal adapters:")]
+            backends.append(BK._BACKENDS.pop("encoder"))
+            log(f"{label}: build_router(train_adapters=True) {line} in "
+                f"{secs:.2f} s")
+            check(line == ["signal adapters: " + ", ".join(
+                f"{t}={want}" for t in sorted(A.TRAINABLE_TASKS))],
+                f"{label}: report {line}, want every task {want}")
+            reports.append(line)
+            del router, fleet
+        for t in A.TRAINABLE_TASKS:
+            for k, v in backends[0].adapters[t].items():
+                check(torch.equal(backends[1].adapters[t][k], v),
+                      f"{label}: loaded {t}/{k} differs from the trained")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        BK._BACKENDS.pop("encoder", None)
+        if saved is not None:
+            BK._BACKENDS["encoder"] = saved
+    del backends
+    # the full-width encoder (ModernBERT-base widths, max_len 512, float32,
+    # TF32 off) at the reference's 60 steps and 24 texts per class
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(MODERNBERT_BASE_32K, max_len=ENC_MAX_LEN)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+    params = init_encoder(cfg, gen, TRAIN_DEVICE)
+    adapters = init_adapters(cfg, gen, TRAIN_DEVICE)
+    texts, labels = A.make_dataset(
+        "jailbreak", router_corpus(n_per_class=ADAPTER_PER_CLASS))
+    ids, lens = TOK.encode_batch(texts, cfg.max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sub, loss = train_adapter(cfg, params, adapters, "jailbreak",
+                              torch.from_numpy(ids), torch.from_numpy(lens),
+                              torch.from_numpy(labels),
+                              steps=ADAPTER_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss) and loss < math.log(3),
+          f"{label}: full-width jailbreak loss {loss} not below ln 3")
+    check(not any(t.requires_grad for t in sub.values()),
+          f"{label}: train_adapter returned tensors that require grad")
+    # the trained adapter serves through the fused path (kernel 6)
+    adapters["jailbreak"] = sub
+    enc = EncoderBackend(cfg, params, adapters, trained={"jailbreak",
+                                                         "domain"})
+    res = enc.classify_all(("jailbreak", "domain"), texts[:4])
+    check(len(res["jailbreak"][0]) == 4, f"{label}: {res}")
+    log(f"{label}: full-width encoder ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, max_len {cfg.max_len}, float32, TF32 off): "
+        f"train_adapter jailbreak {ADAPTER_STEPS} steps on {len(texts)} "
+        f"texts in {secs:.2f} s ({1e3 * secs / ADAPTER_STEPS:.1f} ms a step),"
+        f" final loss {loss:.6f}, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; fused classify_all labels "
+        f"{res['jailbreak'][0]} [{card}]")
+    del params, adapters, sub, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(label="train card vs cpu"):
+    """(d) Reduced float32 training on the card against the CPU: llama3.2-1b
+    and qwen3-moe (gshard), 8 steps from the same weights, losses within
+    rel 1e-4; a checkpoint written on the card restores on the CPU bit for
+    bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.bridge import (opt_state_from_jax, opt_state_to_jax,
+                                    params_from_jax, ref_tree)
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_lib import make_step_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("llama3.2-1b", "qwen3-moe-235b-a22b"):
+        cfg = get_reduced(arch).replace(dtype="float32")
+        cpu = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = MD.Model(cfg, TRAIN_DEVICE)
+        card.load_state_dict(cpu.state_dict())
+        runs = {}
+        for dev, model in (("cpu", cpu), ("cuda", card)):
+            opt = init_opt_state(model)
+            step = make_step_fn(cfg, AdamWConfig(warmup_steps=1),
+                                moe_impl="gshard")
+            stream = TokenStream(cfg.vocab_size, 2, 32)
+            losses = []
+            for i in range(8):
+                toks, labels = (torch.from_numpy(a)
+                                for a in stream.batch_at(i))
+                model, opt, met = step(model, opt, toks, labels)
+                losses.append(float(met["loss"]))
+            runs[dev] = (losses, opt)
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(runs["cuda"][0], runs["cpu"][0]))
+        check(rel <= 1e-4, f"{label} {arch}: losses card "
+              f"{runs['cuda'][0]} vs cpu {runs['cpu'][0]} (rel {rel:.3e})")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            save_checkpoint(tmp, 8, (ref_tree(card, cfg), opt_state_to_jax(
+                runs["cuda"][1], cfg, numpy=False)), {"next_step": 8})
+            target = (ref_tree(cpu, cfg),
+                      opt_state_to_jax(runs["cpu"][1], cfg, numpy=False))
+            (ptree, otree), meta = restore_checkpoint(tmp, 8, target)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        back = MD.Model(cfg, "cpu")
+        back.load_state_dict(params_from_jax(ptree))
+        opt = opt_state_from_jax(otree, "cpu")
+        for name, t in card.state_dict().items():
+            check(torch.equal(back.state_dict()[name], t.cpu()),
+                  f"{label} {arch}: restored {name} differs")
+        copt = runs["cuda"][1]
+        for name in copt.m:
+            check(torch.equal(opt.m[name], copt.m[name].cpu()) and
+                  torch.equal(opt.v[name], copt.v[name].cpu()),
+                  f"{label} {arch}: restored moments of {name} differ")
+        check(int(opt.step) == 8 and meta == {"next_step": 8},
+              f"{label} {arch}: step {int(opt.step)}, meta {meta}")
+        log(f"{label}: {arch} float32 8 steps, losses card == cpu within rel "
+            f"{rel:.3e} (last {runs['cuda'][0][-1]!r} vs "
+            f"{runs['cpu'][0][-1]!r}); the card's checkpoint restores on "
+            f"the CPU bit for bit")
+
+
+def phase_train(card, ctx):
+    """Checkpoint and training on the card: (a) smollm-360m at full width
+    through ``launch/train.py`` with the crash drill, (b) MoE training,
+    (c) adapter training, (d) reduced float32 training card == CPU."""
+    import torch
+    t_phase = time.perf_counter()
+    # what the earlier phases left unreachable (router and fleet cycles)
+    # still holds card memory until collected: free it so the peaks
+    # below are training's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: memory_allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prev, secs = t_phase, {}
+    for part, fn in (("smollm", train_smollm), ("moe", train_moe),
+                     ("adapters", train_adapters_phase),
+                     ("card vs cpu", lambda card: train_card_vs_cpu())):
+        fn(card)
+        now = time.perf_counter()
+        secs[part] = round(now - prev, 1)
+        prev = now
+    log(f"train: phase {time.perf_counter() - t_phase:.1f} s, seconds per "
+        f"part {json.dumps(secs)}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush, reps=25, warm=3):
@@ -3399,6 +3809,8 @@ def main(argv=None) -> int:
             phase_qos(card, ctx)
         if "audio" in phases:
             phase_audio(card, ctx)
+        if "train" in phases:
+            phase_train(card, ctx)
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
     except Failure as e:

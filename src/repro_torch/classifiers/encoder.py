@@ -1,7 +1,6 @@
 """MoM encoder substrate (§9, §11): one frozen bidirectional encoder +
-per-task LoRA adapters + task heads, with *batched* multi-task inference.
-The port of ``repro.classifiers.encoder`` (adapter training waits for the
-training slice).
+per-task LoRA adapters + task heads, with *batched* multi-task inference
+and adapter training.  The port of ``repro.classifiers.encoder``.
 
 Architecture = ModernBERT-class: RoPE, GeGLU, alternating global / local
 sliding-window attention (1 global : 2 local), padding masks, CLS pooling
@@ -19,6 +18,11 @@ rest keeps the reference's op order in float32: base ``h @ w`` by
 Parameters are plain dicts of tensors keyed like the reference's pytree
 (``params["layers"][i]["wq"]``, ``adapters[task]["a_q"]``), so the weight
 bridge maps them leaf for leaf.
+
+``train_adapter`` fits one task's LoRA and head (frozen base) with the
+reference's momentum SGD, under autograd through the single-adapter plain
+path ``(h @ a) @ b``; it returns detached tensors, so the fused inference
+path (kernel 6, which refuses tensors that require grad) never sees one.
 """
 
 from __future__ import annotations
@@ -282,6 +286,44 @@ def single_task_logits(cfg, params, adapters, task, ids, lens):
     if task == "pii":
         return hidden @ adapters["pii"]["head"]     # (B, S, tags)
     return cls_pool(hidden) @ adapters[task]["head"]
+
+
+# ---------------------------------------------------------------------------
+# training utility (adapters only; base frozen)
+# ---------------------------------------------------------------------------
+
+def _adapter_loss(cfg, params, sub, ids, lens, labels):
+    lora = {k: sub[k] for k in LORA_KEYS}
+    hidden = encoder_forward(cfg, params, ids, lens, lora=lora)
+    logits = cls_pool(hidden) @ sub["head"]
+    ll = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(ll, 1, labels.long()[:, None]).mean()
+
+
+def train_adapter(cfg, params, adapters, task, ids, lens, labels, *,
+                  steps=100, lr=3e-3, seed=0):
+    """Cross-entropy on the task head + LoRA (frozen base), the reference's
+    loop: ``m = 0.9 m + g; p -= lr m`` over ``a_q, b_q, a_v, b_v, head``.
+    Returns (the new adapter dict for the task, detached, on the adapters'
+    device; the last step's loss as a float)."""
+    sub = {k: v.detach().clone() for k, v in adapters[task].items()}
+    dev = sub["head"].device
+    ids, lens, labels = (torch.as_tensor(t).to(dev)
+                         for t in (ids, lens, labels))
+    m = {k: torch.zeros_like(v) for k, v in sub.items()}
+    loss = None
+    for _ in range(steps):
+        with torch.enable_grad():
+            leaves = {k: v.requires_grad_(True) for k, v in sub.items()}
+            loss = _adapter_loss(cfg, params, leaves, ids, lens, labels)
+            gs = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        with torch.no_grad():
+            for k in sub:
+                m[k] = 0.9 * m[k] + gs[k]
+                sub[k] = sub[k].detach() - lr * m[k]
+    return {k: v.detach() for k, v in sub.items()}, \
+        float(loss.detach()) if loss is not None else float("nan")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: ``--arch <id>`` resolution for every
+launcher.
 
-Lists the archs the port can serve: every fleet arch of the reference
-registry (``repro.configs.registry``) but the two training configs
-(``llama3.2-1b``, ``qwen3-moe-235b-a22b``), which arrive with training.
+Lists every arch of the reference registry (``repro.configs.registry``),
+in its order: the eight fleet archs and the two training configs
+(``llama3.2-1b``, ``qwen3-moe-235b-a22b``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ from repro_torch.models.config import ModelConfig
 # arch id -> module name
 ARCHS = {
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "llama3.2-1b": "llama3_2_1b",
     "smollm-360m": "smollm_360m",
     "glm4-9b": "glm4_9b",
     "whisper-tiny": "whisper_tiny",
@@ -26,8 +29,7 @@ ARCHS = {
 
 def _module(arch: str):
     if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; the port serves: "
-                       f"{sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.models.layers import sdpa
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
@@ -106,7 +106,9 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None, *,
 
     CUDA tensors launch the hand-written kernel (``attn_impl="pallas"``
     selects this path in the model, after the reference's name for its TPU
-    kernel); CPU tensors take ``flash_attention_plain``."""
+    kernel); CPU tensors take ``flash_attention_plain``.  Inputs that
+    require grad raise ``NotImplementedError`` under autograd."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lens, causal=causal,
                                      sliding_window=sliding_window,

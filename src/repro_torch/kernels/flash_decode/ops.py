@@ -13,7 +13,9 @@ decode is its W = 1 case); ``paged_flash_decode_mla`` and
 ``paged_flash_verify_mla`` launch ``csrc/paged_mla_decode.cu`` (the port of
 ``paged_flash_decode_mla`` and ``paged_flash_verify_mla``, absorbed-latent
 MLA) for CUDA tensors.  Each runs its ``*_plain`` version for CPU tensors,
-and any other device raises.  Each wrapper counts its own ``launches``.
+and any other device raises; inputs that require grad raise under
+autograd (``kernels.refuse_grad``).  Each wrapper counts its own
+``launches``.
 The kernels stream each row's live blocks straight out of the pool through
 the block table; only the plain versions build the gathered view.  The GQA
 kernel splits each (row, KV head) over a thread-block cluster whose size
@@ -32,7 +34,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.ops import (SMEM_LIMIT,
                                                      flash_attention,
                                                      flash_attention_plain)
@@ -106,6 +108,7 @@ def flash_decode(q, k, v, kv_len):
     kernel (non-causal, Sq = 1, ``lens=kv_len``; its launch is counted on
     ``flash_attention.launches``); CPU tensors take
     ``flash_decode_plain``."""
+    refuse_grad("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len)
     if q.device.type != "cuda":
@@ -276,6 +279,7 @@ def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
     CUDA tensors launch the hand-written kernel (``decode_impl=
     "flash_paged"`` selects this path in the model); CPU tensors take
     ``paged_flash_decode_plain``."""
+    refuse_grad("paged_flash_decode", q, kpool, vpool)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len)
     if q.device.type != "cuda":
@@ -312,6 +316,7 @@ def paged_flash_verify(q, kpool, vpool, tbl, kv_len):
     verify of t1 - t0 positions with ``kv_len - (W - t1)``, which keeps
     every position's frontier, so each position is still the decode
     launch at its frontier, bitwise.  Each chunk is one launch."""
+    refuse_grad("paged_flash_verify", q, kpool, vpool)
     if q.device.type == "cpu":
         return paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len)
     if q.device.type != "cuda":
@@ -512,6 +517,8 @@ def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
     1/sqrt(nope_hd + rope_hd).  CUDA tensors launch the hand-written
     kernel (``decode_impl="flash_paged"`` selects this path for MLA
     layers); CPU tensors take ``paged_flash_decode_mla_plain``."""
+    refuse_grad("paged_flash_decode_mla", q_lat, q_rope, ckv_pool,
+                krope_pool)
     if q_lat.device.type == "cpu":
         return paged_flash_decode_mla_plain(q_lat, q_rope, ckv_pool,
                                             krope_pool, tbl, kv_len,
@@ -545,6 +552,8 @@ def paged_flash_verify_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
     ``kv_len - W + t + 1``.  CUDA tensors launch the hand-written kernel
     (the decode kernel's body, one block per row, position and head tile);
     CPU tensors take ``paged_flash_verify_mla_plain``."""
+    refuse_grad("paged_flash_verify_mla", q_lat, q_rope, ckv_pool,
+                krope_pool)
     if q_lat.device.type == "cpu":
         return paged_flash_verify_mla_plain(q_lat, q_rope, ckv_pool,
                                             krope_pool, tbl, kv_len,

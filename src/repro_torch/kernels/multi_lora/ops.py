@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
              [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -152,7 +152,9 @@ def multi_lora(x, a, b, task_ids, w: Optional[torch.Tensor] = None, *,
     x.dtype; rows whose id is outside [0, T) get a zero delta.  CUDA
     tensors launch the hand-written kernel (float32 or bfloat16, float32
     accumulation, any row order, rank up to 64); CPU tensors take
-    ``multi_lora_plain``."""
+    ``multi_lora_plain``.  Inputs that require grad raise
+    ``NotImplementedError`` under autograd."""
+    refuse_grad("multi_lora", x, a, b)
     delta = _delta(x, a, b, task_ids, scale)
     if w is not None:
         return x @ w + delta

@@ -14,7 +14,10 @@ gate and overload detector (``build_router`` attaches one to the fleet;
 policies without a GLOBAL overload block never consult it).  ``--async``
 serves the requests through the arrival-window front end
 (``serving/frontend.AsyncFrontend``), the detector watching its queue
-too.  Not ported: ``--train-adapters`` (training) and ``--model-axis`` (multi-GPU).  Every
+too.  ``--train-adapters --classifier-backend encoder`` trains the
+encoder's signal adapters at startup, or loads them from
+``--adapter-cache`` (``classifiers/adapters.py``).  Not ported:
+``--model-axis`` (multi-GPU).  Every
 text member serves through the port's CUDA kernels
 (``decode_impl="flash_paged"``, and ``attn_impl="pallas"`` on GQA
 attention members); on the CPU they run as their plain versions.
@@ -195,13 +198,18 @@ def fleet_overrides(archs, reduced: bool = True,
 
 def build_router(reduced: bool = True, gen_tokens: int = 8,
                  classifier_backend: str = "hash", lanes=("text",),
-                 device="cuda", dtype: Optional[str] = None, **fleet_kw):
+                 device="cuda", dtype: Optional[str] = None,
+                 train_adapters: bool = False, adapter_cache: str = "",
+                 **fleet_kw):
     """The demo router over a ``LocalFleet`` of the DSL's profile archs,
     with an ``OverloadDetector`` watching the fleet as ``router.overload``.
     ``classifier_backend`` names a registered backend ("hash", "encoder"
-    or one installed with ``register_backend``); ``lanes`` selects the
-    backend lanes ("text", "image", "audio"); ``fleet_kw`` go to ``LocalFleet``
-    (``batch``, ``max_seq``, ...)."""
+    or one installed with ``register_backend``); with "encoder",
+    ``train_adapters`` trains its signal adapters (or loads them from the
+    ``adapter_cache`` checkpoint directory) before the router observes the
+    backend.  ``lanes`` selects the backend lanes ("text", "image",
+    "audio"); ``fleet_kw`` go to ``LocalFleet`` (``batch``, ``max_seq``,
+    ...)."""
     cfg, diags = compile_source(build_dsl(lanes))
     for d in diags:
         print(d)
@@ -209,6 +217,17 @@ def build_router(reduced: bool = True, gen_tokens: int = 8,
         # neural signals (domain/jailbreak/... + PII) classify on this
         # backend; embeddings stay on the hash reference backend
         cfg.classifier_backend = classifier_backend
+    if train_adapters and classifier_backend == "encoder":
+        # signal adapters train on synthetic task data (or load from the
+        # checkpoint cache on warm restarts) BEFORE the router observes
+        # the backend, so learned signals start on the encoder tier
+        from repro_torch.classifiers.adapters import train_or_load_adapters
+        from repro_torch.classifiers.backend import get_backend
+        be = get_backend("encoder", device)
+        report = train_or_load_adapters(be,
+                                        cache_dir=adapter_cache or None)
+        print("signal adapters: " +
+              ", ".join(f"{t}={v}" for t, v in sorted(report.items())))
     archs = sorted({p.arch for p in cfg.model_profiles.values() if p.arch})
     spec = None
     if cfg.speculative is not None and cfg.speculative.draft_model:
@@ -269,6 +288,14 @@ def main(argv=None):
                          "changed policies with zero downtime (atomic "
                          "program swap; in-flight batches finish on the "
                          "old program)")
+    ap.add_argument("--train-adapters", action="store_true",
+                    help="train the encoder signal adapters on synthetic "
+                         "task data at startup (encoder classifier "
+                         "backend only)")
+    ap.add_argument("--adapter-cache", default=".vsr-adapters",
+                    help="checkpoint directory for trained signal "
+                         "adapters, keyed by (task, tokenizer, dims); "
+                         "warm restarts load instead of re-training")
     ap.add_argument("--lint", choices=["strict", "warn", "off"],
                     default="strict",
                     help="Level-4 policy verifier mode: 'strict' rejects "
@@ -290,7 +317,9 @@ def main(argv=None):
     router, fleet = build_router(reduced=not args.full_width,
                                  gen_tokens=args.gen_tokens,
                                  classifier_backend=args.classifier_backend,
-                                 lanes=lanes, device=args.device)
+                                 lanes=lanes, device=args.device,
+                                 train_adapters=args.train_adapters,
+                                 adapter_cache=args.adapter_cache)
     router.policies.lint = args.lint
     if args.lint != "off":
         # verify the built-in default policy too (strict: refuse to serve

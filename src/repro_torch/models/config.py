@@ -9,7 +9,7 @@ The dataclasses are kept field-for-field identical to the reference so one
 config means the same thing in both packages.  The port serves every mixer
 (attention, bidirectional and cross-attention, MLA, mamba, mLSTM, sLSTM)
 and FFN kind (dense, MoE, none); ``models/model.py:check_supported``
-refuses only ``attn_impl="blocked"`` and ``decode_impl="shardmap"``.
+refuses only ``decode_impl="shardmap"`` (multi-device).
 """
 
 from __future__ import annotations
@@ -91,9 +91,10 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     sub_quadratic: bool = False     # eligible for the long_500k shape
-    # prefill attention: "einsum" (materialized S^2 probs, the plain path)
-    # | "pallas" (the name the reference gives its kernel; in the port it
-    # selects the hand-written CUDA flash-attention kernel)
+    # training / prefill attention: "einsum" (materialized S^2 probs, the
+    # plain path) | "blocked" (a loop over KV blocks with online softmax,
+    # O(S) memory) | "pallas" (the name the reference gives its kernel; in
+    # the port it selects the hand-written CUDA flash-attention kernel)
     attn_impl: str = "einsum"
     attn_block: int = 512
     # decode attention: "xla" (gathered view + plain sdpa) | "flash_paged"

@@ -1,5 +1,5 @@
-"""Layer primitives of the port (attention, MLA and FFN subset of
-``repro.models.layers``).
+"""Layer primitives of the port (attention, KV-blocked attention, MLA and
+FFN subset of ``repro.models.layers``).
 
 Plain functions on tensors.  Parameters come in as mappings
 (``nn.ParameterDict``) keyed like the reference's pytree.  Matmuls run in
@@ -104,6 +104,55 @@ def _attn_mask(B: int, Sq: int, Skv: int, *, causal: bool,
         else:
             mask &= ik < int(kv_len)
     return mask, per_row
+
+
+def sdpa_blocked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                 sliding_window: int = 0, q_offset: int = 0,
+                 kv_len: Optional[int] = None, block: int = 512) -> Tensor:
+    """Flash-form attention in plain tensor ops: a loop over KV blocks of
+    ``block`` keys with online softmax (float32 running max ``m``, sum
+    ``l`` and accumulator ``acc``), the reference's op order.  Never
+    materialises (Sq, Skv) probabilities.  When ``Skv % block`` is nonzero
+    it is ``sdpa``.  ``q_offset`` and ``kv_len`` are uniform over the
+    batch (ints)."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if Skv % block != 0:
+        return sdpa(q, k, v, causal=causal, sliding_window=sliding_window,
+                    q_offset=q_offset, kv_len=kv_len)
+    nb = Skv // block
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    iq = torch.arange(Sq, device=dev) + int(q_offset)            # (Sq,)
+    hv = v.shape[-1]
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, Sq, hv), dtype=torch.float32, device=dev)
+    for bi in range(nb):
+        kc = k[:, bi * block:(bi + 1) * block]
+        vc = v[:, bi * block:(bi + 1) * block]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * scale
+        ik = bi * block + torch.arange(block, device=dev)         # (block,)
+        mask = torch.ones((Sq, block), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (ik[None, :] <= iq[:, None])
+        if sliding_window > 0:
+            mask = mask & (ik[None, :] > iq[:, None] - sliding_window)
+        if kv_len is not None:
+            mask = mask & (ik[None, :] < int(kv_len))
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(vc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hv).to(q.dtype)
 
 
 def sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,

@@ -1,13 +1,25 @@
-"""Fleet-model stack of the port: init / prefill / decode / verify for
-every mixer of the fleet configs — attention (causal, bidirectional,
-cross), MLA, Mamba, mLSTM and sLSTM — with dense, MoE or no FFN, and the
-whisper encoder (``repro.models.model``'s twin).
+"""Model stack of the port: init / training forward and loss / prefill /
+decode / verify for every mixer of the configs — attention (causal,
+bidirectional, cross), MLA, Mamba, mLSTM and sLSTM — with dense, MoE or
+no FFN, and the whisper encoder (``repro.models.model``'s twin).
+
+Modes
+  full     training forward (``forward``, ``loss_fn``), no cache
+  prefill  full-sequence forward that also writes the serving cache
+  decode   one-token step against the cache
+  verify   W tokens per row against the paged cache (speculative decoding)
 
 The reference scans each layer group with ``lax.scan``; here the model is
 an ``nn.Module`` whose ``blocks`` ``ModuleList`` unrolls every group's
 repeats (the encoder's in ``enc_blocks``), and the stack is a Python loop.
 Parameters keep the reference's names and (d_in, d_out) layout, so
-``bridge.params_from_jax`` maps one onto the other leaf for leaf.
+``bridge.params_from_jax`` / ``params_to_jax`` map one onto the other leaf
+for leaf.  They are made with ``requires_grad=False``: the serving entry
+points run under ``torch.no_grad``, and training (``training.train_lib``)
+turns gradients on for its step.  ``remat=True`` recomputes each group
+period's activations in the backward pass
+(``torch.utils.checkpoint``), the granularity of the reference's
+``jax.checkpoint`` of its scan body.
 
 Two serving caches, both the reference's pytree as a dict of tensors
 stacked over each group's repeats:
@@ -35,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -49,7 +62,7 @@ from repro_torch.models.config import BlockSpec, LayerGroup, ModelConfig
 
 Tensor = torch.Tensor
 
-ATTN_IMPLS = ("einsum", "pallas")
+ATTN_IMPLS = ("einsum", "blocked", "pallas")
 DECODE_IMPLS = ("xla", "flash_paged")
 
 
@@ -58,8 +71,8 @@ SSM_MIXERS = ("mamba", "mlstm", "slstm")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not have:
-    ``attn_impl="blocked"`` (a training path) and ``decode_impl=
-    "shardmap"`` (multi-device).  Every mixer and FFN kind is served."""
+    ``decode_impl="shardmap"`` (multi-device).  Every attention lowering,
+    mixer and FFN kind is ported."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not "
                                   f"ported; the port has {ATTN_IMPLS}")
@@ -396,8 +409,14 @@ def _paged_view(pool: Tensor, tbl: Tensor) -> Tensor:
 
 def _sdpa_impl(cfg: ModelConfig, q, k, v, *, causal: bool,
                sliding_window: int):
-    """Fresh-prefill attention: the CUDA flash kernel under ``attn_impl=
-    "pallas"`` (its plain version on the CPU), else ``layers.sdpa``."""
+    """Training and fresh-prefill attention: ``layers.sdpa_blocked`` under
+    ``attn_impl="blocked"``; the CUDA flash kernel under ``"pallas"`` (its
+    plain version on the CPU; it refuses inputs that require grad, as the
+    reference's kernel has no gradient); else ``layers.sdpa``."""
+    if cfg.attn_impl == "blocked" and q.shape[1] > 1:
+        return L.sdpa_blocked(q, k, v, causal=causal,
+                              sliding_window=sliding_window,
+                              block=cfg.attn_block)
     if cfg.attn_impl == "pallas" and q.shape[1] > 1:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                None, causal=causal,
@@ -499,7 +518,8 @@ def _cross_attn(cfg, p: Block, h, cross_ctx, mode, bcache):
 
 def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
               paged_fresh=False):
-    """MLA in prefill, decode or verify mode.  ``bcache`` is ``{"ckv",
+    """MLA in every mode (training: ``_mla_naive``, no cache).  In prefill,
+    decode or verify mode ``bcache`` is ``{"ckv",
     "krope"}`` for this layer: paged pools when ``tbl`` is given, else the
     contiguous rows (prefill: ``_mla_naive`` on the local latents; decode:
     absorbed ``mla_attention`` over the row).  Written in place.
@@ -518,6 +538,8 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     mp = p.mla
     q_nope, q_rope = L.mla_q(mp, cfg, x, rope)
     c_kv, k_rope = L.mla_kv_latent(mp, cfg, x, rope)
+    if mode == "full" or bcache is None:
+        return h + _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope)
     if tbl is None:   # the contiguous cache
         _cache_write(bcache["ckv"], c_kv, pos)
         _cache_write(bcache["krope"], k_rope, pos)
@@ -565,7 +587,8 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
 
 
 def _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope, q_offset=None):
-    """Prefill MLA: expand latents to per-head K/V, standard SDPA.
+    """Training / prefill MLA: expand latents to per-head K/V, standard
+    SDPA.
     ``q_offset`` ((B,) per-row start positions) is the paged-suffix case:
     K/V come from the gathered block view, queries sit at an offset."""
     B, Sq, H, _ = q_nope.shape
@@ -584,7 +607,10 @@ def _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope, q_offset=None):
 
 def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
                  mode: str, bcache, pos, tbl, moe_impl: str,
-                 paged_fresh=False) -> Tensor:
+                 paged_fresh=False) -> Tuple[Tensor, Optional[tuple]]:
+    """One block.  Returns (h, aux): aux is the MoE FFN's ``(moe_lb,
+    moe_z)`` in the training mode ("full"), else None (the serving modes
+    do not compute them)."""
     mixer = p.spec.mixer
     if mixer in ("attn", "bidir_attn"):
         h = _self_attn(cfg, p, h, rope, mode, bcache, pos, tbl,
@@ -607,53 +633,83 @@ def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
                 bcache[leaf].copy_(t)
         h = h + y
     if p.spec.ffn == "none":
-        return h
+        return h, None
     x = L.rms_norm(h, p.norm2, cfg.norm_eps)
     if p.spec.ffn == "moe":
-        return h + M.moe_apply(p.moe, cfg, x, moe_impl)
-    return h + L.ffn_apply(p.ffn, x)
+        y, aux = M.moe_apply(p.moe, cfg, x, moe_impl, aux=mode == "full")
+        return h + y, None if aux is None else (aux["moe_lb"], aux["moe_z"])
+    return h + L.ffn_apply(p.ffn, x), None
+
+
+def _period(cfg: ModelConfig, blocks, h: Tensor, lb, z, **kw):
+    """One repeat of a group's period: its blocks in turn, adding each MoE
+    block's aux losses to the running ``lb`` / ``z`` (None outside the
+    training mode)."""
+    for blk, bc in blocks:
+        h, aux = _apply_block(cfg, blk, h, bcache=bc, **kw)
+        if aux is not None:
+            lb, z = lb + aux[0], z + aux[1]
+    return h, lb, z
 
 
 def _run_groups(cfg: ModelConfig, blocks: nn.ModuleList,
                 groups: Sequence[LayerGroup], h: Tensor, *, rope, mode,
                 cache, pos, tbl, moe_impl: str, cross_ctx=None,
-                paged_fresh=False) -> Tensor:
+                paged_fresh=False, remat: bool = False
+                ) -> Tuple[Tensor, Optional[dict]]:
     """The stack, unrolled: group i, repeat r, period slot j is block
     ``n``; its cache leaves are ``cache["g{i}"]["b{j}"][leaf][r]`` (views,
-    written in place), or None when ``cache`` is (the encoder)."""
+    written in place), or None when ``cache`` is (training, the encoder).
+
+    Returns (h, aux): in the training mode ("full") aux holds the float32
+    ``moe_lb`` / ``moe_z`` totals over every block, as the reference's
+    scan carry, and ``remat`` recomputes each repeat of a period in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant); in the
+    serving modes aux is None."""
+    train = mode == "full"
+    lb = z = None
+    if train:
+        lb = torch.zeros((), dtype=torch.float32, device=h.device)
+        z = torch.zeros((), dtype=torch.float32, device=h.device)
+    kw = dict(rope=rope, cross_ctx=cross_ctx, mode=mode, pos=pos, tbl=tbl,
+              moe_impl=moe_impl, paged_fresh=paged_fresh)
     n = 0
     for i, g in enumerate(groups):
         gc = cache[f"g{i}"] if cache is not None else None
         for r in range(g.repeats):
+            period = []
             for j in range(len(g.period)):
                 bc = None if gc is None else \
                     {leaf: t[r] for leaf, t in gc[f"b{j}"].items()}
-                h = _apply_block(cfg, blocks[n], h, rope=rope,
-                                 cross_ctx=cross_ctx, mode=mode, bcache=bc,
-                                 pos=pos, tbl=tbl, moe_impl=moe_impl,
-                                 paged_fresh=paged_fresh)
+                period.append((blocks[n], bc))
                 n += 1
-    return h
+            if remat and train:
+                h, lb, z = checkpoint(_period, cfg, period, h, lb, z,
+                                      use_reentrant=False, **kw)
+            else:
+                h, lb, z = _period(cfg, period, h, lb, z, **kw)
+    return h, ({"moe_lb": lb, "moe_z": z} if train else None)
 
 
 def _encode(cfg: ModelConfig, params: Model, frames: Tensor,
-            moe_impl: str) -> Tensor:
+            moe_impl: str, remat: bool = False) -> Tensor:
     """Run the encoder stack over stub frame embeddings (whisper):
     bidirectional self-attention over every frame, no cache."""
     Sf = frames.shape[1]
     rope = L.rope_tables(torch.arange(Sf, device=frames.device),
                          cfg.head_dim, cfg.rope_theta)
-    h = _run_groups(cfg, params.enc_blocks, cfg.encoder_groups, frames,
-                    rope=rope, mode="full", cache=None, pos=0, tbl=None,
-                    moe_impl=moe_impl)
+    h, _ = _run_groups(cfg, params.enc_blocks, cfg.encoder_groups, frames,
+                       rope=rope, mode="full", cache=None, pos=0, tbl=None,
+                       moe_impl=moe_impl, remat=remat)
     return L.rms_norm(h, params.enc_final_norm, cfg.norm_eps)
 
 
-def _prepare_cross(cfg: ModelConfig, params: Model, cross_ctx, moe_impl):
+def _prepare_cross(cfg: ModelConfig, params: Model, cross_ctx, moe_impl,
+                   remat: bool = False):
     if cross_ctx is None:
         return None
     if cfg.is_encoder_decoder:
-        return _encode(cfg, params, cross_ctx, moe_impl)
+        return _encode(cfg, params, cross_ctx, moe_impl, remat)
     return cross_ctx  # vision: pre-embedded patches (stub frontend)
 
 
@@ -681,6 +737,53 @@ def _take_last(h: Tensor, lens) -> Tensor:
 # public API
 # ===========================================================================
 
+def forward(cfg: ModelConfig, params: Model, tokens: Tensor,
+            cross_ctx: Optional[Tensor] = None, *, moe_impl: str = "gshard",
+            remat: bool = False) -> Tuple[Tensor, dict]:
+    """Training forward: tokens (B,S) -> (logits (B,S,V), aux ``{"moe_lb",
+    "moe_z"}`` summed over the MoE blocks).  Differentiable: gradients
+    reach every parameter that requires grad.  ``cross_ctx`` (B, T, d):
+    stub audio frames that the encoder runs over first (whisper, with
+    ``remat`` too), or a vision member's pre-embedded patches.  Under
+    ``attn_impl="pallas"`` a forward that needs gradients raises
+    ``NotImplementedError`` (the kernel has none, as the reference's)."""
+    check_supported(cfg)
+    h = params.embed[tokens.long()]
+    rope = L.rope_tables(torch.arange(tokens.shape[1], device=h.device),
+                         _rope_dim(cfg), cfg.rope_theta)
+    cross = _prepare_cross(cfg, params, cross_ctx, moe_impl, remat)
+    h, aux = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                         mode="full", cache=None, pos=0, tbl=None,
+                         moe_impl=moe_impl, cross_ctx=cross, remat=remat)
+    return _logits(cfg, params, h), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Model, tokens: Tensor, labels: Tensor,
+            cross_ctx: Optional[Tensor] = None, *, moe_impl: str = "gshard",
+            remat: bool = True, lb_coef: float = 0.01, z_coef: float = 1e-3):
+    """Next-token cross entropy (+ MoE aux losses), the reference's
+    ``loss_fn``: logits in float32, labels (B,S) with -100 entries masked,
+    the aux losses averaged over ``n_moe`` (the MoE blocks of one period
+    of each group, at least 1, as the reference counts them).  Returns
+    (total, {"ce", "moe_lb", "moe_z"}), float32 scalars."""
+    logits, aux = forward(cfg, params, tokens, cross_ctx, moe_impl=moe_impl,
+                          remat=remat)
+    logits = logits.float()
+    labels = labels.long()
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    n_moe = max(1, sum(1 for g in cfg.groups for s in g.period
+                       if s.ffn == "moe"))
+    total = ce + lb_coef * aux["moe_lb"] / n_moe + \
+        z_coef * aux["moe_z"] / n_moe
+    metrics = {"ce": ce, "moe_lb": aux["moe_lb"] / n_moe,
+               "moe_z": aux["moe_z"] / n_moe}
+    return total, metrics
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
             cross_ctx: Optional[Tensor] = None, *, moe_impl: str = "gshard",
@@ -691,8 +794,7 @@ def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
 
     ``lens`` (B,) gives each row's real prompt length when rows are
     right-padded: logits are taken at ``lens - 1``.  ``moe_impl`` selects
-    the MoE FFN as in the reference (its default "gshard" is not ported:
-    MoE configs pass "ep", "ep_serve" or "sort").
+    the MoE FFN as in the reference.
 
     Contiguous (no ``tbl``): the prompt starts at position 0 of the
     contiguous ``cache`` (``init_cache``) and ``cache["pos"]`` becomes its
@@ -714,18 +816,18 @@ def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
         rope = L.rope_tables(torch.arange(Sq, device=dev), _rope_dim(cfg),
                              cfg.rope_theta)
         cross = _prepare_cross(cfg, params, cross_ctx, moe_impl)
-        h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
-                        mode="prefill", cache=cache, pos=0, tbl=None,
-                        moe_impl=moe_impl, cross_ctx=cross)
+        h, _ = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                           mode="prefill", cache=cache, pos=0, tbl=None,
+                           moe_impl=moe_impl, cross_ctx=cross)
         cache["pos"] = torch.full((), Sq, dtype=torch.int32, device=dev)
         return _logits(cfg, params, _take_last(h, lens))[:, 0, :], cache
     pos = (torch.zeros((B,), dtype=torch.long, device=dev) if start is None
            else torch.as_tensor(start, device=dev).long())
     positions = pos[:, None] + torch.arange(Sq, device=dev)[None, :]
     rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
-    h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
-                    mode="prefill", cache=cache, pos=pos, tbl=tbl,
-                    moe_impl=moe_impl, paged_fresh=paged_fresh)
+    h, _ = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                       mode="prefill", cache=cache, pos=pos, tbl=tbl,
+                       moe_impl=moe_impl, paged_fresh=paged_fresh)
     return _logits(cfg, params, _take_last(h, lens))[:, 0, :], cache
 
 
@@ -746,9 +848,9 @@ def decode_step(cfg: ModelConfig, params: Model, tokens: Tensor,
     h = params.embed[tokens.long()]
     rope_pos = pos[None] if pos.dim() == 0 else pos[:, None]
     rope = L.rope_tables(rope_pos, _rope_dim(cfg), cfg.rope_theta)
-    h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
-                    mode="decode", cache=cache, pos=pos, tbl=tbl,
-                    moe_impl=moe_impl)
+    h, _ = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                       mode="decode", cache=cache, pos=pos, tbl=tbl,
+                       moe_impl=moe_impl)
     cache["pos"] = cache["pos"] + 1
     return _logits(cfg, params, h)[:, 0, :], cache
 
@@ -778,7 +880,7 @@ def verify(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
     h = params.embed[tokens.long()]
     positions = pos[:, None] + torch.arange(W, device=pos.device)[None, :]
     rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
-    h = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
-                    mode="verify", cache=cache, pos=pos, tbl=tbl,
-                    moe_impl=moe_impl)
+    h, _ = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
+                       mode="verify", cache=cache, pos=pos, tbl=tbl,
+                       moe_impl=moe_impl)
     return _logits(cfg, params, h), cache

@@ -1,17 +1,24 @@
-"""Mixture-of-Experts FFN of the port, for serving (``repro.models.moe``'s
-twin, the single-device sort/gather path).
+"""Mixture-of-Experts FFN of the port (``repro.models.moe``'s twin, the
+single-device paths).
 
 Routing: float32 router logits, softmax, top-k, top-k probabilities
-renormalised.  Expert compute: tokens are sorted into per-expert capacity
-slots, run through a batched SwiGLU (``torch.bmm``, as the reference
-leaves it to XLA einsums) and combined back, plus the shared experts.
+renormalised; the auxiliary losses (Switch-style load balance ``moe_lb``
+and router z-loss ``moe_z``) as the reference's ``_route``.  Two expert
+paths:
 
-On one device the reference's ``moe_impl`` "ep", "ep_serve" and "sort"
-all compute ``moe_sort_local`` (with no mesh, or over a one-way "model"
-axis, their ``shard_map`` body is ``_sort_core`` over every expert with
-identity collectives), so the port runs that for all three.  The
-capacity-dropping "gshard" path and the router's auxiliary losses feed
-training and arrive with the training slice.
+* ``gshard`` — capacity-based dispatch/combine einsums over token groups
+  of ``GROUP_SIZE`` (the training default);
+* ``sort`` — tokens sorted into per-expert capacity slots, a batched
+  SwiGLU (``torch.bmm``, as the reference leaves it to XLA einsums) and
+  a deterministic combine.  On one device the reference's "ep" and
+  "ep_serve" compute this too (with no mesh, or over a one-way "model"
+  axis, their ``shard_map`` body is ``_sort_core`` over every expert with
+  identity collectives), so the port runs it for all three.
+
+Both add the shared experts.  ``moe_apply`` returns ``(out, aux)`` as the
+reference's; the serving callers pass ``aux=False`` (the aux losses are
+then not computed, as XLA drops them from a jitted serving step) and
+drop it.
 """
 
 from __future__ import annotations
@@ -26,22 +33,95 @@ from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 
+GROUP_SIZE = 256  # tokens per dispatch group (gshard impl)
 SORT_IMPLS = ("sort", "ep", "ep_serve")
+IMPLS = ("gshard",) + SORT_IMPLS
 
 
-def _route(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor):
-    """x: (N, d) -> (topk_idx (N,k) int64, topk_prob (N,k) float32)."""
+def _route(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
+           aux: bool = True):
+    """x: (N, d) -> (topk_idx (N,k) int64, topk_prob (N,k) float32, aux
+    dict ``{"moe_lb", "moe_z"}`` of float32 scalars, or None when ``aux``
+    is False)."""
     logits = x.float() @ p["router"]                       # (N, E)
     probs = torch.softmax(logits, dim=-1)
     topk_prob, topk_idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
     topk_prob = topk_prob / topk_prob.sum(-1, keepdim=True).clamp_min(1e-9)
-    return topk_idx, topk_prob
+    if not aux:
+        return topk_idx, topk_prob, None
+    # aux losses (Switch-style load balance + z-loss)
+    E = cfg.n_experts
+    me = probs.mean(dim=0)                                 # (E,)
+    ce = torch.bincount(topk_idx.reshape(-1), minlength=E).float()
+    ce = ce / torch.clamp(ce.sum(), min=1.0)
+    lb_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return topk_idx, topk_prob, {"moe_lb": lb_loss, "moe_z": z_loss}
 
 
 def _shared_expert(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
     sp = p["shared"]
     return (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
 
+
+def _one_hot(idx: Tensor, n: int) -> Tensor:
+    """``jax.nn.one_hot``: float32, and an index outside [0, n) gives an
+    all-zero row (``F.one_hot`` would raise)."""
+    inside = (idx >= 0) & (idx < n)
+    return F.one_hot(torch.where(inside, idx, n).long(), n + 1)[..., :n] \
+        .float()
+
+
+# ---------------------------------------------------------------------------
+# gshard capacity dispatch
+# ---------------------------------------------------------------------------
+
+def moe_gshard(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
+               aux: bool = True):
+    """x: (B, S, d) -> (out (B, S, d), aux).  Tokens in groups of
+    ``GROUP_SIZE`` (or S when it does not divide S); each expert takes
+    at most ``C = ceil(gs * k / E * cf)`` (token, slot) pairs of a group,
+    in token order (exclusive cumsum); the rest are dropped."""
+    B, S, d = x.shape
+    gs = GROUP_SIZE if S % GROUP_SIZE == 0 else S
+    G = B * S // gs
+    xg = x.reshape(G, gs, d)
+
+    idx, prob, aux_d = _route(p, cfg, xg.reshape(-1, d), aux)
+    k, E = cfg.moe_top_k, cfg.n_experts
+    idx = idx.reshape(G, gs, k)
+    prob = prob.reshape(G, gs, k)
+
+    C = max(1, math.ceil(gs * k / E * cfg.moe_capacity_factor))
+
+    # position of each (token, slot) in its expert queue, per group
+    onehot = _one_hot(idx, E)                                  # (G,gs,k,E)
+    flat = onehot.reshape(G, gs * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat                     # 0-indexed
+    pos_e = (pos.reshape(G, gs, k, E) * onehot).sum(-1)        # (G,gs,k)
+    keep = (pos_e < C).float()
+    pos_oh = _one_hot(pos_e.long(), C)
+
+    # combine/dispatch tensors (G, gs, E, C)
+    combine = torch.einsum("gsk,gske,gskc->gsec", prob * keep, onehot,
+                           pos_oh)
+    dispatch = (combine > 0).to(x.dtype)
+
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch, xg)   # (G,E,C,d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", expert_in, p["w_up"])
+    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
+
+    out = out.reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + _shared_expert(p, x)
+    return out, aux_d
+
+
+# ---------------------------------------------------------------------------
+# sort/gather expert compute (no dispatch einsum)
+# ---------------------------------------------------------------------------
 
 def _capacity(n_tokens: int, k: int, E: int, cf: float) -> int:
     return max(4, math.ceil(n_tokens * k / E * cf))
@@ -109,36 +189,33 @@ def _sort_core(w_gate, w_up, w_down, xf: Tensor, idx: Tensor, prob: Tensor,
     return out
 
 
-def moe_sort_local(p: Mapping[str, Tensor], cfg: ModelConfig,
-                   x: Tensor) -> Tensor:
-    """Single-device sort/gather MoE (all experts local): x (B,S,d)."""
+def moe_sort_local(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
+                   aux: bool = True):
+    """Single-device sort/gather MoE (all experts local): x (B,S,d) ->
+    (out (B,S,d), aux)."""
     B, S, d = x.shape
     xf = x.reshape(-1, d)
-    idx, prob = _route(p, cfg, xf)
+    idx, prob, aux_d = _route(p, cfg, xf, aux)
     E = cfg.n_experts
     C = _capacity(xf.shape[0], cfg.moe_top_k, E, cfg.moe_capacity_factor)
     out = _sort_core(p["w_gate"], p["w_up"], p["w_down"], xf, idx, prob,
                      E, 0, C).reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + _shared_expert(p, x)
-    return out
+    return out, aux_d
 
 
 def check_impl(impl: str) -> None:
-    """Raise for a ``moe_impl`` the port does not serve."""
-    if impl in SORT_IMPLS:
-        return
-    if impl == "gshard":
-        raise NotImplementedError("moe_impl='gshard' (capacity-dropping "
-                                  "dispatch, the training default) is not "
-                                  "ported yet: serve with 'ep', 'ep_serve' "
-                                  "or 'sort'")
-    raise ValueError(f"unknown moe impl {impl!r}")
+    """Raise for an unknown ``moe_impl``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown moe impl {impl!r}")
 
 
 def moe_apply(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
-              impl: str) -> Tensor:
-    """The MoE FFN output (B,S,d); the reference also returns the aux
-    losses, which only training reads."""
+              impl: str, *, aux: bool = True):
+    """The MoE FFN: x (B,S,d) -> (out (B,S,d), aux ``{"moe_lb",
+    "moe_z"}``, or None when ``aux`` is False)."""
     check_impl(impl)
-    return moe_sort_local(p, cfg, x)
+    if impl == "gshard":
+        return moe_gshard(p, cfg, x, aux)
+    return moe_sort_local(p, cfg, x, aux)

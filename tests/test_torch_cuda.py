@@ -901,3 +901,60 @@ def test_full_width_classify_all_launches_kernel_per_layer(cuda):
             if la != lb:                     # only at a near-tie
                 top2 = np.sort(seq[t][1][i])[-2:]
                 assert top2[1] - top2[0] <= 2 * err, (t, i)
+
+
+def grad_cases(device):
+    """(name, wrapper, plain version, args, kwargs) of every kernel wrapper
+    at a small float32 shape on ``device``, its first input requiring
+    grad."""
+    g = torch.Generator().manual_seed(11)
+
+    def rn(*shape, grad=False):
+        t = torch.randn(shape, generator=g).to(device)
+        return t.requires_grad_(True) if grad else t
+
+    def i32(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=device)
+
+    tbl, scale = i32([[1, 2]]), {"scale": 0.125}
+    kp, vp = rn(3, 16, 2, 64), rn(3, 16, 2, 64)
+    ckv, krope = rn(3, 16, 64), rn(3, 16, 16)
+    return [
+        ("flash_attention", flash_attention, flash_attention_plain,
+         (rn(1, 24, 4, 64, grad=True), rn(1, 24, 2, 64), rn(1, 24, 2, 64),
+          None), {"causal": True}),
+        ("flash_decode", flash_decode, flash_decode_plain,
+         (rn(1, 4, 64, grad=True), rn(1, 24, 2, 64), rn(1, 24, 2, 64),
+          i32([20])), {}),
+        ("paged_flash_decode", paged_flash_decode, paged_flash_decode_plain,
+         (rn(1, 4, 64, grad=True), kp, vp, tbl, i32([20])), {}),
+        ("paged_flash_verify", paged_flash_verify, paged_flash_verify_plain,
+         (rn(1, 3, 4, 64, grad=True), kp, vp, tbl, i32([20])), {}),
+        ("paged_flash_decode_mla", paged_flash_decode_mla,
+         paged_flash_decode_mla_plain,
+         (rn(1, 4, 64, grad=True), rn(1, 4, 16), ckv, krope, tbl,
+          i32([20])), scale),
+        ("paged_flash_verify_mla", paged_flash_verify_mla,
+         paged_flash_verify_mla_plain,
+         (rn(1, 3, 4, 64, grad=True), rn(1, 3, 4, 16), ckv, krope, tbl,
+          i32([20])), scale),
+        ("multi_lora", multi_lora, multi_lora_plain,
+         (rn(40, 32, grad=True), rn(2, 32, 8), rn(2, 8, 32),
+          i32([0] * 20 + [1] * 20)), {}),
+    ]
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_wrappers_refuse_autograd(cuda, i):
+    """A wrapper whose input requires grad raises under autograd instead
+    of returning a result with no ``grad_fn``; under ``torch.no_grad`` it
+    launches its kernel (counted) and agrees with its plain version."""
+    name, fn, plain, args, kw = grad_cases(cuda)[i]
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        fn(*args, **kw)
+    with torch.no_grad():
+        counter = flash_attention if name == "flash_decode" else fn
+        before = counter.launches
+        out = fn(*args, **kw)
+        assert counter.launches == before + 1
+        _close(out, plain(*args, **kw), torch.float32)

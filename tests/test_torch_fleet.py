@@ -150,7 +150,10 @@ def test_unported_keywords_and_device_rule(monkeypatch):
     with pytest.raises(ValueError, match="unknown ModelConfig field"):
         LocalFleet([ARCH], arch_overrides={ARCH: {"d_modle": 8}}, **kw)
     with pytest.raises(KeyError):
-        LocalFleet(["llama3.2-1b"], **kw)    # training configs: not yet
+        LocalFleet(["no-such-arch"], **kw)
+    # the training configs are registered and serve like the rest
+    llama = LocalFleet(["llama3.2-1b"], gen_tokens=2, **kw)
+    assert len(llama.generate("llama3.2-1b", ["hi"])[0]["tokens"]) == 2
     # jamba (SSM state) is registered; it cannot page
     with pytest.raises(ValueError, match="paged KV unsupported"):
         LocalFleet(["jamba-v0.1-52b"], paged=True, **kw)
@@ -206,9 +209,11 @@ def test_mla_kernel_option_equals_plain_tokens_on_cpu():
 
 
 def test_mla_fleet_moe_impl_rule():
+    """Every moe_impl of the reference serves ("gshard", the capacity
+    dispatch, ported with training); an unknown one raises."""
     kw = dict(batch=2, warmup=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="gshard"):
-        LocalFleet([MLA_ARCH], moe_impl="gshard", **kw)
+    g = LocalFleet([MLA_ARCH], moe_impl="gshard", gen_tokens=3, **kw)
+    assert len(g.generate(MLA_ARCH, ["hello there"])[0]["tokens"]) == 3
     with pytest.raises(ValueError, match="unknown moe impl"):
         LocalFleet([MLA_ARCH], moe_impl="bogus", **kw)
     f = LocalFleet([MLA_ARCH], moe_impl="ep_serve", gen_tokens=3, **kw)

@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch`` and no line of
-``chip_smoke.py`` or ``tests/test_torch_cuda.py`` imports JAX or the JAX
-package, and serving a request — plain and speculative — extracting a
-batch's signals and deciding on them, routing a batch through
-``SemanticRouter.route_batch`` into a reduced fleet, and serving a text and
-an image request through ``AsyncFrontend`` loads neither."""
+``chip_smoke.py`` or ``tests/test_torch_cuda.py`` imports JAX, the JAX
+package or ``msgpack``, and serving a request — plain and speculative —
+extracting a batch's signals and deciding on them, routing a batch through
+``SemanticRouter.route_batch`` into a reduced fleet, serving a text and
+an image request through ``AsyncFrontend``, taking two train steps and a
+checkpoint round trip (with ``msgpack`` blocked) loads none of them."""
 
 import ast
 import os
@@ -20,7 +21,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imports(path: Path):
@@ -48,6 +49,7 @@ def test_no_jax_or_reference_imports(path):
 def test_serving_a_request_loads_no_jax():
     code = (
         "import sys\n"
+        "sys.modules['msgpack'] = None   # importing it would raise\n"
         "from repro_torch.serving.fleet import LocalFleet\n"
         "f = LocalFleet(['smollm-360m'], batch=2, gen_tokens=3, "
         "warmup=False, decode_impl='flash_paged', "
@@ -128,8 +130,37 @@ def test_serving_a_request_loads_no_jax():
         "fe.close()\n"
         "router.close()\n"
         "assert fe.stats.requests == 3\n"
+        "import tempfile, torch\n"
+        "from repro_torch.bridge import opt_state_to_jax, ref_tree\n"
+        "from repro_torch.checkpoint import (latest_step, "
+        "restore_checkpoint, save_checkpoint)\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.data.pipeline import TokenStream\n"
+        "from repro_torch.models import model as MD\n"
+        "from repro_torch.training.optimizer import AdamWConfig, "
+        "init_opt_state\n"
+        "from repro_torch.training.train_lib import make_step_fn\n"
+        "cfg = get_reduced('qwen3-moe-235b-a22b')\n"
+        "m = MD.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "opt = init_opt_state(m)\n"
+        "step = make_step_fn(cfg, AdamWConfig())\n"
+        "data = TokenStream(cfg.vocab_size, 2, 16)\n"
+        "for i in range(2):\n"
+        "    m, opt, met = step(m, opt, *map(torch.from_numpy, "
+        "data.batch_at(i)))\n"
+        "assert int(opt.step) == 2 and float(met['moe_lb']) > 0, met\n"
+        "d = tempfile.mkdtemp()\n"
+        "state = (ref_tree(m, cfg), opt_state_to_jax(opt, cfg, "
+        "numpy=False))\n"
+        "save_checkpoint(d, 2, state, {'next_step': 2})\n"
+        "back, meta = restore_checkpoint(d, latest_step(d), state)\n"
+        "assert meta == {'next_step': 2}\n"
+        "assert torch.equal(back[0]['g0']['b0']['moe']['w_up'], "
+        "state[0]['g0']['b0']['moe']['w_up'])\n"
+        "assert int(back[1].step) == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack') and sys.modules[m] is not "
+        "None)\n"
         "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

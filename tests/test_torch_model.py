@@ -172,12 +172,13 @@ def test_init_params_scheme_and_device_rule(monkeypatch):
 
 
 def test_unported_configs_raise():
-    """``attn_impl="blocked"`` and ``decode_impl="shardmap"`` still raise;
-    cross-attention context and the contiguous cache are served."""
+    """``decode_impl="shardmap"`` (multi-device) still raises;
+    ``attn_impl="blocked"`` (ported with training), cross-attention
+    context and the contiguous cache are served."""
     cfg = get_config(ARCH)
-    for bad in (dict(attn_impl="blocked"), dict(decode_impl="shardmap")):
-        with pytest.raises(NotImplementedError):
-            MD.check_supported(cfg.replace(**bad))
+    with pytest.raises(NotImplementedError):
+        MD.check_supported(cfg.replace(decode_impl="shardmap"))
+    MD.check_supported(cfg.replace(attn_impl="blocked"))
     MD.check_supported(cfg.replace(cross_ctx_len=4))
     small = get_reduced(ARCH).replace(dtype="float32")
     model = MD.init_params(small, torch.Generator().manual_seed(0), "cpu")
@@ -262,8 +263,11 @@ def test_mla_unported_options_raise():
     cache = MD.init_paged_cache(cfg, 1, MAX_SEQ, NB, BLK, device="cpu")
     toks = torch.full((1, 4), 5, dtype=torch.int32)
     tbl = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="gshard"):
-        MD.prefill(cfg, model, toks, cache, tbl=tbl, paged_fresh=True)
+    # the default moe_impl "gshard" is ported now (with training)
+    logits, _ = MD.prefill(cfg, model, toks, cache, tbl=tbl,
+                           paged_fresh=True)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
     from repro_torch.models.config import BlockSpec, LayerGroup
     mamba = cfg.replace(groups=(LayerGroup((BlockSpec("mamba", "moe"),), 1),))
     MD.check_supported(mamba)           # SSM mixers are served ...

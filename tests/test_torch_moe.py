@@ -70,12 +70,16 @@ def test_route_matches_jax(dt):
     cj, ct = _cfgs()
     jp, tp, x = _params(0, dt, ct)
     jx, tx = _pair(x.reshape(-1, ct.d_model), dt)
-    j_idx, j_prob, _ = JM._route(jp, cj, jx)
-    t_idx, t_prob = TM._route(tp, ct, tx)
+    j_idx, j_prob, j_aux = JM._route(jp, cj, jx)
+    t_idx, t_prob, t_aux = TM._route(tp, ct, tx)
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
     np.testing.assert_allclose(t_prob.numpy(), np.asarray(j_prob),
                                atol=1e-6, rtol=1e-6)
     assert t_prob.dtype == torch.float32
+    for k in ("moe_lb", "moe_z"):
+        np.testing.assert_allclose(float(t_aux[k]), float(j_aux[k]),
+                                   rtol=1e-5)
+    assert TM._route(tp, ct, tx, aux=False)[2] is None
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
@@ -97,12 +101,12 @@ def test_moe_sort_local_matches_jax(dt, S, cf):
     jp, tp, x = _params(2 + S, dt, ct)
     jx, tx = _pair(x[:, :S], dt)
     if cf is not None:
-        idx, _ = TM._route(tp, ct, tx.reshape(-1, ct.d_model))
+        idx, _, _ = TM._route(tp, ct, tx.reshape(-1, ct.d_model))
         cap = TM._capacity(idx.shape[0], ct.moe_top_k, ct.n_experts, cf)
         assert int(torch.bincount(idx.reshape(-1)).max()) > cap
     ref, _ = JM.moe_sort_local(jp, cj, jx)
     for impl in TM.SORT_IMPLS:
-        _close(ref, TM.moe_apply(tp, ct, tx, impl), dt)
+        _close(ref, TM.moe_apply(tp, ct, tx, impl)[0], dt)
 
 
 def test_dropless_output_is_the_routed_sum():
@@ -112,9 +116,9 @@ def test_dropless_output_is_the_routed_sum():
     cj, ct = _cfgs()
     _, tp, x = _params(4, "float32", ct)
     tx = torch.from_numpy(np.asarray(x, np.float32))
-    out = TM.moe_sort_local(tp, ct, tx).reshape(-1, ct.d_model)
+    out = TM.moe_sort_local(tp, ct, tx)[0].reshape(-1, ct.d_model)
     xf = tx.reshape(-1, ct.d_model)
-    idx, prob = TM._route(tp, ct, xf)
+    idx, prob, _ = TM._route(tp, ct, xf)
     want = TM._shared_expert(tp, tx).reshape(-1, ct.d_model).clone()
     for n in range(xf.shape[0]):
         for e, w in zip(idx[n].tolist(), prob[n].tolist()):
@@ -138,16 +142,18 @@ def test_combine_is_deterministic_bitwise():
     _, ct = _cfgs()
     _, tp, x = _params(5, "bfloat16", ct)
     tx = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
-    first = TM.moe_sort_local(tp, ct, tx)
+    first = TM.moe_sort_local(tp, ct, tx)[0]
     for _ in range(3):
-        assert torch.equal(TM.moe_sort_local(tp, ct, tx), first)
+        assert torch.equal(TM.moe_sort_local(tp, ct, tx)[0], first)
 
 
 def test_unported_impls_raise():
+    """Every impl of the reference is ported ("gshard" with training); an
+    unknown one still raises."""
     _, ct = _cfgs()
     _, tp, x = _params(6, "float32", ct)
     tx = torch.from_numpy(np.asarray(x, np.float32))
-    with pytest.raises(NotImplementedError, match="gshard"):
-        TM.moe_apply(tp, ct, tx, "gshard")
+    out, aux = TM.moe_apply(tp, ct, tx, "gshard")
+    assert out.shape == tx.shape and set(aux) == {"moe_lb", "moe_z"}
     with pytest.raises(ValueError, match="unknown moe impl"):
         TM.moe_apply(tp, ct, tx, "bogus")
