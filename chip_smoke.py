@@ -127,7 +127,9 @@ Phases, in order; any failure exits non-zero before the result line:
    launched, peak memory flat across the burst.  Prints premium TTFT
    p50/p99 unloaded and under the burst, submit-to-answer times, the
    counts, the detector's samples and last ``EngineLoad``, frontend
-   batches, the burst's wall and the card's busy share (profiler).  Then
+   batches, the burst's wall, and the card's busy share over the burst's
+   first ``route_batch`` (the one batch run under the profiler; its trace
+   is parsed after the whole burst).  Then
    scheduler-direct preemption round trips (``tests/test_qos.py``'s, with
    8 victims filling the slots) on the smollm-360m lane (kernel 2) and
    the deepseek-v2 lane (kernel 4): victims' tokens == an uninterrupted
@@ -175,7 +177,37 @@ Phases, in order; any failure exits non-zero before the result line:
    (d) reduced float32 llama3.2-1b and qwen3-moe ("gshard") trained 8
    steps on the card and on the CPU from the same weights: losses within
    rel 1e-4; the card's checkpoint restores on the CPU bit for bit.
-14. times: kernel, plain version and one PyTorch library call at the
+14. shard: the model axis on the one card.  (b) qwen3-moe-235b-a22b at
+   published widths (d 4096, 64/4 heads of 128, 128 experts top-8, d_ff
+   1536, vocab 151 936, qk-norm) cut to 4 of 94 layers (11.20 B
+   parameters), ``attn_impl="pallas"``, ``decode_impl="flash_paged"``,
+   ``moe_impl="ep"``, drawn from one seeded stream, served alone in
+   this process: the 12 requests, TTFT/TPOT p50, peak memory; its bf16
+   logits against the same weights in float32 over the 12 sequences'
+   decision positions (the limit of every full-width check below is
+   twice that error); then freed.
+   (a) The same member and seeds over 2 ranks (``launch.mesh.host_ranks``:
+   this process is rank 0, one worker process, both on the card, ``gloo``;
+   mesh data 1 x model 2): each rank holds about half the bytes, some
+   spec holds "model" (the reference's SHARDED_OK), the 12 requests with
+   every rank's launch counts zeroed just before and read just after
+   (kernels 1 and 2, equal on both ranks and non-zero), tokens == the
+   unsharded member's or the first divergence a near-tie of the sharded
+   logits (within the limit), the sharded-vs-unsharded logit error within
+   the limit,
+   TTFT/TPOT p50, each rank's peak memory, the decode steps' host-staged
+   collective time.  (c) ``build_serve_steps`` on the same ranks and
+   blocks: 8 rows of 64-token prompts, 32 tokens, ``shardmap`` (split-KV
+   ``smdec`` over the sequence-sharded contiguous cache) vs ``xla`` (the
+   head-sharded cache): logit error within the limit, tokens equal or a
+   near-tie.  (d)
+   ``compressed_psum_mean`` over the 2 ranks of a gradient tree shaped as
+   smollm-360m's parameters (361.8 M float32): within one quantum, ratio
+   < 0.27, seconds (host-staged).  (e) The reduced float32 sharded fleet,
+   and ``build_serve_steps`` under ``shardmap`` and ``xla`` (4 rows, 8
+   tokens), on the card's ranks == on 2 CPU ranks == unsharded on the CPU,
+   token for token.
+15. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 (and
    at the whisper encoder's bidirectional 1500 frames and jamba's 32/8
@@ -204,6 +236,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -228,7 +261,8 @@ W_SPEC = 5                                # verify width: pending token + k = 4
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
-          "mla_fleet", "contig", "router", "qos", "audio", "train", "times")
+          "mla_fleet", "contig", "router", "qos", "audio", "train", "shard",
+          "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -1029,14 +1063,12 @@ def payloads(arch=ARCH):
     return out
 
 
-def profile_run(label, fn):
-    """Device busy share, the top kernels by device time and the port's
-    own kernels (``csrc/*.cu``, in an anonymous namespace) while ``fn``
-    runs under torch.profiler.  Its overhead inflates the wall time, so
-    the busy share is a floor; only device-side events are summed (a CPU
-    op's device time repeats its kernels').  Returns (wall ms, busy ms)."""
+def profiled(fn):
+    """Run ``fn`` under torch.profiler (CPU and CUDA activities).  Returns
+    (profiler, wall s); the trace is parsed only when ``profile_report``
+    reads it, so a caller whose other threads still run can read it after
+    they finish (the parse holds the GIL for seconds)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1044,6 +1076,16 @@ def profile_run(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def profile_report(label, prof, wall):
+    """Device busy share, the top kernels by device time and the port's
+    own kernels (``csrc/*.cu``, in an anonymous namespace) of a
+    ``profiled`` run.  The profiler's overhead inflates the wall time, so
+    the busy share is a floor; only device-side events are summed (a CPU
+    op's device time repeats its kernels').  Returns (wall ms, busy ms)."""
+    from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
@@ -1056,6 +1098,11 @@ def profile_run(label, fn):
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
     return wall * 1e3, dev_us / 1e3
+
+
+def profile_run(label, fn):
+    """``profile_report`` of ``fn`` run under the profiler."""
+    return profile_report(label, *profiled(fn))
 
 
 def profile_fleet(fleet, prompts, arch=ARCH, max_new=8):
@@ -2277,8 +2324,11 @@ def qos_burst(router, label="qos"):
     premium request, the unloaded baseline (8 premium submitted
     together), then the burst (12 batch-class and 12 best-effort flood
     requests back to back, then 8 premium).  Every future's result is
-    read, so a failure on the frontend's thread fails here.  Returns the
-    report and the burst's (wall ms, busy ms) under the profiler."""
+    read, so a failure on the frontend's thread fails here.  The profiler
+    covers the burst's submission and the frontend's first
+    ``route_batch`` of it; the rest of the burst runs without it.
+    Returns the report, the burst's wall ms, and the profiled window's
+    (wall ms, busy ms)."""
     import torch
     from repro_torch.core.types import RouterOverloadError
     from repro_torch.serving.frontend import AsyncFrontend
@@ -2332,7 +2382,10 @@ def qos_burst(router, label="qos"):
         batches0 = fe.stats.batches
         futs, bounced = [], 0
 
-        def burst():
+        def burst_head():
+            # the whole burst is submitted, then the first request's
+            # future is read: it completes with the frontend's first
+            # route_batch of the burst
             nonlocal bounced
             for i in range(2 * QOS_FLOOD):
                 try:
@@ -2342,13 +2395,27 @@ def qos_burst(router, label="qos"):
                     bounced += 1
             for i in range(QOS_PREMIUM):
                 futs.append(("premium", submit(qos_request("premium", i))))
-            for _, (_, fut) in futs:
-                fut.result()
+            futs[0][1][1].result()
 
+        # the profiler runs on this thread (kineto refuses to start on the
+        # frontend's) over the burst's first route_batch; its device trace
+        # covers the frontend thread's kernels.  The trace is parsed after
+        # the whole burst: parsing it while the frontend thread serves the
+        # rest would take the GIL from it
         t0 = time.perf_counter()
-        wall, busy = profile_run(f"{label} profile: the burst through "
-                                 f"AsyncFrontend", burst)
-        rep["profile_s"] = time.perf_counter() - t0
+        prof = {"n": fe.stats.batches}
+        trace = profiled(burst_head)
+        prof["n"] = fe.stats.batches - prof["n"]
+        for _, (_, fut) in futs:
+            fut.result()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        prof["ms"] = profile_report(f"{label} profile: the burst's first "
+                                    f"route_batch", *trace)
+        rep["burst_s"] = wall / 1e3
+        rep["parse_s"] = time.perf_counter() - t1
+        rep["profiled_batch"] = prof
         rep["peak_burst"] = torch.cuda.max_memory_allocated()
     finally:
         fe.close()
@@ -2365,7 +2432,7 @@ def qos_burst(router, label="qos"):
     rep["burst"] = [(kind, fut.result()) for kind, (_, fut) in futs]
     rep["prem_wait"] = waits([p for k, p in futs if k == "premium"])
     rep["fe"] = fe
-    return rep, wall, busy
+    return rep, wall, prof["ms"]
 
 
 def check_qos_burst(label, router, fleet, rep, card):
@@ -2424,7 +2491,8 @@ def check_qos_burst(label, router, fleet, rep, card):
     fe = rep["fe"]
     log(f"{label}: burst of {rep['burst_requests']} requests "
         f"({2 * QOS_FLOOD} flood + {QOS_PREMIUM} premium; "
-        f"{rep['profile_s']:.1f} s with the profiler's processing) in "
+        f"{rep['burst_s']:.1f} s with one batch under the profiler, its "
+        f"trace parsed after it in {rep['parse_s']:.1f} s) in "
         f"{rep['batches']} frontend batches (all frontend batches "
         f"{fe.stats.batches}, mean size {fe.stats.mean_batch:.2f}, recent "
         f"sizes {list(fe.stats.batch_sizes)})")
@@ -2718,12 +2786,15 @@ def phase_qos(card, ctx):
         for fn in wrappers.values():
             fn.launches = 0
         marks["tenant"] = time.perf_counter()
-        rep, wall, busy = qos_burst(router, label)
+        rep, wall, (pwall, busy) = qos_burst(router, label)
         burst = {n: wrappers[n].launches for n in QOS_KERNELS}
         nums = check_qos_burst(label, router, fleet, rep, card)
-        log(f"{label}: burst wall {wall:.1f} ms under the profiler, card busy "
-            f"{busy:.1f} ms ({100 * busy / wall:.1f}%); launches over the "
-            f"warm-up, baseline and burst {json.dumps(burst)} [{card}]")
+        log(f"{label}: burst wall {wall:.1f} ms; under the profiler its "
+            f"submission and first route_batch ({rep['profiled_batch']['n']}"
+            f" frontend batches completed): wall {pwall:.1f} ms, card busy "
+            f"{busy:.1f} ms "
+            f"({100 * busy / pwall:.1f}%); launches over the warm-up, "
+            f"baseline and burst {json.dumps(burst)} [{card}]")
         check(all(v > 0 for v in burst.values()),
               f"{label}: a kernel of the burst's path did not launch: {burst}")
         # scheduler-direct preemption, after the frontend's thread
@@ -3346,7 +3417,531 @@ def phase_train(card, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: times
+# phase 14: shard — the model axis on one card
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "qwen3-moe-235b-a22b"
+SHARD_LAYERS = 4                # of the 94: 4 x 2.488 B + 2 x 0.622 B params
+SHARD_RANKS = 2                 # mesh data 1 x model 2 on the one card
+SHARD_KERNELS = ("flash_attention", "paged_flash_decode")
+SMDEC_ROWS, SMDEC_PROMPT = 8, 64
+# part (e): build_serve_steps on the reduced member, rows x prompt, steps
+SMDEC_SMALL = (4, 12, 8)
+# smollm-360m's parameter count: the gradient tree of the compression check
+SMOLLM_PARAMS = 361_821_120
+
+
+def shard_overrides(reduced=False):
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    ov = {"attn_impl": "pallas"}
+    if reduced:
+        ov["dtype"] = "float32"
+    else:
+        ov["groups"] = (LayerGroup((BlockSpec("attn", "moe"),),
+                                   SHARD_LAYERS),)
+    return {SHARD_ARCH: ov}
+
+
+def shard_fleet(model_axis, reduced=False, device="cuda", **kw):
+    from repro_torch.serving.fleet import LocalFleet
+    if reduced:
+        kw = dict(dict(batch=4, gen_tokens=8, warmup=False), **kw)
+    else:
+        kw = dict(dict(batch=BATCH, max_seq=MAX_SEQ, gen_tokens=GEN), **kw)
+    return LocalFleet([SHARD_ARCH], reduced=reduced, moe_impl="ep",
+                      decode_impl="flash_paged", model_axis=model_axis,
+                      arch_overrides=shard_overrides(reduced), device=device,
+                      **kw)
+
+
+def last_logits(cfg, params, mesh, ids, moe_impl="ep"):
+    """Whole-vocabulary float32 logits of the last position of ``ids``
+    (a fresh paged prefill into a scratch pool; a sharded member gathers
+    its vocab shards)."""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.serving.serve_lib import on_mesh
+    nblk = -(-len(ids) // BLOCK)
+    cache = MD.init_paged_cache(cfg, 1, MAX_SEQ, 1 + nblk, BLOCK,
+                                device="cuda", mesh=mesh)
+    tbl = torch.zeros((1, MAX_SEQ // BLOCK), dtype=torch.int32, device="cuda")
+    tbl[0, :nblk] = torch.arange(1, nblk + 1, dtype=torch.int32)
+    with on_mesh(mesh):
+        logits, _ = MD.prefill(cfg, params, torch.tensor(
+            [list(ids)], dtype=torch.int32, device="cuda"), cache,
+            moe_impl=moe_impl, tbl=tbl, paged_fresh=True)
+        logits = logits.float()
+        if logits.shape[-1] != cfg.vocab_size:
+            logits = mesh.all_gather(logits, "model", dim=-1)
+    return logits[0].cpu()
+
+
+def shard_last_logits(shard, ids):
+    return last_logits(shard.cfg, shard.params, shard.mesh, ids,
+                       shard.moe_impl)
+
+
+def shard_param_bytes(shard):
+    return sum(p.numel() * p.element_size() for p in shard.params.parameters())
+
+
+def shard_serve(label, fleet, card):
+    """The 12 requests through ``batch_call`` on ``fleet`` (sharded or
+    not), launch counts of every rank zeroed just before and read just
+    after; on a sharded fleet the decode steps' host-staged collective
+    time is read off rank 0's mesh.  Returns (tokens, prompt ids, report)."""
+    import torch
+    arch = SHARD_ARCH
+    m = fleet.members[arch]
+    sched = fleet.schedulers[arch]
+    steps, prefills = [], []
+    mesh = fleet.mesh
+    names = ("decode_rows", "prefill_paged_fresh", "prefill_paged_suffix")
+    saved = {n: getattr(m, n) for n in names}
+
+    def timed(fn, into):
+        def step(*a):
+            c0 = mesh.stats.seconds if mesh is not None else 0.0
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0,
+                         (mesh.stats.seconds - c0) if mesh is not None
+                         else 0.0))
+            return out
+        return step
+
+    m.decode_rows = timed(saved["decode_rows"], steps)
+    m.prefill_paged_fresh = timed(saved["prefill_paged_fresh"], prefills)
+    m.prefill_paged_suffix = timed(saved["prefill_paged_suffix"], prefills)
+    call = fleet.call_fn({arch: arch})
+    reqs = payloads(arch)
+    torch.cuda.synchronize()
+    fleet.rank_stats(reset=True)
+    t0 = time.perf_counter()
+    answers = call.batch_call(None, reqs, [{}] * len(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = fleet.rank_stats()
+    for n, fn in saved.items():
+        setattr(m, n, fn)
+    seqs = [sched._finished[r] for r in sorted(sched._finished)][-len(reqs):]
+    ntok = [a["usage"]["completion_tokens"] for a in answers]
+    ttft = [a["usage"]["vsr_ttft_ms"] for a in answers]
+    tpot = [(a["usage"]["vsr_service_ms"] - a["usage"]["vsr_ttft_ms"])
+            / max(1, n - 1) for a, n in zip(answers, ntok)]
+    check(len(answers) == 12 and all(n == GEN for n in ntok),
+          f"{label}: expected 12 answers of {GEN} tokens, got {ntok}")
+    check(sched.pool.live_refs() == 0, f"{label}: blocks leaked after drain")
+    launches = [{k: s["launches"][k] for k in SHARD_KERNELS} for s in stats]
+    step_ms = statistics.median(s for s, _ in steps) * 1e3
+    coll_ms = statistics.median(c for _, c in steps) * 1e3
+    pre_ms = statistics.median(s for s, _ in prefills) * 1e3
+    pre_coll = statistics.median(c for _, c in prefills) * 1e3
+    rep = {"ttft_p50": statistics.median(ttft), "prefill_ms": pre_ms,
+           "prefill_coll_ms": pre_coll,
+           "tpot_p50": statistics.median(tpot), "wall_ms": wall * 1e3,
+           "launches": launches, "decode_steps": len(steps),
+           "step_ms": step_ms, "coll_ms": coll_ms,
+           "peaks": [s["max_memory_allocated"] for s in stats],
+           "coll": [s["collectives"] for s in stats]}
+    log(f"{label}: 12 answers of {GEN} tokens in {wall * 1e3:.1f} ms, TTFT "
+        f"ms p50 {rep['ttft_p50']:.1f} max {max(ttft):.1f}, TPOT ms p50 "
+        f"{rep['tpot_p50']:.2f} max {max(tpot):.2f}; {len(steps)} decode "
+        f"steps, step ms p50 {step_ms:.2f}, of which host-staged "
+        f"collectives (gloo) p50 {coll_ms:.2f} ms; {len(prefills)} prefill "
+        f"calls, ms p50 {pre_ms:.2f}, of which collectives {pre_coll:.2f} "
+        f"ms; launches per rank "
+        f"{json.dumps(launches)}; prefill calls {sched.prefill.prefills} "
+        f"[{card}]")
+    return [list(s.out) for s in seqs], [s.ids for s in seqs], rep
+
+
+def smdec_steps(shard, prompts):
+    """One rank: ``build_serve_steps`` on the member's blocks and mesh,
+    8 rows at one depth (scalar ``pos``) through a prefill and 31 decode
+    steps, once with the head-sharded contiguous cache (``xla``) and once
+    with the sequence-sharded one (``shardmap``, ``smdec``).  Returns per
+    impl the greedy tokens, each step's whole-vocabulary top-2 gap and
+    logits, and the decode wall ms."""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.serving import serve_lib
+    out = {}
+    for impl in ("xla", "shardmap"):
+        cfg = shard.cfg.replace(decode_impl=impl)
+        _, _, sh = serve_lib.build_serve_steps(cfg, shard.mesh, SMDEC_ROWS,
+                                               MAX_SEQ)
+        cache = MD.init_cache(cfg, SMDEC_ROWS, MAX_SEQ, "cuda",
+                              mesh=shard.mesh)
+        split = any(getattr(t, "_seq_split", False)
+                    for t in cache["g0"]["b0"].values())
+        toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+        rows, gaps, logit_rows, step_s = [], [], [], []
+        with serve_lib.on_mesh(shard.mesh):
+            for i in range(GEN):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    logits, cache = MD.prefill(cfg, shard.params, toks, cache,
+                                               moe_impl=shard.moe_impl)
+                else:
+                    logits, cache = MD.decode_step(cfg, shard.params,
+                                                   nxt[:, None], cache,
+                                                   moe_impl=shard.moe_impl)
+                nxt = serve_lib.greedy(logits, cfg)
+                rows.append(nxt.tolist())       # synchronises
+                if i:
+                    step_s.append(time.perf_counter() - t0)
+                # the whole vocabulary, for the near-tie rule (untimed)
+                whole = shard.mesh.all_gather(logits.float(), "model", dim=-1)
+                top = torch.topk(whole, 2, dim=-1).values
+                gaps.append((top[:, 0] - top[:, 1]).tolist())
+                logit_rows.append(whole.cpu() if shard.mesh.rank == 0
+                                  else None)
+        out[impl] = {"tokens": rows, "gaps": gaps, "logits": logit_rows,
+                     "seq_split": split,
+                     "step_ms": statistics.median(step_s) * 1e3,
+                     "wq": str(sh["param_specs"]["blocks.0.attn.wq"])}
+    return out
+
+
+def compress_check(mesh_model):
+    """One rank: ``compressed_psum_mean`` over the ``"data"`` axis of a
+    (ranks x 1) mesh, of a gradient tree with smollm-360m's parameter
+    shapes (float32, the same on every rank: pure data parallelism).
+    Returns the max error in quanta, the ratio and the seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import (compressed_psum_mean,
+                                                     compression_ratio)
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    mesh = LM.make_host_mesh(mesh_model)
+    shapes = MD.param_shapes(get_config("smollm-360m"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = {k: torch.randn(s, generator=gen, device="cuda") * 0.01
+             for k, s in shapes.items()}
+    n = sum(g.numel() for g in grads.values())
+    torch.cuda.synchronize()
+    c0 = mesh.stats.seconds
+    t0 = time.perf_counter()
+    out = compressed_psum_mean(grads, mesh, axis="data", seed=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    worst = 0.0
+    for k, g in grads.items():
+        flat = g.reshape(-1)
+        pad = (-flat.numel()) % 256
+        blocks = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, 256)
+        quantum = (blocks.abs().amax(1, keepdim=True) / 127.0).clamp_min(
+            1e-12)
+        err = torch.nn.functional.pad((out[k] - g).reshape(-1).abs(),
+                                      (0, pad)).reshape(-1, 256)
+        worst = max(worst, float((err / quantum).max()))
+    return {"params": n, "worst_quanta": worst,
+            "ratio": compression_ratio(grads), "seconds": secs,
+            "collective_s": mesh.stats.seconds - c0,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def bf16_logit_error(cfg, params, seqs, starts):
+    """The unsharded member's own bf16 rounding error, an error bound that
+    the sharded paths do not set: the max abs difference between its bf16
+    logits (the served config) and those of the same weights in float32
+    (``attn_impl="einsum"``), over positions ``starts[i]:`` of each sequence
+    of ``seqs`` (teacher-forced, one ``forward`` each).  Converts
+    ``params`` to float32 in place."""
+    import torch
+    from repro_torch.models import model as MD
+
+    def run(c):
+        out = []
+        for seq, st in zip(seqs, starts):
+            toks = torch.tensor([list(seq)], dtype=torch.int32,
+                                device=params.embed.device)
+            with torch.no_grad():
+                out.append(MD.forward(c, params, toks, moe_impl="ep")[0]
+                           [0, st:].float())
+        return out
+
+    low = run(cfg)
+    params.float()
+    high = run(cfg.replace(dtype="float32", attn_impl="einsum"))
+    return max(float((a - b).abs().max()) for a, b in zip(low, high))
+
+
+def smdec_tokens(shard, prompts, steps, max_seq):
+    """One rank: the greedy tokens of ``build_serve_steps``' own prefill
+    and decode (scalar ``pos``) for ``prompts`` (rows at one depth) under
+    ``decode_impl`` "xla" and "shardmap"; ``shard`` a ``MemberShard`` or
+    an unsharded member (``mesh`` None)."""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.serving import serve_lib
+    out = {}
+    for impl in ("xla", "shardmap"):
+        cfg = shard.cfg.replace(decode_impl=impl)
+        prefill, decode, _ = serve_lib.build_serve_steps(
+            cfg, shard.mesh, len(prompts), max_seq, moe_impl=shard.moe_impl)
+        cache = MD.init_cache(cfg, len(prompts), max_seq, shard.device,
+                              mesh=shard.mesh)
+        nxt, cache = prefill(shard.params, torch.tensor(
+            prompts, dtype=torch.int32, device=shard.device), cache)
+        rows = [nxt.tolist()]
+        for _ in range(steps - 1):
+            nxt, cache = decode(shard.params, nxt[:, None], cache)
+            rows.append(nxt.tolist())
+        out[impl] = rows
+    return out
+
+
+def shard_near_tie(label, got, want, ids, logits_of, limit):
+    """Tokens equal, or the first divergence of each request a near-tie of
+    the sharded member's logits (``logits_of(ids)``): both tokens within
+    ``limit`` of the top logit (twice the unsharded member's bf16 logit
+    error, ``bf16_logit_error``)."""
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"{label}: tokens identical to the unsharded member's for {same}/"
+        f"{len(want)} requests")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = logits_of(list(ids[i]) + list(a[:j]))
+        top = float(lg.max())
+        off_a, off_b = top - float(lg[a[j]]), top - float(lg[b[j]])
+        ok = max(off_a, off_b) <= limit
+        log(f"  {label} request {i}: divergence at token {j}: {a[j]} vs "
+            f"{b[j]}, below the top logit by {off_a:.4e} / {off_b:.4e} "
+            f"(near-tie limit {limit:.4e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: request {i} diverges at token {j}, not at a "
+              f"near-tie")
+    return same
+
+
+def phase_shard(card, ctx):
+    """The model axis on one card: (b) qwen3-moe-235b-a22b at published
+    widths (4 of 94 layers) served alone on this process, freed; (a) the
+    same member and seeds over 2 ranks (``launch.mesh.host_ranks``, both on
+    the card, ``gloo``), the 12 requests; (c) ``build_serve_steps`` on the
+    ranks, ``shardmap`` (``smdec``) vs ``xla``; (d) ``compressed_psum_mean``
+    over the 2 ranks; (e) the reduced float32 sharded fleet, and
+    ``build_serve_steps`` under ``shardmap`` and ``xla``, on the card ==
+    on CPU ranks == unsharded.  The full-width comparisons (a, c) are held
+    to twice the unsharded member's own bf16 logit error (``tie``), read in
+    (b) against its float32 weights: two bf16 paths each within that of
+    the exact logits differ by at most twice it."""
+    import torch
+    from repro_torch.launch import mesh as LM
+    label = "shard"
+    t_phase = time.perf_counter()
+    marks = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label}: memory_allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # (b) the unsharded member, first
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fleet = shard_fleet(1)
+    m = fleet.members[SHARD_ARCH]
+    nparams = sum(p.numel() for p in m.params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in m.params.parameters())
+    log(f"{label}: unsharded {SHARD_ARCH} ({SHARD_LAYERS} of 94 layers, "
+        f"{nparams / 1e9:.3f} B params, {nbytes / 1e9:.2f} GB) built + "
+        f"warmed up in {time.perf_counter() - t0:.1f} s")
+    want, ids, rep_b = shard_serve(f"{label} unsharded", fleet, card)
+    probe = list(ids[0])
+    ref_logits = last_logits(m.cfg, m.params, None, probe)
+    peak_b = torch.cuda.max_memory_allocated()
+    log(f"{label}: unsharded max_memory_allocated {peak_b / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    e32 = bf16_logit_error(m.cfg, m.params,
+                           [list(i) + list(w[:-1]) for i, w in zip(ids, want)],
+                           [len(i) - 1 for i in ids])
+    tie = 2 * e32
+    log(f"{label}: unsharded bf16 vs float32 logits over the 12 served "
+        f"sequences' {12 * GEN} decision positions: max abs diff {e32:.4e}; "
+        f"near-tie limit of the sharded checks 2 x that = {tie:.4e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del fleet, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["unsharded"] = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with LM.host_ranks(SHARD_RANKS, device="cuda") as ctl:
+        t0 = time.perf_counter()
+        fleet = shard_fleet(SHARD_RANKS)
+        m = fleet.members[SHARD_ARCH]
+        shard = m.shard
+        build_s = time.perf_counter() - t0
+        specs = {n: p._spec for n, p in m.params.named_parameters()}
+        held = ctl.run(shard, "apply", shard_param_bytes, gather=True)
+        check(any("model" in str(s) for s in specs.values()),
+              f"{label}: no parameter spec holds 'model'")
+        log(f"{label}: intra-op threads per rank "
+            f"{ctl.gather(torch.get_num_threads)} (os.cpu_count "
+            f"{os.cpu_count()}, affinity {len(os.sched_getaffinity(0))})")
+        log(f"{label}: {SHARD_ARCH} over mesh {fleet.mesh.shape} built + "
+            f"warmed up in {build_s:.1f} s; SHARDED_OK: specs "
+            f"{sorted({str(s) for s in specs.values()})}; bytes held per "
+            f"rank {[round(b / 1e9, 3) for b in held]} GB of "
+            f"{nparams * 2 / 1e9:.2f} GB")
+        # bf16: a half of the parameters is nparams bytes (the router and
+        # the norms, replicated, are 0.1% of them)
+        check(all(abs(b - nparams) < 0.01 * nparams for b in held),
+              f"{label}: a rank does not hold about half the member: {held}")
+        got, ids_a, rep_a = shard_serve(f"{label} sharded", fleet, card)
+        check([list(i) for i in ids_a] == [list(i) for i in ids],
+              f"{label}: prompts differ between the runs")
+        la = rep_a["launches"]
+        check(all(v > 0 for r in la for v in r.values()) and la[0] == la[1],
+              f"{label}: launches per rank {la} (expected equal and "
+              f"non-zero)")
+        shard_logits = ctl.run(shard, "apply", shard_last_logits, probe)
+        err = float((shard_logits - ref_logits).abs().max())
+        log(f"{label}: last-position logits sharded vs unsharded, max abs "
+            f"diff {err:.4e} (limit {tie:.4e})")
+        check(err <= tie, f"{label}: sharded logits off the unsharded by "
+              f"{err:.4e}, above {tie:.4e}")
+        shard_near_tie(f"{label} sharded vs unsharded", got, want, ids,
+                       lambda seq: ctl.run(shard, "apply",
+                                           shard_last_logits, seq),
+                       tie)
+        stats = fleet.rank_stats()
+        peaks = [s["max_memory_allocated"] for s in stats]
+        log(f"{label}: max_memory_allocated per rank "
+            f"{[round(p / 2**30, 2) for p in peaks]} GiB vs unsharded "
+            f"{peak_b / 2**30:.2f} GiB; TTFT p50 ms sharded "
+            f"{rep_a['ttft_p50']:.1f} vs unsharded {rep_b['ttft_p50']:.1f}; "
+            f"TPOT p50 ms {rep_a['tpot_p50']:.2f} vs {rep_b['tpot_p50']:.2f};"
+            f" decode step p50 {rep_a['step_ms']:.2f} ms, host-staged "
+            f"collectives {rep_a['coll_ms']:.2f} ms "
+            f"({100 * rep_a['coll_ms'] / rep_a['step_ms']:.1f}%) [{card}]")
+        ctx["shard launches"] = {k: sum(r[k] for r in la)
+                                 for k in SHARD_KERNELS}
+        marks["sharded"] = time.perf_counter()
+        # (c) smdec on the same ranks and blocks
+        rng = __import__("numpy").random.default_rng(3)
+        prompts = rng.integers(4, m.cfg.vocab_size,
+                               (SMDEC_ROWS, SMDEC_PROMPT)).tolist()
+        res = ctl.run(shard, "apply", smdec_steps, prompts, gather=True)
+        x, s = res[0]["xla"], res[0]["shardmap"]
+        check(all(r["xla"]["tokens"] == x["tokens"] and
+                  r["shardmap"]["tokens"] == s["tokens"] for r in res),
+              f"{label}: smdec: ranks disagree on the greedy tokens")
+        check(s["seq_split"] and not x["seq_split"],
+              f"{label}: smdec: cache layouts not as asked")
+        # per row: the steps before its first divergence carry the same
+        # inputs on both paths, so their logit difference is the error of
+        # the split-KV combine; a divergence must be a near-tie of xla's
+        err, same_rows, first = 0.0, 0, []
+        for r in range(SMDEC_ROWS):
+            t = next((t for t in range(GEN) if x["tokens"][t][r] !=
+                      s["tokens"][t][r]), GEN)
+            for u in range(min(t + 1, GEN)):
+                err = max(err, float((x["logits"][u][r] -
+                                      s["logits"][u][r]).abs().max()))
+            if t == GEN:
+                same_rows += 1
+            else:
+                first.append((r, t, x["gaps"][t][r]))
+        check(err <= tie, f"{label}: smdec logits off xla's by {err:.4e}, "
+              f"above {tie:.4e}")
+        for r, t, gap in first:
+            ok = gap <= tie
+            log(f"  {label} smdec row {r}: first divergence at step {t}, "
+                f"xla's top-2 gap {gap:.4e} (near-tie limit {tie:.4e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"{label}: smdec row {r} diverges from xla at step "
+                  f"{t}, not at a near-tie")
+        log(f"{label}: smdec (build_serve_steps, {SMDEC_ROWS} rows x "
+            f"{GEN} tokens from {SMDEC_PROMPT}-token prompts): shardmap "
+            f"tokens == xla for {same_rows}/{SMDEC_ROWS} rows, logits max "
+            f"abs diff before each row's divergence {err:.4e} (limit "
+            f"{tie:.4e}); decode step "
+            f"ms p50 xla "
+            f"{x['step_ms']:.2f} vs shardmap {s['step_ms']:.2f} "
+            f"(sequence-sharded cache, split-KV combine over gloo) [{card}]")
+        del fleet, m, shard
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks["smdec"] = time.perf_counter()
+        # (d) compression of a smollm-360m-sized gradient tree
+        cres = ctl.gather(compress_check, 1)
+        c = cres[0]
+        check(c["params"] == SMOLLM_PARAMS,
+              f"{label}: gradient tree of {c['params']} params")
+        check(all(r["worst_quanta"] <= 1.0 + 1e-4 for r in cres),
+              f"{label}: compressed mean off by more than one quantum: "
+              f"{[r['worst_quanta'] for r in cres]}")
+        check(c["ratio"] < 0.27, f"{label}: compression ratio {c['ratio']}")
+        log(f"{label}: compressed_psum_mean over {SHARD_RANKS} ranks of "
+            f"{c['params'] / 1e6:.1f} M float32 (smollm-360m's tree): max "
+            f"error {max(r['worst_quanta'] for r in cres):.4f} quanta, "
+            f"ratio {c['ratio']:.4f}, {c['seconds']:.2f} s of which "
+            f"host-staged gloo collectives {c['collective_s']:.2f} s "
+            f"[{card}]")
+        marks["compression"] = time.perf_counter()
+        # (e) the reduced float32 sharded fleet on the card
+        small = shard_fleet(SHARD_RANKS, reduced=True)
+        small.rank_stats(reset=True)
+        card_toks = [o["tokens"] for o in small.generate(
+            SHARD_ARCH, prompts_of(SHARD_ARCH))]
+        small_launch = [{k: s["launches"][k] for k in SHARD_KERNELS}
+                        for s in small.rank_stats()]
+        rows, plen, steps = SMDEC_SMALL
+        vocab = small.members[SHARD_ARCH].cfg.vocab_size
+        sm_prompts = __import__("numpy").random.default_rng(4).integers(
+            4, vocab, (rows, plen)).tolist()
+        max_seq = small.members[SHARD_ARCH].shard.max_seq
+        card_sm = ctl.run(small.members[SHARD_ARCH].shard, "apply",
+                          smdec_tokens, sm_prompts, steps, max_seq,
+                          gather=True)
+        del small
+    with LM.host_ranks(SHARD_RANKS, device="cpu") as ctl:
+        cpu = shard_fleet(SHARD_RANKS, reduced=True, device="cpu")
+        cpu_toks = [o["tokens"] for o in cpu.generate(
+            SHARD_ARCH, prompts_of(SHARD_ARCH))]
+        cpu_sm = ctl.run(cpu.members[SHARD_ARCH].shard, "apply",
+                         smdec_tokens, sm_prompts, steps, max_seq,
+                         gather=True)
+        del cpu
+    whole = shard_fleet(1, reduced=True, device="cpu")
+    plain = [o["tokens"] for o in whole.generate(SHARD_ARCH,
+                                                 prompts_of(SHARD_ARCH))]
+    wm = whole.members[SHARD_ARCH]
+    plain_sm = smdec_tokens(types.SimpleNamespace(
+        cfg=wm.cfg, mesh=None, params=wm.params, device=torch.device("cpu"),
+        moe_impl="ep"), sm_prompts, steps, max_seq)["xla"]
+    log(f"{label}: reduced float32 sharded fleet, card ranks == CPU ranks: "
+        f"{card_toks == cpu_toks}, == unsharded CPU: {card_toks == plain}; "
+        f"card launches per rank {json.dumps(small_launch)}")
+    check(card_toks == cpu_toks == plain,
+          f"{label}: reduced sharded fleet tokens differ (card / CPU ranks / "
+          f"unsharded)")
+    sm = [r[impl] for r in card_sm + cpu_sm for impl in ("xla", "shardmap")]
+    log(f"{label}: reduced float32 build_serve_steps ({rows} rows x {steps} "
+        f"tokens from {plen}-token prompts), shardmap and xla on every card "
+        f"and CPU rank == unsharded xla: "
+        f"{all(t == plain_sm for t in sm)}")
+    check(all(t == plain_sm for t in sm),
+          f"{label}: reduced build_serve_steps tokens differ (shardmap / xla "
+          f"on card or CPU ranks / unsharded)")
+    check(all(v > 0 for r in small_launch for v in r.values()),
+          f"{label}: a kernel did not launch on the reduced card ranks")
+    marks["reduced"] = time.perf_counter()
+    prev, secs = t_phase, {}
+    for k, t in marks.items():
+        secs[k] = round(t - prev, 1)
+        prev = t
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s, seconds per "
+        f"part {json.dumps(secs)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush, reps=25, warm=3):
@@ -3811,6 +4406,10 @@ def main(argv=None) -> int:
             phase_audio(card, ctx)
         if "train" in phases:
             phase_train(card, ctx)
+        if "shard" in phases:
+            phase_shard(card, ctx)
+            for k, v in ctx["shard launches"].items():
+                launches[k] = launches.get(k, 0) + v
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
     except Failure as e:

@@ -14,6 +14,7 @@ is exact; ``load_state_dict`` casts them back to the model's dtype.
 over each group's repeats into the reference's nested tree
 (``ref_tree`` keeps torch tensors of each leaf's dtype; ``params_to_jax``
 gives numpy arrays, bf16 widened to float32 since numpy has no bf16).
+``shard_params`` cuts whole weights into one rank's blocks.
 ``opt_state_to_jax`` / ``opt_state_from_jax`` map ``training.optimizer``'s
 ``OptState`` (``m``/``v`` keyed like the model's parameters) onto the
 reference's ``OptState(step, m, v)`` trees and back.  Checkpoints go
@@ -169,6 +170,27 @@ def opt_state_from_jax(tree, device="cuda"):
 
     return OptState(torch.as_tensor(np.array(step), dtype=torch.int32)
                     .to(dev), named(m), named(v))
+
+
+def shard_params(named: Mapping[str, torch.Tensor], cfg: ModelConfig, mesh,
+                 rank: int = None) -> dict:
+    """Whole weights (a ``Model``, or ``state_dict()`` / ``params_from_jax``
+    keys) -> the blocks that ``rank`` of ``mesh`` holds under
+    ``sharding.rules.param_specs`` (``rank`` defaults to the mesh's own):
+    each block a contiguous tensor carrying its ``_spec``, ready for a
+    sharded model's ``load_state_dict``."""
+    from repro_torch.sharding import rules as R
+    if isinstance(named, Model):
+        named = dict(named.named_parameters())
+    coords = mesh.coords if rank is None else mesh.coords_of(rank)
+    out = {}
+    for name, t in named.items():
+        spec = R.param_spec(cfg, name, tuple(t.shape), mesh)
+        block = t.detach()[R.block_slices(tuple(t.shape), spec, mesh,
+                                          coords)].contiguous()
+        block._spec = spec
+        out[name] = block
+    return out
 
 
 def model_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda") -> Model:

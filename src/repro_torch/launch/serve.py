@@ -6,6 +6,8 @@ requests.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --async \
         --lanes text,image,audio
     PYTHONPATH=src python -m repro_torch.launch.serve --full-width --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --model-axis 2 --batch 8
 
 The port of ``repro.launch.serve``: the same demo DSL (``build_dsl``,
 with the image and audio lanes' modality routes spliced in by ``--lanes
@@ -16,8 +18,9 @@ serves the requests through the arrival-window front end
 (``serving/frontend.AsyncFrontend``), the detector watching its queue
 too.  ``--train-adapters --classifier-backend encoder`` trains the
 encoder's signal adapters at startup, or loads them from
-``--adapter-cache`` (``classifiers/adapters.py``).  Not ported:
-``--model-axis`` (multi-GPU).  Every
+``--adapter-cache`` (``classifiers/adapters.py``).  ``--model-axis N``
+brings up N ranks (``launch.mesh.host_ranks``, or joins ``torchrun``'s)
+and shards every member over them, the fleet and router on rank 0.  Every
 text member serves through the port's CUDA kernels
 (``decode_impl="flash_paged"``, and ``attn_impl="pallas"`` on GQA
 attention members); on the CPU they run as their plain versions.
@@ -278,6 +281,11 @@ def main(argv=None):
                          "(text,image,audio): non-text lanes add the "
                          "modality signal routes, lane-typed endpoints and "
                          "the diffusion/transcription fleet members")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="model-parallel axis of the fleet's mesh: brings "
+                         "up that many ranks (launch.mesh.host_ranks; under "
+                         "torchrun, the launcher's) and shards every member "
+                         "over them, serving from rank 0")
     ap.add_argument("--policy-dir", default="",
                     help="directory of *.vsr policy files loaded as named "
                          "tenant policies (name = file stem); demo "
@@ -312,14 +320,24 @@ def main(argv=None):
                          f"{ONE_CARD_MOE_LAYERS} MoE layers) instead of the "
                          "reduced configs")
     args = ap.parse_args(argv)
+    if args.model_axis > 1:
+        from repro_torch.launch.mesh import host_ranks
+        with host_ranks(args.model_axis, device=args.device) as ctl:
+            if ctl is not None:          # rank 0; the others served it
+                _serve(args)
+        return
+    _serve(args)
 
+
+def _serve(args):
     lanes = tuple(l.strip() for l in args.lanes.split(",") if l.strip())
     router, fleet = build_router(reduced=not args.full_width,
                                  gen_tokens=args.gen_tokens,
                                  classifier_backend=args.classifier_backend,
                                  lanes=lanes, device=args.device,
                                  train_adapters=args.train_adapters,
-                                 adapter_cache=args.adapter_cache)
+                                 adapter_cache=args.adapter_cache,
+                                 model_axis=args.model_axis)
     router.policies.lint = args.lint
     if args.lint != "off":
         # verify the built-in default policy too (strict: refuse to serve
@@ -404,6 +422,12 @@ def main(argv=None):
               f"calls={m.calls:3d} "
               f"tokens={m.tokens_out} prompts/drain={m.slots_per_call:.2f} "
               f"occupancy={lane.occupancy:.2f}")
+    if fleet.mesh is not None:
+        stats = fleet.rank_stats()
+        print(f"  mesh {fleet.mesh.shape}: host-staged collectives "
+              + ", ".join(f"rank {r} {s['collectives']['calls']} calls "
+                          f"{s['collectives']['seconds'] * 1e3:.1f} ms"
+                          for r, s in enumerate(stats)))
     from repro_torch.core.observability import METRICS
     print("\nmetrics scrape (head):")
     print("\n".join(METRICS.scrape().splitlines()[:12]))

@@ -8,8 +8,10 @@ the repeats into one ``nn.ModuleList`` of blocks (layer ``n`` of group
 The dataclasses are kept field-for-field identical to the reference so one
 config means the same thing in both packages.  The port serves every mixer
 (attention, bidirectional and cross-attention, MLA, mamba, mLSTM, sLSTM)
-and FFN kind (dense, MoE, none); ``models/model.py:check_supported``
-refuses only ``decode_impl="shardmap"`` (multi-device).
+and FFN kind (dense, MoE, none) and every decode path (``xla``,
+``flash_paged``, ``shardmap``); ``models/model.py:check_supported``
+refuses only an unknown one, and ``check_shardable`` the members that do
+not shard over a model axis yet (SSM state, cross-attention).
 """
 
 from __future__ import annotations
@@ -98,9 +100,10 @@ class ModelConfig:
     attn_impl: str = "einsum"
     attn_block: int = 512
     # decode attention: "xla" (gathered view + plain sdpa) | "flash_paged"
-    # (in the port: the CUDA block-table decode kernel)
+    # (in the port: the CUDA block-table decode kernel) | "shardmap" (a
+    # sharded member's split-KV decode over a sequence-sharded cache)
     decode_impl: str = "xla"
-    # sharding-rule variant (unused by the single-device port)
+    # sharding-rule variant (sharding/rules.py)
     shard_variant: str = "baseline"
 
     # ------------------------------------------------------------------------

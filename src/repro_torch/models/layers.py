@@ -6,6 +6,13 @@ Plain functions on tensors.  Parameters come in as mappings
 the config dtype; norms, rope and softmax run in float32, as in the
 reference, and each function keeps the reference's op order so the two
 packages agree to rounding.
+
+A sharded member's parameters are its rank's blocks, each carrying its
+spec (``_spec``, from ``sharding.rules``).  ``W`` gathers the dims a
+block holds a ``"data"`` share of (ZeRO-3) before use; head counts are
+read off the weights, so a column-parallel projection yields the rank's
+heads, and ``row_parallel_sum`` all-reduces a row-parallel product over
+``"model"``.  Unsharded tensors pass through both unchanged.
 """
 
 from __future__ import annotations
@@ -17,11 +24,56 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import current_mesh
 
 Tensor = torch.Tensor
 IntOrTensor = Union[int, Tensor]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+# ---------------------------------------------------------------------------
+# sharded parameters
+# ---------------------------------------------------------------------------
+
+def W(t: Tensor, *, model: bool = False) -> Tensor:
+    """The block ``t`` with every dim its spec shards over ``"data"`` (and
+    over ``"model"`` when ``model``) all-gathered from the mesh that
+    ``sharding.ctx`` holds; ``t`` itself when it carries no spec."""
+    spec = getattr(t, "_spec", None)
+    if spec is None:
+        return t
+    axes = ("pod", "data", "model") if model else ("pod", "data")
+    mesh = None
+    for dim, ax in enumerate(spec):
+        if ax is None or (ax if isinstance(ax, tuple) else (ax,))[0] \
+                not in axes:
+            continue
+        mesh = mesh or current_mesh()
+        if mesh is None:
+            raise RuntimeError("a sharded parameter used outside its mesh's "
+                               "sharding_rules")
+        t = mesh.all_gather(t, ax, dim)
+    return t
+
+
+def split_over(t: Tensor, axis: str = "model") -> bool:
+    """Whether ``t``'s spec splits its leading dim over ``axis`` (a
+    row-parallel weight) on a mesh where that axis has more than one
+    rank."""
+    spec = getattr(t, "_spec", None)
+    if not spec or spec[0] != axis:
+        return False
+    mesh = current_mesh()
+    return mesh is not None and mesh.shape.get(axis, 1) > 1
+
+
+def row_parallel_sum(y: Tensor, w: Tensor) -> Tensor:
+    """``y = x @ w`` for a row-parallel ``w`` (rows split over
+    ``"model"``) is a partial sum: all-reduce it; else ``y``."""
+    if split_over(w):
+        return current_mesh().all_reduce(y, "model")
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -195,12 +247,14 @@ def sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 def attn_qkv(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
              kv_x: Tensor, rope: Optional[Tuple[Tensor, Tensor]],
              kv_rope: Optional[Tuple[Tensor, Tensor]]):
+    """q/k/v projections (the rank's heads of a column-parallel
+    projection)."""
     B, Sq, d = x.shape
     Skv = kv_x.shape[1]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
-    k = (kv_x @ p["wk"]).reshape(B, Skv, Hkv, hd)
-    v = (kv_x @ p["wv"]).reshape(B, Skv, Hkv, hd)
+    hd = cfg.head_dim
+    q = (x @ W(p["wq"])).reshape(B, Sq, -1, hd)
+    k = (kv_x @ W(p["wk"])).reshape(B, Skv, -1, hd)
+    v = (kv_x @ W(p["wv"])).reshape(B, Skv, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -212,8 +266,10 @@ def attn_qkv(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
 
 
 def attn_out(p: Mapping[str, Tensor], out: Tensor) -> Tensor:
+    """The output projection, all-reduced over ``"model"`` when ``wo`` is
+    row-parallel (each rank holds its heads' rows)."""
     B, S, H, hd = out.shape
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return row_parallel_sum(out.reshape(B, S, H * hd) @ W(p["wo"]), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +279,13 @@ def attn_out(p: Mapping[str, Tensor], out: Tensor) -> Tensor:
 def mla_q(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor, rope):
     B, S, _ = x.shape
     H, nh, rh = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    # a sharded member gathers the (contraction-split) query projections
+    # whole: every rank computes every head's query, then keeps its own
     if cfg.q_lora_rank:
-        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+        q = rms_norm(x @ W(p["wq_a"], model=True), p["q_norm"],
+                     cfg.norm_eps) @ W(p["wq_b"], model=True)
     else:
-        q = x @ p["wq"]
+        q = x @ W(p["wq"], model=True)
     q = q.reshape(B, S, H, nh + rh)
     q_nope, q_rope = q[..., :nh], q[..., nh:]
     return q_nope, apply_rope(q_rope, *rope)
@@ -234,7 +293,7 @@ def mla_q(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor, rope):
 
 def mla_kv_latent(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor, rope):
     """Compressed KV: returns (c_kv (B,S,r), k_rope (B,S,rh)) — the cache."""
-    kv = x @ p["wkv_a"]
+    kv = x @ W(p["wkv_a"], model=True)
     c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = kv[..., cfg.kv_lora_rank:]
     k_rope = apply_rope(k_rope[:, :, None, :], *rope)[:, :, 0, :]
@@ -272,14 +331,15 @@ def mla_latent_core(q_lat: Tensor, q_rope: Tensor, c_kv: Tensor,
 
 def mla_absorb_q(p: Mapping[str, Tensor], q_nope: Tensor) -> Tensor:
     """q_nope (B,Sq,H,nh) -> latent queries q_nope·Wk_b (B,Sq,H,r)."""
-    return torch.einsum("bqhn,hrn->bqhr", q_nope, p["wk_b"])
+    return torch.einsum("bqhn,hrn->bqhr", q_nope, W(p["wk_b"]))
 
 
 def mla_out(p: Mapping[str, Tensor], cfg: ModelConfig, ctx: Tensor) -> Tensor:
     """Latent context (B,Sq,H,r) -> ctx·Wv_b, then the output projection."""
     B, Sq, H, _ = ctx.shape
-    out = torch.einsum("bqhr,hrv->bqhv", ctx, p["wv_b"])
-    return out.reshape(B, Sq, H * cfg.v_head_dim) @ p["wo"]
+    out = torch.einsum("bqhr,hrv->bqhv", ctx, W(p["wv_b"]))
+    return row_parallel_sum(out.reshape(B, Sq, H * cfg.v_head_dim)
+                            @ W(p["wo"]), p["wo"])
 
 
 def mla_attention(p: Mapping[str, Tensor], cfg: ModelConfig, q_nope, q_rope,
@@ -301,4 +361,7 @@ def mla_attention(p: Mapping[str, Tensor], cfg: ModelConfig, q_nope, q_rope,
 # ---------------------------------------------------------------------------
 
 def ffn_apply(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU; column-parallel ``w_gate``/``w_up`` and row-parallel
+    ``w_down`` over ``"model"`` when the rules split ``d_ff``."""
+    y = (F.silu(x @ W(p["w_gate"])) * (x @ W(p["w_up"]))) @ W(p["w_down"])
+    return row_parallel_sum(y, p["w_down"])

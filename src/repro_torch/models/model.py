@@ -38,6 +38,20 @@ back, the port writes the cache tensors IN PLACE and returns the same
 dict.  ``verify`` is the speculative-decoding forward over the paged
 cache: W tokens per row through one wide pass, logits at every position,
 each equal to a decode step's.
+
+Sharded members (``mesh=`` a rank mesh of ``launch.mesh``, installed for
+the serving steps with ``sharding.ctx.sharding_rules``): every parameter
+is the rank's block under ``sharding.rules.param_specs`` (carrying
+``_spec``); attention and FFN are tensor-parallel over ``"model"`` where
+the rules split heads or ``d_ff`` (``layers.W`` / ``row_parallel_sum``),
+MLA computes the whole query and latent and keeps its heads, the MoE is
+expert-parallel (``moe.moe_ep``), and the embedding and LM head are
+vocab-parallel (the logits come back as the rank's vocab shard;
+``serve_lib.greedy`` reduces them).  Cache tensors are the rank's block
+over ``"model"``: KV heads when they divide it, else a sequence shard,
+which ``decode_impl="shardmap"`` always takes (``smdec``); paged pools
+split heads or stay whole; the batch stays whole on every rank.  Members
+with SSM state, cross-attention or an encoder do not shard yet.
 """
 
 from __future__ import annotations
@@ -57,22 +71,26 @@ from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
                                                   paged_flash_verify_mla)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import smdec
 from repro_torch.models import ssm as S
 from repro_torch.models.config import BlockSpec, LayerGroup, ModelConfig
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.ctx import current_mesh
 
 Tensor = torch.Tensor
 
 ATTN_IMPLS = ("einsum", "blocked", "pallas")
-DECODE_IMPLS = ("xla", "flash_paged")
+DECODE_IMPLS = ("xla", "flash_paged", "shardmap")
 
 
 SSM_MIXERS = ("mamba", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have:
-    ``decode_impl="shardmap"`` (multi-device).  Every attention lowering,
-    mixer and FFN kind is ported."""
+    """Raise ``NotImplementedError`` for an attention lowering or decode
+    path the port does not have; every one of the reference's is ported
+    (``decode_impl="shardmap"`` is the split-KV decode of a sharded
+    member's contiguous cache, the plain path without a mesh)."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not "
                                   f"ported; the port has {ATTN_IMPLS}")
@@ -84,6 +102,19 @@ def check_supported(cfg: ModelConfig) -> None:
 # ===========================================================================
 # parameters
 # ===========================================================================
+
+def _device(device: DeviceLike) -> torch.device:
+    """``resolve_device``, and ``"meta"`` for shapes without storage."""
+    if str(device) == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The port's parameter names -> full shapes, without storage."""
+    return {n: tuple(p.shape)
+            for n, p in Model(cfg, "meta").named_parameters()}
+
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -174,15 +205,53 @@ def _unrolled(cfg: ModelConfig, groups: Sequence[LayerGroup], dtype, dev):
         for g in groups for _ in range(g.repeats) for spec in g.period)
 
 
+def model_split(mesh) -> int:
+    """Ranks of the mesh's ``"model"`` axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def check_shardable(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for a member the port cannot shard
+    over ``mesh``'s ``"model"`` ranks yet: SSM mixers, cross-attention,
+    an encoder, or query heads that divide the axis while KV heads do not
+    (the rank's query heads would need a slice of the KV heads)."""
+    M_ = model_split(mesh)
+    if M_ == 1:
+        return
+    mixers = {s.mixer for g in cfg.groups + cfg.encoder_groups
+              for s in g.period}
+    if mixers - {"attn", "mla"} or cfg.cross_ctx_len:
+        raise NotImplementedError(
+            f"{cfg.name}: sharding over a model axis is ported for "
+            f"attention and MLA stacks; not for {sorted(mixers)} or "
+            f"cross-attention context")
+    if "mla" in mixers and (cfg.n_heads % M_ == 0) != \
+            (cfg.n_heads * cfg.v_head_dim % M_ == 0):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA heads and wo's rows split differently over "
+            f"model axis {M_}")
+    if "attn" in mixers and cfg.n_heads % M_ == 0 \
+            and cfg.n_kv_heads % M_ != 0:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} query heads split over model axis "
+            f"{M_} but {cfg.n_kv_heads} KV heads do not")
+
+
 class Model(nn.Module):
     """Embedding, the unrolled block stack, final norm (tied or separate
     LM head); an encoder-decoder config (whisper) adds the unrolled
-    encoder ``enc_blocks`` and its ``enc_final_norm``."""
+    encoder ``enc_blocks`` and its ``enc_final_norm``.  With ``mesh`` (a
+    rank mesh) every parameter is this rank's block, carrying its spec
+    (``_spec``), full shape (``_full``) and slices (``_block``)."""
 
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda",
+                 mesh=None):
         super().__init__()
         check_supported(cfg)
-        dev = resolve_device(device)
+        check_shardable(cfg, mesh)
+        dev = _device(device)
+        if mesh is not None:
+            dev, local = torch.device("meta"), dev
         dtype = torch_dtype(cfg.dtype)
         self.cfg = cfg
         self.embed = _param((cfg.vocab_size, cfg.d_model), dtype, dev)
@@ -193,14 +262,32 @@ class Model(nn.Module):
         if cfg.encoder_groups:
             self.enc_blocks = _unrolled(cfg, cfg.encoder_groups, dtype, dev)
             self.enc_final_norm = _param((cfg.d_model,), dtype, dev)
+        if mesh is not None:
+            self._to_blocks(mesh, local)
+
+    def _to_blocks(self, mesh, dev):
+        """Replace every (meta) parameter by this rank's block on ``dev``."""
+        for name, p in list(self.named_parameters()):
+            spec = R.param_spec(self.cfg, name, p.shape, mesh)
+            local = _param(R.block_shape(p.shape, spec, mesh), p.dtype, dev)
+            local._spec = spec
+            local._full = tuple(p.shape)
+            local._block = R.block_slices(p.shape, spec, mesh, mesh.coords)
+            owner, _, leaf = name.rpartition(".")
+            (self.get_submodule(owner) if owner else self) \
+                .register_parameter(leaf, local)
 
 
 def _dense_init(p: nn.Parameter, gen: torch.Generator, scale=None):
-    fan_in = p.shape[-2] if p.dim() >= 2 else p.shape[-1]
+    """Draw the whole leaf (its ``_full`` shape) and keep the block ``p``
+    holds."""
+    full = getattr(p, "_full", tuple(p.shape))
+    fan_in = full[-2] if len(full) >= 2 else full[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(tuple(p.shape), generator=gen, dtype=torch.float32,
+    w = torch.randn(full, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
-    p.copy_(w.to(p.dtype))
+    block = getattr(p, "_block", None)
+    p.copy_((w if block is None else w[block]).to(p.dtype))
 
 
 def _ssm_init(cfg: ModelConfig, pd: nn.ParameterDict, leaves: dict,
@@ -226,14 +313,19 @@ def _ssm_init(cfg: ModelConfig, pd: nn.ParameterDict, leaves: dict,
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = "cuda") -> Model:
+                device: DeviceLike = "cuda", mesh=None) -> Model:
     """Random weights with the reference's scheme (normal / sqrt(fan_in)
     with fan_in = ``shape[-2]``, embedding and router 0.02, norms 1, the
     SSM leaves by ``ssm.ssm_leaves``' rules), drawn on ``generator``'s
     device in registration order — the draws differ from ``jax.random``'s;
     tests that compare the packages bridge the reference's weights instead
-    (``bridge.params_from_jax``)."""
-    model = Model(cfg, device)
+    (``bridge.params_from_jax``).
+
+    ``mesh``: the model holds this rank's blocks; each leaf is drawn whole
+    from the one stream and cut, so a sharded draw gives the unsharded
+    draw's weights, and a rank's peak is one whole leaf (float32) over its
+    blocks."""
+    model = Model(cfg, device, mesh)
     _dense_init(model.embed, generator, scale=0.02)
     model.final_norm.fill_(1.0)
     if not cfg.tie_embeddings:
@@ -262,44 +354,76 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # contiguous cache
 # ===========================================================================
 
+def kv_layout(cfg: ModelConfig, mesh, max_seq: int, paged: bool) -> str:
+    """How a sharded member's KV leaves split over ``"model"``: "heads"
+    (the rank's KV heads), "seq" (a sequence shard of every head, decoded
+    by ``smdec``) or "full" (whole on every rank).  The contiguous cache
+    follows ``sharding.rules.cache_specs`` — heads when they divide the
+    axis, else the sequence — except that ``decode_impl="shardmap"``
+    always takes the sequence (the layout the reference's ``shard_map``
+    reshards its cache into each step); MLA latents have no heads.  A
+    paged pool splits heads or stays whole (block tables index the whole
+    sequence)."""
+    M_ = model_split(mesh)
+    if M_ == 1:
+        return "full"
+    heads = not cfg.is_mla and cfg.n_kv_heads % M_ == 0
+    if paged:
+        return "heads" if heads else "full"
+    if cfg.decode_impl == "shardmap" and max_seq % M_ == 0:
+        return "seq"
+    if heads:
+        return "heads"
+    return "seq" if max_seq % M_ == 0 else "full"
+
+
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int, batch: int,
-                 max_seq: int, dtype, dev) -> dict:
+                 max_seq: int, dtype, dev, mesh=None) -> dict:
     lead = (repeats, batch)
+    layout = kv_layout(cfg, mesh, max_seq, paged=False)
+    M_ = model_split(mesh)
+    S_ = max_seq // M_ if layout == "seq" else max_seq
 
     def z(shape, dt=dtype):
-        return torch.zeros(lead + shape, dtype=dt, device=dev)
+        t = torch.zeros(lead + shape, dtype=dt, device=dev)
+        t._seq_split = layout == "seq"
+        return t
 
     if spec.mixer in ("attn", "bidir_attn"):
-        kv = (max_seq, cfg.n_kv_heads, cfg.head_dim)
+        hk = cfg.n_kv_heads // (M_ if layout == "heads" else 1)
+        kv = (S_, hk, cfg.head_dim)
         return {"k": z(kv), "v": z(kv)}
     if spec.mixer == "cross_attn":
         kv = (cfg.cross_ctx_len, cfg.n_kv_heads, cfg.head_dim)
         return {"ck": z(kv), "cv": z(kv)}
     if spec.mixer == "mla":
-        return {"ckv": z((max_seq, cfg.kv_lora_rank)),
-                "krope": z((max_seq, cfg.rope_head_dim))}
+        return {"ckv": z((S_, cfg.kv_lora_rank)),
+                "krope": z((S_, cfg.rope_head_dim))}
     st = S.zero_state(cfg, spec.mixer, batch, dtype, dev)
     return {k: v[None].repeat((repeats,) + (1,) * v.dim())
             for k, v in st.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: DeviceLike = "cuda") -> dict:
+               device: DeviceLike = "cuda", mesh=None) -> dict:
     """Contiguous serving cache: ``cache["g{i}"]["b{j}"]`` holds block j's
     state for ``batch`` rows stacked over group i's repeats — attention
     ``k``/``v`` ``(repeats, batch, max_seq, Hkv, hd)``, cross-attention
     ``ck``/``cv`` over ``cross_ctx_len`` context tokens, MLA ``ckv``/
     ``krope``, or the SSM mixer's recurrent state (``ssm.zero_state``);
     ``cache["pos"]`` is the current length (a scalar int32; the scheduler
-    replaces it with a (batch,) vector of per-row positions)."""
+    replaces it with a (batch,) vector of per-row positions).  With
+    ``mesh``: the rank's block of each KV leaf (``kv_layout``; a sequence
+    shard carries ``_seq_split``)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    check_shardable(cfg, mesh)
+    dev = _device(device)
     dtype = torch_dtype(cfg.dtype)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for i, g in enumerate(cfg.groups):
         cache[f"g{i}"] = {
             f"b{j}": _block_cache(cfg, spec, g.repeats, batch, max_seq,
-                                  dtype, dev)
+                                  dtype, dev, mesh)
             for j, spec in enumerate(g.period)}
     return cache
 
@@ -319,6 +443,35 @@ def _cache_write(buf: Tensor, val: Tensor, pos) -> None:
     buf[rows, pos.long().clamp(0, S - 1)] = val[:, 0]
 
 
+def _seq_write(buf: Tensor, val: Tensor, pos: int) -> None:
+    """Prefill write into a sequence shard: rank j's ``buf`` (B, S_loc,
+    ...) holds positions ``[j * S_loc, (j + 1) * S_loc)``; the positions
+    ``pos .. pos + T`` of ``val`` (B, T, ...) that fall there are written,
+    IN PLACE."""
+    j = current_mesh().coords["model"]
+    s_loc, T = buf.shape[1], val.shape[1]
+    lo, hi = max(pos, j * s_loc), min(pos + T, (j + 1) * s_loc)
+    if lo < hi:
+        buf[:, lo - j * s_loc:hi - j * s_loc] = \
+            val[:, lo - pos:hi - pos].to(buf.dtype)
+
+
+def _all_heads(t: Tensor, full: int) -> Tensor:
+    """The rank's heads (dim 2) of ``t`` -> every head (all-gathered over
+    ``"model"``); ``t`` when it holds all ``full`` already."""
+    if t.shape[2] == full:
+        return t
+    return current_mesh().all_gather(t, "model", dim=2)
+
+
+def _own_heads(t: Tensor, local: int) -> Tensor:
+    """Every head (dim 2) of ``t`` -> this rank's ``local`` heads."""
+    if t.shape[2] == local:
+        return t
+    j = current_mesh().coords["model"]
+    return t[:, :, j * local:(j + 1) * local]
+
+
 # ===========================================================================
 # paged (block) KV cache
 # ===========================================================================
@@ -333,7 +486,8 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 
 def _block_paged_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int,
-                       num_blocks: int, block_tokens: int, dtype, dev):
+                       num_blocks: int, block_tokens: int, dtype, dev,
+                       heads: int = 1):
     lead = (repeats, num_blocks, block_tokens)
     if spec.mixer not in ("attn", "mla"):
         raise ValueError(f"paged cache unsupported for mixer {spec.mixer!r}")
@@ -342,22 +496,27 @@ def _block_paged_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int,
                                    device=dev),
                 "krope": torch.zeros(lead + (cfg.rope_head_dim,),
                                      dtype=dtype, device=dev)}
-    kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+    kv = lead + (cfg.n_kv_heads // heads, cfg.head_dim)
     return {"k": torch.zeros(kv, dtype=dtype, device=dev),
             "v": torch.zeros(kv, dtype=dtype, device=dev)}
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
                      num_blocks: int, block_tokens: int,
-                     device: DeviceLike = "cuda") -> dict:
+                     device: DeviceLike = "cuda", mesh=None) -> dict:
     """Paged serving cache: KV leaves are physical block pools
     ``(repeats, num_blocks, block_tokens, Hkv, hd)`` shared by every slot
     (MLA blocks: ``ckv`` ``(..., kv_lora_rank)`` and ``krope`` ``(...,
     rope_head_dim)``);
     ``cache["tbl"]`` (slots, max_seq // block_tokens) int32 maps each
     slot's logical blocks to physical ones (0 = the reserved trash
-    block); ``cache["pos"]`` (slots,) int32 holds each slot's depth."""
+    block); ``cache["pos"]`` (slots,) int32 holds each slot's depth.
+    With ``mesh``: GQA pools hold the rank's KV heads when they divide
+    the ``"model"`` axis (``kv_layout``), MLA pools the whole latent."""
     check_supported(cfg)
+    check_shardable(cfg, mesh)
+    heads = model_split(mesh) if kv_layout(cfg, mesh, max_seq,
+                                           paged=True) == "heads" else 1
     if max_seq % block_tokens:
         raise ValueError("max_seq must be a multiple of block_tokens")
     dev = resolve_device(device)
@@ -368,7 +527,7 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
     for i, g in enumerate(cfg.groups):
         cache[f"g{i}"] = {
             f"b{j}": _block_paged_cache(cfg, spec, g.repeats, num_blocks,
-                                        block_tokens, dtype, dev)
+                                        block_tokens, dtype, dev, heads)
             for j, spec in enumerate(g.period)}
     return cache
 
@@ -445,6 +604,24 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     if mode == "full" or bcache is None:
         out = _sdpa_impl(cfg, q, k, v, causal=causal,
                          sliding_window=cfg.sliding_window)
+        return h + L.attn_out(p.attn, out)
+    if tbl is None and bcache.get("seq_split"):
+        # a sharded member's sequence-sharded contiguous cache: prefill
+        # attends on the prompt and writes the rank's positions of every
+        # head; decode is the split-KV ``smdec`` over every head, of
+        # which the rank keeps its own for its rows of ``wo``
+        Hkv = cfg.n_kv_heads
+        kf, vf = _all_heads(k, Hkv), _all_heads(v, Hkv)
+        if mode == "prefill":
+            out = _sdpa_impl(cfg, q, k, v, causal=causal,
+                             sliding_window=cfg.sliding_window)
+            _seq_write(bcache["k"], kf, int(pos))
+            _seq_write(bcache["v"], vf, int(pos))
+        else:
+            out, _, _ = smdec.gqa_decode_sm(
+                cfg, _all_heads(q, cfg.n_heads), kf, vf, bcache["k"],
+                bcache["v"], pos)
+            out = _own_heads(out, q.shape[2])
         return h + L.attn_out(p.attn, out)
     if tbl is None:
         if mode == "prefill":
@@ -537,9 +714,23 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     x = L.rms_norm(h, p.norm1, cfg.norm_eps)
     mp = p.mla
     q_nope, q_rope = L.mla_q(mp, cfg, x, rope)
+    # a sharded member: every rank computes every head's query and the
+    # whole latent, then keeps its heads (its blocks of wk_b / wv_b / wo)
+    H_loc = mp["wk_b"].shape[0]
+    q_nope, q_rope = _own_heads(q_nope, H_loc), _own_heads(q_rope, H_loc)
     c_kv, k_rope = L.mla_kv_latent(mp, cfg, x, rope)
     if mode == "full" or bcache is None:
         return h + _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope)
+    if tbl is None and bcache.get("seq_split"):
+        if mode == "prefill":
+            _seq_write(bcache["ckv"], c_kv, int(pos))
+            _seq_write(bcache["krope"], k_rope, int(pos))
+            return h + _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope)
+        q_lat = _all_heads(L.mla_absorb_q(mp, q_nope), cfg.n_heads)
+        ctx, _, _ = smdec.mla_decode_sm(
+            cfg, q_lat, _all_heads(q_rope, cfg.n_heads), c_kv, k_rope,
+            bcache["ckv"], bcache["krope"], pos)
+        return h + L.mla_out(mp, cfg, _own_heads(ctx, H_loc))
     if tbl is None:   # the contiguous cache
         _cache_write(bcache["ckv"], c_kv, pos)
         _cache_write(bcache["krope"], k_rope, pos)
@@ -592,8 +783,8 @@ def _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope, q_offset=None):
     ``q_offset`` ((B,) per-row start positions) is the paged-suffix case:
     K/V come from the gathered block view, queries sit at an offset."""
     B, Sq, H, _ = q_nope.shape
-    k_nope = torch.einsum("bsr,hrn->bshn", c_kv, mp["wk_b"])
-    v = torch.einsum("bsr,hrv->bshv", c_kv, mp["wv_b"])
+    k_nope = torch.einsum("bsr,hrn->bshn", c_kv, L.W(mp["wk_b"]))
+    v = torch.einsum("bsr,hrv->bshv", c_kv, L.W(mp["wv_b"]))
     k_rope_h = k_rope[:, :, None, :].expand(B, k_rope.shape[1], H,
                                             cfg.rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -602,7 +793,8 @@ def _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope, q_offset=None):
         out = L.sdpa(q, k, v, causal=True, q_offset=q_offset)
     else:
         out = _sdpa_impl(cfg, q, k, v, causal=True, sliding_window=0)
-    return out.reshape(B, Sq, H * cfg.v_head_dim) @ mp["wo"]
+    return L.row_parallel_sum(
+        out.reshape(B, Sq, H * cfg.v_head_dim) @ L.W(mp["wo"]), mp["wo"])
 
 
 def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
@@ -679,8 +871,12 @@ def _run_groups(cfg: ModelConfig, blocks: nn.ModuleList,
         for r in range(g.repeats):
             period = []
             for j in range(len(g.period)):
-                bc = None if gc is None else \
-                    {leaf: t[r] for leaf, t in gc[f"b{j}"].items()}
+                bc = None
+                if gc is not None:
+                    leaves = gc[f"b{j}"]
+                    bc = {leaf: t[r] for leaf, t in leaves.items()}
+                    bc["seq_split"] = any(getattr(t, "_seq_split", False)
+                                          for t in leaves.values())
                 period.append((blocks[n], bc))
                 n += 1
             if remat and train:
@@ -717,11 +913,29 @@ def _rope_dim(cfg: ModelConfig) -> int:
     return cfg.rope_head_dim if cfg.is_mla else cfg.head_dim
 
 
+def _embed(params: Model, tokens: Tensor) -> Tensor:
+    """Token embeddings; vocab-parallel when the rules split the table's
+    rows over ``"model"``: each rank looks up the ids of its rows (zeros
+    for the rest) and the rows are all-reduced (one nonzero term each)."""
+    table = L.W(params.embed)
+    if not L.split_over(params.embed):
+        return table[tokens.long()]
+    mesh = current_mesh()
+    Vl = table.shape[0]
+    local = tokens.long() - mesh.coords["model"] * Vl
+    inside = (local >= 0) & (local < Vl)
+    h = torch.where(inside[..., None], table[local.clamp(0, Vl - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return mesh.all_reduce(h, "model")
+
+
 def _logits(cfg: ModelConfig, params: Model, h: Tensor) -> Tensor:
+    """Logits over the vocabulary — the rank's vocab shard when the rules
+    split it over ``"model"`` (``serve_lib.greedy`` reduces shards)."""
     h = L.rms_norm(h, params.final_norm, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ params.embed.T
-    return h @ params.lm_head
+        return h @ L.W(params.embed).T
+    return h @ L.W(params.lm_head)
 
 
 def _take_last(h: Tensor, lens) -> Tensor:
@@ -748,7 +962,7 @@ def forward(cfg: ModelConfig, params: Model, tokens: Tensor,
     ``attn_impl="pallas"`` a forward that needs gradients raises
     ``NotImplementedError`` (the kernel has none, as the reference's)."""
     check_supported(cfg)
-    h = params.embed[tokens.long()]
+    h = _embed(params, tokens)
     rope = L.rope_tables(torch.arange(tokens.shape[1], device=h.device),
                          _rope_dim(cfg), cfg.rope_theta)
     cross = _prepare_cross(cfg, params, cross_ctx, moe_impl, remat)
@@ -811,7 +1025,7 @@ def prefill(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
     check_supported(cfg)
     dev = tokens.device
     B, Sq = tokens.shape
-    h = params.embed[tokens.long()]
+    h = _embed(params, tokens)
     if tbl is None:
         rope = L.rope_tables(torch.arange(Sq, device=dev), _rope_dim(cfg),
                              cfg.rope_theta)
@@ -845,7 +1059,7 @@ def decode_step(cfg: ModelConfig, params: Model, tokens: Tensor,
     check_supported(cfg)
     pos = cache["pos"].long()
     tbl = cache.get("tbl")
-    h = params.embed[tokens.long()]
+    h = _embed(params, tokens)
     rope_pos = pos[None] if pos.dim() == 0 else pos[:, None]
     rope = L.rope_tables(rope_pos, _rope_dim(cfg), cfg.rope_theta)
     h, _ = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,
@@ -877,7 +1091,7 @@ def verify(cfg: ModelConfig, params: Model, tokens: Tensor, cache: dict,
     pos = cache["pos"].long()
     tbl = cache["tbl"]
     W = tokens.shape[1]
-    h = params.embed[tokens.long()]
+    h = _embed(params, tokens)
     positions = pos[:, None] + torch.arange(W, device=pos.device)[None, :]
     rope = L.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     h, _ = _run_groups(cfg, params.blocks, cfg.groups, h, rope=rope,

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN of the port (``repro.models.moe``'s twin, the
-single-device paths).
+"""Mixture-of-Experts FFN of the port (``repro.models.moe``'s twin).
 
 Routing: float32 router logits, softmax, top-k, top-k probabilities
 renormalised; the auxiliary losses (Switch-style load balance ``moe_lb``
@@ -10,12 +9,15 @@ paths:
   of ``GROUP_SIZE`` (the training default);
 * ``sort`` — tokens sorted into per-expert capacity slots, a batched
   SwiGLU (``torch.bmm``, as the reference leaves it to XLA einsums) and
-  a deterministic combine.  On one device the reference's "ep" and
-  "ep_serve" compute this too (with no mesh, or over a one-way "model"
-  axis, their ``shard_map`` body is ``_sort_core`` over every expert with
-  identity collectives), so the port runs it for all three.
+  a deterministic combine (``moe_sort_local``);
+* ``ep`` / ``ep_serve`` — expert parallelism over the ``"model"`` ranks of
+  the mesh that ``sharding.ctx`` holds (``moe_ep``, ``moe_ep_serve``):
+  rank j computes its experts ``[j * E_loc, (j + 1) * E_loc)`` through
+  ``_sort_core`` and the partial outputs are all-reduced.  With no mesh
+  they are ``moe_sort_local``, as the reference's without one.
 
-Both add the shared experts.  ``moe_apply`` returns ``(out, aux)`` as the
+All add the shared experts (tensor-parallel over ``"model"`` where the
+rules split their ``d_ff``).  ``moe_apply`` returns ``(out, aux)`` as the
 reference's; the serving callers pass ``aux=False`` (the aux losses are
 then not computed, as XLA drops them from a jitted serving step) and
 drop it.
@@ -30,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import W, row_parallel_sum
+from repro_torch.sharding.ctx import current_mesh
 
 Tensor = torch.Tensor
 
@@ -43,7 +47,7 @@ def _route(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     """x: (N, d) -> (topk_idx (N,k) int64, topk_prob (N,k) float32, aux
     dict ``{"moe_lb", "moe_z"}`` of float32 scalars, or None when ``aux``
     is False)."""
-    logits = x.float() @ p["router"]                       # (N, E)
+    logits = x.float() @ W(p["router"])                    # (N, E)
     probs = torch.softmax(logits, dim=-1)
     topk_prob, topk_idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
     topk_prob = topk_prob / topk_prob.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -60,8 +64,11 @@ def _route(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
 
 
 def _shared_expert(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
+    """The shared experts' SwiGLU; column-/row-parallel over ``"model"``
+    when the rules split their ``d_ff`` (partial outputs all-reduced)."""
     sp = p["shared"]
-    return (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
+    y = (F.silu(x @ W(sp["w_gate"])) * (x @ W(sp["w_up"]))) @ W(sp["w_down"])
+    return row_parallel_sum(y, sp["w_down"])
 
 
 def _one_hot(idx: Tensor, n: int) -> Tensor:
@@ -198,8 +205,94 @@ def moe_sort_local(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     idx, prob, aux_d = _route(p, cfg, xf, aux)
     E = cfg.n_experts
     C = _capacity(xf.shape[0], cfg.moe_top_k, E, cfg.moe_capacity_factor)
+    # under a mesh every rank gathers the whole expert set
+    out = _sort_core(W(p["w_gate"], model=True), W(p["w_up"], model=True),
+                     W(p["w_down"], model=True), xf, idx, prob, E, 0,
+                     C).reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + _shared_expert(p, x)
+    return out, aux_d
+
+
+def _ep_mesh(cfg: ModelConfig):
+    """(mesh, E_loc) when the experts split over the mesh's ``"model"``
+    ranks, else None (no mesh, or ``E % model != 0``)."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    if cfg.n_experts % mesh.shape["model"]:
+        return None
+    return mesh, cfg.n_experts // mesh.shape["model"]
+
+
+def moe_ep(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
+           aux: bool = True):
+    """Expert parallelism over ``"model"``: rank j holds experts
+    ``[j * E_loc, (j + 1) * E_loc)``, f-sharded over ``"data"`` (ZeRO-3:
+    gathered here); it routes every token (the router is replicated),
+    computes its experts' share and the shares are all-reduced over
+    ``"model"`` (no all-to-all, no dispatch einsum).  As the reference's
+    ``shard_map`` body, each ``"data"`` rank computes its batch shard with
+    the capacity of that shard when the batch divides (then the shards are
+    all-gathered: every rank returns the whole batch), else the whole
+    batch.  No mesh, or ``E % model != 0``: ``moe_sort_local``."""
+    ep = _ep_mesh(cfg)
+    if ep is None:
+        return moe_sort_local(p, cfg, x, aux)
+    mesh, E_loc = ep
+    B, S, d = x.shape
+    E = cfg.n_experts
+    dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    n_dp = mesh.axis_size(dp) if dp else 1
+    split = n_dp > 1 and B % n_dp == 0
+    xl = x
+    if split:
+        b = B // n_dp
+        j = 0
+        for a in dp:
+            j = j * mesh.shape[a] + mesh.coords[a]
+        xl = x[j * b:(j + 1) * b]
+    C = _capacity(max(1, B * S // (n_dp if split else 1)), cfg.moe_top_k, E,
+                  cfg.moe_capacity_factor)
+    xf = xl.reshape(-1, d)
+    idx, prob, aux_d = _route(p, cfg, xf, aux)
+    off = mesh.coords["model"] * E_loc
+    out = _sort_core(W(p["w_gate"]), W(p["w_up"]), W(p["w_down"]), xf, idx,
+                     prob, E_loc, off, C)
+    out = mesh.all_reduce(out, "model").reshape(xl.shape)
+    if split:
+        out = mesh.all_gather(out, dp, dim=0)
+    if cfg.n_shared_experts:
+        out = out + _shared_expert(p, x)
+    return out, aux_d
+
+
+def moe_ep_serve(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
+                 aux: bool = True):
+    """Weights-stationary EP for decode: no expert weight moves.  Every
+    rank routes the whole batch (the reference all-gathers the token
+    shards over ``"data"``; here the batch is whole on every rank),
+    computes its experts' share on its local f slice, and the partial
+    outputs are all-reduced over ``("data", "model")``.  Falls back as the
+    reference's: no mesh -> ``moe_sort_local``; ``E % model`` or
+    ``f % data`` nonzero -> ``moe_ep``."""
+    ep = _ep_mesh(cfg)
+    if ep is None:
+        return moe_sort_local(p, cfg, x, aux)
+    mesh, E_loc = ep
+    if cfg.d_ff_expert % mesh.shape.get("data", 1):
+        return moe_ep(p, cfg, x, aux)
+    B, S, d = x.shape
+    E = cfg.n_experts
+    C = _capacity(B * S, cfg.moe_top_k, E, cfg.moe_capacity_factor)
+    xf = x.reshape(-1, d)
+    idx, prob, aux_d = _route(p, cfg, xf, aux)
+    off = mesh.coords["model"] * E_loc
+    # the rank's block (E_loc, d, f / data): weights never move
     out = _sort_core(p["w_gate"], p["w_up"], p["w_down"], xf, idx, prob,
-                     E, 0, C).reshape(B, S, d)
+                     E_loc, off, C)
+    axes = tuple(a for a in ("data", "model") if a in mesh.axis_names)
+    out = mesh.all_reduce(out, axes).reshape(B, S, d)
     if cfg.n_shared_experts:
         out = out + _shared_expert(p, x)
     return out, aux_d
@@ -218,4 +311,8 @@ def moe_apply(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     check_impl(impl)
     if impl == "gshard":
         return moe_gshard(p, cfg, x, aux)
+    if impl == "ep":
+        return moe_ep(p, cfg, x, aux)
+    if impl == "ep_serve":
+        return moe_ep_serve(p, cfg, x, aux)
     return moe_sort_local(p, cfg, x, aux)

@@ -26,12 +26,21 @@ runs on the card through the port's CUDA kernels when
 ``decode_impl="flash_paged"`` (paged members) and ``attn_impl="pallas"``
 are selected.
 
-Serving is single-device (no mesh, no sharding rules) and MoE members are
-dropless: their capacity factor is raised to ``n_experts / top_k``.
-``speculative=SpecConfig(...)`` puts a draft model in front of every lane
-(draft proposal, one wide verify per round, greedy acceptance, adaptive
-k) on the paged lanes.  ``model_axis > 1`` (multi-device) is not ported
-and raises.
+MoE members are dropless: their capacity factor is raised to
+``n_experts / top_k``.  ``speculative=SpecConfig(...)`` puts a draft model
+in front of every lane (draft proposal, one wide verify per round, greedy
+acceptance, adaptive k) on the paged lanes.
+
+Sharding: ``model_axis > 1`` serves every member over the
+``(data = world // model_axis, model_axis)`` mesh of the ranks that
+``launch.mesh.host_ranks`` brought up (or ``torchrun``), from rank 0,
+which owns the fleet — schedulers, block pools, router, front-end.  Each
+rank holds its blocks of every parameter and cache tensor
+(:class:`MemberShard`); before each prefill, decode or block copy, rank 0
+sends the step and its small inputs (tokens, positions, block tables,
+lengths) to the other ranks (``launch.mesh.Controller``), and every rank
+runs its share of the same forward, collectives included.  The batch is
+whole on every rank.
 
 Concurrency: the fleet lock covers ONLY submission and bookkeeping.
 Draining happens outside it — per-lane step locks serialize the steps
@@ -53,8 +62,10 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import shard_params
 from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.launch import mesh as LM
 from repro_torch.models import model as MD
 from repro_torch.models import moe as M
 from repro_torch.serving import serve_lib
@@ -70,9 +81,6 @@ DIFFUSION_ARCHS: Dict[str, dict] = {
 
 
 def _validate_decode_impl(decode_impl: Optional[str]):
-    if decode_impl == "shardmap":
-        raise NotImplementedError("decode_impl='shardmap' is a multi-device "
-                                  "path, not ported yet")
     if decode_impl is not None and decode_impl not in MD.DECODE_IMPLS:
         raise ValueError(
             f"unknown decode_impl {decode_impl!r}; valid: "
@@ -218,6 +226,105 @@ class FleetMember(MemberStats):
     block_tokens: int = 16
     num_blocks: int = 0                  # physical blocks incl. trash block
     spec: object = None                  # SpecRuntime (speculative decoding)
+    shard: object = None                 # MemberShard mirrored on the ranks
+
+
+def _draw_params(cfg, seed: int, reduced: bool, device, mesh=None):
+    """A member's weights from one stream seeded ``seed``: reduced members
+    draw on the CPU (the same weights on the card and on the CPU),
+    full-width ones on ``device``.  With ``mesh`` each leaf is drawn whole
+    and the rank keeps its block, so the sharded and unsharded members
+    hold the same weights."""
+    gen_dev = "cpu" if reduced else device
+    return MD.init_params(cfg, torch.Generator(device=gen_dev).manual_seed(
+        seed), device, mesh=mesh)
+
+
+class MemberShard:
+    """One rank's share of a sharded member: its parameter blocks and its
+    serving steps over the mesh (``serve_lib``'s builders with ``mesh``).
+    Rank 0 makes one through the controller, which mirrors it on every
+    rank; the fleet's step callables then run on all of them.  The steps
+    take no ``params`` (each rank's are its own)."""
+
+    def __init__(self, cfg, *, model_axis: int, device: str, reduced: bool,
+                 seed: int, moe_impl: str, paged: bool, max_seq: int,
+                 num_blocks: int, block_tokens: int):
+        self.cfg = cfg
+        self.moe_impl = moe_impl
+        self.device = resolve_device(device)
+        self.mesh = LM.make_host_mesh(model_axis)
+        self.paged, self.max_seq = paged, max_seq
+        self.num_blocks, self.block_tokens = num_blocks, block_tokens
+        self.params = _draw_params(cfg, seed, reduced, self.device, self.mesh)
+        self._prefill_row, self._decode, _ = serve_lib.build_row_serve_steps(
+            cfg, moe_impl=moe_impl, mesh=self.mesh)
+        if paged:
+            (self._prefill_fresh, self._prefill_suffix, self._decode,
+             self._copy_block) = serve_lib.build_paged_serve_steps(
+                cfg, moe_impl=moe_impl, mesh=self.mesh)
+
+    def init_cache(self, slots: int) -> dict:
+        if self.paged:
+            return MD.init_paged_cache(self.cfg, slots, self.max_seq,
+                                       self.num_blocks, self.block_tokens,
+                                       self.device, mesh=self.mesh)
+        return MD.init_cache(self.cfg, slots, self.max_seq, self.device,
+                             mesh=self.mesh)
+
+    def prefill_row(self, *a):
+        return self._prefill_row(self.params, *a)
+
+    def decode(self, *a):
+        return self._decode(self.params, *a)
+
+    def prefill_fresh(self, *a):
+        return self._prefill_fresh(self.params, *a)
+
+    def prefill_suffix(self, *a):
+        return self._prefill_suffix(self.params, *a)
+
+    def copy_block(self, *a):
+        return self._copy_block(*a)
+
+    def merge_row(self, *a):
+        return serve_lib.merge_row(*a)
+
+    def apply(self, fn, *args):
+        """``fn(self, *args)`` on this rank's share (``fn`` importable by
+        name): a measurement or check that needs the member's blocks."""
+        return fn(self, *args)
+
+    def load(self, named: dict) -> None:
+        """Load whole weights (``Model.state_dict()`` keys): the rank keeps
+        its blocks."""
+        self.params.load_state_dict(shard_params(named, self.cfg, self.mesh))
+
+
+def rank_stats(reset: bool = False) -> dict:
+    """This rank's kernel launch counts, peak device memory (since the
+    process started or last reset it) and host-staged collective time
+    (``reset``: zero the counts and times after reading)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode import ops as FD
+    fns = {"flash_attention": flash_attention,
+           "paged_flash_decode": FD.paged_flash_decode,
+           "paged_flash_verify": FD.paged_flash_verify,
+           "paged_flash_decode_mla": FD.paged_flash_decode_mla,
+           "paged_flash_verify_mla": FD.paged_flash_verify_mla}
+    out = {"launches": {n: f.launches for n, f in fns.items()},
+           "collectives": {"calls": 0, "seconds": 0.0, "bytes": 0},
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if torch.cuda.is_available() else 0)}
+    for m in LM._MESHES.values():
+        for k in out["collectives"]:
+            out["collectives"][k] += getattr(m.stats, k)
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+        for m in LM._MESHES.values():
+            m.stats.reset()
+    return out
 
 
 @dataclass
@@ -635,16 +742,32 @@ class LocalFleet:
         gives the same weights on every device; full-width members
         (``reduced=False``) draw on the fleet's device, since a CPU
         generator cannot make tens of billions of parameters in a smoke
-        run.
+        run.  A sharded member draws each leaf whole from the same stream
+        and keeps its block, so it holds the unsharded member's weights.
 
-        Not ported yet: ``model_axis > 1``."""
-        if model_axis > 1:
-            raise NotImplementedError("model_axis > 1 (multi-device) is not "
-                                      "ported yet")
+        ``model_axis > 1`` shards every member over the ranks (see the
+        module docstring): this process must be rank 0 of
+        ``launch.mesh.host_ranks``; raises ``RuntimeError`` ("model axis")
+        when fewer ranks are up.  ``decode_impl="shardmap"`` decodes a
+        sharded member's contiguous cache by ``smdec`` (unsharded: the
+        plain path).  Not ported on a model axis: speculative decoding,
+        and members with SSM state or cross-attention."""
         _validate_decode_impl(decode_impl)
         _validate_speculative(speculative, paged=paged)
         _validate_arch_overrides(arch_overrides, list(archs))
         self.device = resolve_device(device)
+        self.mesh = None
+        self.model_axis = model_axis
+        if model_axis > 1:
+            self.mesh = LM.make_host_mesh(model_axis)
+            if LM.controller() is None:
+                raise RuntimeError(
+                    f"model axis {model_axis}: the fleet serves from rank 0 "
+                    f"of launch.mesh.host_ranks (the other ranks run its "
+                    f"worker loop)")
+            if speculative is not None:
+                raise NotImplementedError("speculative decoding on a model "
+                                          "axis is not ported")
         self.gen_tokens = gen_tokens
         self.seed = seed
         self.members: Dict[str, FleetMember] = {}
@@ -714,7 +837,22 @@ class LocalFleet:
         if b["speculative"] is not None and use_paged \
                 and cfg.family != "audio":
             spec_rt = self._build_spec_runtime(b["speculative"], cfg, nblk)
-        params = self._init_params(cfg)
+        shard = None
+        if self.mesh is not None:
+            MD.check_shardable(cfg, self.mesh)
+            shard = LM.controller().run(
+                None, MemberShard, cfg, model_axis=self.model_axis,
+                device=str(self.device), reduced=b["reduced"],
+                seed=self.seed, moe_impl=b["moe_impl"], paged=use_paged,
+                max_seq=max_seq, num_blocks=nblk, block_tokens=block_tokens,
+                keep=True)
+            params = shard.params
+            pre_row, dec, merge, pf, ps, cpb = (
+                self._remote(shard, n) for n in (
+                    "prefill_row", "decode", "merge_row", "prefill_fresh",
+                    "prefill_suffix", "copy_block"))
+        else:
+            params = self._init_params(cfg)
         member = FleetMember(arch, cfg, params, pre_row, dec, merge, batch,
                              max_seq,
                              prompt_cap=max_seq - self.gen_tokens - 1,
@@ -725,18 +863,43 @@ class LocalFleet:
                              copy_block=cpb,
                              block_tokens=block_tokens,
                              num_blocks=nblk,
-                             spec=spec_rt)
+                             spec=spec_rt, shard=shard)
         lane_cls = AudioLane if cfg.family == "audio" else ARLane
         return member, lane_cls(self, member)
 
+    @staticmethod
+    def _remote(shard: MemberShard, name: str):
+        """A step of the member's ranks: rank 0's scheduler calls it with
+        its ``params`` first (as an unsharded member's), every rank runs
+        ``MemberShard.<name>`` on its own blocks."""
+        def step(*args):
+            if name not in ("merge_row", "copy_block"):
+                args = args[1:]             # the params: each rank its own
+            return LM.controller().run(shard, name, *args)
+        step.__name__ = name
+        return step
+
     def _init_params(self, cfg) -> MD.Model:
-        """Weights from the fleet's seed.  Reduced members draw on the CPU
-        (one seed, the same weights on the card and on the CPU); full-width
-        ones on the fleet's device."""
-        gen_dev = "cpu" if self._build["reduced"] else self.device
-        return MD.init_params(
-            cfg, torch.Generator(device=gen_dev).manual_seed(self.seed),
-            self.device)
+        """Weights from the fleet's seed (``_draw_params``)."""
+        return _draw_params(cfg, self.seed, self._build["reduced"],
+                            self.device)
+
+    def load_params(self, arch: str, named: dict) -> None:
+        """Load whole weights (``Model.state_dict()`` keys, e.g.
+        ``bridge.params_from_jax``) into member ``arch``: a sharded member
+        sends them to every rank, which keeps its blocks."""
+        m = self.members[arch]
+        if m.shard is None:
+            m.params.load_state_dict(named)
+        else:
+            LM.controller().run(m.shard, "load", named, sync=True)
+
+    def rank_stats(self, reset: bool = False) -> List[dict]:
+        """``rank_stats`` of every rank of the fleet's mesh (rank order;
+        this process alone when unsharded)."""
+        if self.mesh is None:
+            return [rank_stats(reset)]
+        return LM.controller().gather(rank_stats, reset)
 
     def _build_spec_runtime(self, spec: SpecConfig, target_cfg,
                             num_blocks: int) -> SpecRuntime:
@@ -817,7 +980,12 @@ class LocalFleet:
             make_cross = lambda b, cfg=m.cfg: torch.zeros(
                 (b, cfg.cross_ctx_len, cfg.d_model),
                 dtype=torch_dtype(cfg.dtype), device=self.device)
-        if m.paged:
+        if m.shard is not None:
+            # the ranks make their blocks of the cache; rank 0's carries
+            # the handle its steps are sent with
+            init_cache = lambda b: LM.controller().run(
+                m.shard, "init_cache", m.batch if m.paged else b, keep=True)
+        elif m.paged:
             init_cache = lambda b, cfg=m.cfg: MD.init_paged_cache(
                 cfg, m.batch, m.max_seq, m.num_blocks, m.block_tokens,
                 device=self.device)

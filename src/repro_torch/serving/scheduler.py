@@ -19,6 +19,13 @@ half of the lane:
   into a zeroed batch-1 row cache, copied into the slot at binding
   (``merge_row``).
 
+Every device step goes through the member's callables (``prefill_row``,
+``decode_rows``, ``merge_row``, ``prefill_paged_fresh`` /
+``prefill_paged_suffix``, ``copy_block``) and every cache through its
+``init_cache_fn``: that is the hook a sharded member (``LocalFleet
+(model_axis=N)``) takes, sending each step with its inputs (tokens,
+``cache["pos"]`` / ``cache["tbl"]``, lengths) to all of its ranks.
+
 Correctness notes (as in the reference):
 
 * Admission prefill is right-padded to a length bucket but samples at the

@@ -7,26 +7,71 @@ plain callable that runs eagerly and updates the cache's KV pools in
 place, returning the same cache dict so callers keep the reference's
 ``nxt, cache = step(...)`` shape.  Sampled token ids come back as a device
 tensor; the (B, vocab) logits never leave the device.
+
+Given a rank ``mesh`` (``launch.mesh``), a builder's steps run a sharded
+member: each call installs ``sharding_rules(mesh, act_rules(mesh))`` on
+its thread, and every rank of the mesh calls the same step with the same
+inputs (the serving fleet's controller sees to it).
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.ctx import current_mesh, sharding_rules
 
 
-def greedy(logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the logits (first maximum on ties, as ``jnp.argmax``)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def greedy(logits: torch.Tensor, cfg: ModelConfig = None) -> torch.Tensor:
+    """Argmax over the logits (first maximum on ties, as ``jnp.argmax``).
+    Logits narrower than ``cfg.vocab_size`` are the rank's vocab shard of
+    a sharded member: each rank's (max, first index) pair is gathered over
+    ``"model"`` and the greatest value wins, the lowest index on a tie —
+    the whole vocabulary's argmax, on every rank."""
+    if cfg is None or logits.shape[-1] == cfg.vocab_size:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    mesh = current_mesh()
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    glob = idx + mesh.coords["model"] * logits.shape[-1]
+    pairs = mesh.all_gather(
+        torch.stack([val.double(), glob.double()], -1)[None], "model", dim=0)
+    vals, ids = pairs[..., 0], pairs[..., 1]
+    best = vals.amax(0)
+    ids = torch.where(vals == best, ids, torch.full_like(ids, float("inf")))
+    return ids.amin(0).to(torch.int32)
+
+
+def on_mesh(mesh):
+    """A context installing ``mesh``'s sharding rules (no-op without)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sharding_rules(mesh, R.act_rules(mesh))
+
+
+def _on_mesh(fn, mesh):
+    """``fn`` run inside ``on_mesh(mesh)`` (``fn`` itself without a
+    mesh)."""
+    if mesh is None:
+        return fn
+
+    @functools.wraps(fn)
+    def step(*args, **kw):
+        with on_mesh(mesh):
+            return fn(*args, **kw)
+    return step
 
 
 def make_prefill_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     def prefill_step(params, tokens, cache, cross_ctx=None):
         logits, cache = MD.prefill(cfg, params, tokens, cache, cross_ctx,
                                    moe_impl=moe_impl)
-        return greedy(logits), cache
+        return greedy(logits, cfg), cache
     return prefill_step
 
 
@@ -37,7 +82,7 @@ def make_prefill_row_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     def prefill_row(params, tokens, lens, cache, cross_ctx=None):
         logits, cache = MD.prefill(cfg, params, tokens, cache, cross_ctx,
                                    moe_impl=moe_impl, lens=lens)
-        return greedy(logits), cache
+        return greedy(logits, cfg), cache
     return prefill_row
 
 
@@ -45,7 +90,7 @@ def make_decode_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     def serve_step(params, tokens, cache):
         logits, cache = MD.decode_step(cfg, params, tokens, cache,
                                        moe_impl=moe_impl)
-        return greedy(logits), cache
+        return greedy(logits, cfg), cache
     return serve_step
 
 
@@ -57,7 +102,7 @@ def make_verify_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     def verify_step(params, tokens, cache):
         logits, cache = MD.verify(cfg, params, tokens, cache,
                                   moe_impl=moe_impl)
-        return greedy(logits), cache
+        return greedy(logits, cfg), cache
     return verify_step
 
 
@@ -87,7 +132,7 @@ def make_draft_propose_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
                 tok = prev
             logits, cache = MD.decode_step(cfg, params, tok[:, None], cache,
                                            moe_impl=moe_impl)
-            prev = greedy(logits)
+            prev = greedy(logits, cfg)
             outs.append(prev)
         outs = torch.stack(outs, dim=1)                  # (B, steps)
         idx = torch.arange(steps - 1, device=outs.device)[None, :] + \
@@ -128,7 +173,8 @@ def merge_row(cache: dict, row_cache: dict, slot: int) -> dict:
     return cache
 
 
-def build_row_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep"):
+def build_row_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep",
+                          mesh=None):
     """Continuous-batching serving steps over the contiguous cache.
 
     Returns ``(prefill_row, decode, merge_row)``:
@@ -144,8 +190,8 @@ def build_row_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep"):
       cache into batch slot ``slot`` of the shared decode cache, in place
       (``pos`` is scheduler-owned and excluded).
     """
-    return (make_prefill_row_fn(cfg, moe_impl=moe_impl),
-            make_decode_fn(cfg, moe_impl=moe_impl), merge_row)
+    return (_on_mesh(make_prefill_row_fn(cfg, moe_impl=moe_impl), mesh),
+            _on_mesh(make_decode_fn(cfg, moe_impl=moe_impl), mesh), merge_row)
 
 
 def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool,
@@ -160,7 +206,7 @@ def make_prefill_paged_fn(cfg: ModelConfig, *, fresh: bool,
         logits, cache = MD.prefill(cfg, params, tokens, cache,
                                    moe_impl=moe_impl, lens=lens, start=start,
                                    tbl=tbl_row, paged_fresh=fresh)
-        return greedy(logits), cache
+        return greedy(logits, cfg), cache
     return prefill_paged
 
 
@@ -181,7 +227,8 @@ def make_copy_block_fn():
     return copy_block
 
 
-def build_paged_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep"):
+def build_paged_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep",
+                            mesh=None):
     """Paged continuous-batching serving steps (``moe_impl`` selects the
     MoE FFN of MoE configs, as in the reference).
 
@@ -204,4 +251,48 @@ def build_paged_serve_steps(cfg: ModelConfig, *, moe_impl: str = "ep"):
     prefill_suffix = make_prefill_paged_fn(cfg, fresh=False,
                                            moe_impl=moe_impl)
     decode = make_decode_fn(cfg, moe_impl=moe_impl)
-    return prefill_fresh, prefill_suffix, decode, make_copy_block_fn()
+    return (_on_mesh(prefill_fresh, mesh), _on_mesh(prefill_suffix, mesh),
+            _on_mesh(decode, mesh), make_copy_block_fn())
+
+
+def serve_shardings(cfg: ModelConfig, mesh, batch: int, max_seq: int):
+    """The specs of a member served on ``mesh``: ``param_specs`` (the
+    port's parameter names -> spec), ``cache_specs`` (the contiguous
+    cache's tree of the reference's specs, ``sharding.rules.cache_specs``),
+    ``tokens_spec``, and the shapes they apply to (``params_shape``,
+    ``cache_shape``; no storage is made).  The port holds the rank's block
+    over ``"model"`` of each (``models.model.kv_layout`` for the KV
+    leaves) and keeps the batch whole on every rank."""
+    params_shape = MD.param_shapes(cfg)
+    cache_shape = MD.init_cache(cfg, batch, max_seq, "meta")
+    cache_shape = {k: (tuple(v.shape) if not isinstance(v, dict) else
+                       {b: {n: tuple(t.shape) for n, t in lv.items()}
+                        for b, lv in v.items()})
+                   for k, v in cache_shape.items()}
+    out = {"params_shape": params_shape,
+           "param_specs": R.param_specs(cfg, params_shape, mesh),
+           "cache_shape": cache_shape,
+           "cache_specs": R.cache_specs(cfg, cache_shape, mesh),
+           "tokens_spec": R.batch_spec(mesh, batch)}
+    if cfg.cross_ctx_len:
+        out["cross_spec"] = R.P(R.maybe(batch, R.batch_axes(mesh), mesh),
+                                None, None)
+    return out
+
+
+def build_serve_steps(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                      *, moe_impl: str = "ep", donate: bool = True):
+    """Contiguous prefill + decode of a member on ``mesh`` with a scalar
+    ``cache["pos"]`` (every row at one depth): ``prefill(params, tokens,
+    cache[, cross])`` and ``decode(params, tokens, cache)``, each returning
+    (greedy tokens, cache), and ``serve_shardings``.  Every rank of the
+    mesh calls them (SPMD) on its blocks — ``init_params(...,
+    mesh=mesh)`` and ``init_cache(..., mesh=mesh)``; under
+    ``decode_impl="shardmap"`` the decode is ``smdec``'s split-KV over the
+    sequence-sharded cache.  The cache is written in place (``donate`` is
+    the reference's keyword and changes nothing here).  ``mesh`` None:
+    the unsharded steps, and no specs."""
+    sh = None if mesh is None else serve_shardings(cfg, mesh, batch, max_seq)
+    prefill = _on_mesh(make_prefill_fn(cfg, moe_impl=moe_impl), mesh)
+    decode = _on_mesh(make_decode_fn(cfg, moe_impl=moe_impl), mesh)
+    return prefill, decode, sh

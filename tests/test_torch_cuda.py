@@ -958,3 +958,104 @@ def test_wrappers_refuse_autograd(cuda, i):
         out = fn(*args, **kw)
         assert counter.launches == before + 1
         _close(out, plain(*args, **kw), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: each rank's kernels at its local shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["prefill_479", "prefill_16", "decode",
+                                    "mla_decode", "mla_verify"])
+def test_kernels_at_sharded_local_shapes(cuda, dtype, kernel):
+    """qwen3-moe-235b over 2 ranks: each rank's 32 of 64 query heads and 2
+    of 4 KV heads of 128 (kernel 1 at the fleet's longest prefill and at a
+    16-token bucket, kernel 2 over the fleet's 32-block table); deepseek-v2
+    over 2 ranks: 64 of 128 MLA heads (kernels 4 and 5, verify W = 5)."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    if kernel.startswith("prefill"):
+        S = int(kernel.split("_")[1])
+        q = torch.randn((1, S, 32, 128), generator=g, device=cuda).to(dtype)
+        k = torch.randn((1, S, 2, 128), generator=g, device=cuda).to(dtype)
+        v = torch.randn((1, S, 2, 128), generator=g, device=cuda).to(dtype)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, None, causal=True)
+        ref = flash_attention_plain(q, k, v, None, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        _close(out, ref, dtype)
+        return
+    blk, max_blocks, B = 16, 32, 8
+    rnd = random.Random(7)
+    lens = [0, 1, 15, 16, 17, 255, 479, max_blocks * blk]
+    if kernel == "decode":
+        nb = 1 + (B + 4) * max_blocks
+        tbl = torch.tensor([[rnd.randrange(1, nb) for _ in range(max_blocks)]
+                            for _ in range(B)], dtype=torch.int32,
+                           device=cuda)
+        q = torch.randn((B, 32, 128), generator=g, device=cuda).to(dtype)
+        kp = torch.randn((nb, blk, 2, 128), generator=g,
+                         device=cuda).to(dtype)
+        vp = torch.randn((nb, blk, 2, 128), generator=g,
+                         device=cuda).to(dtype)
+        kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        before = paged_flash_decode.launches
+        out = paged_flash_decode(q, kp, vp, tbl, kl)
+        ref = paged_flash_decode_plain(q, kp, vp, tbl, kl)
+        torch.cuda.synchronize()
+        assert paged_flash_decode.launches == before + 1
+        _close(out, ref, dtype)
+        return
+    nb = 1 + (B + 4) * max_blocks
+    args = _mla_case(cuda, dtype, B=B, H=64, r=512, rh=64, nb=nb,
+                     max_blocks=max_blocks, seed=64)
+    scale = 1.0 / (2.0 * 64) ** 0.5
+    if kernel == "mla_decode":
+        before = paged_flash_decode_mla.launches
+        out = paged_flash_decode_mla(*args, scale=scale)
+        ref = paged_flash_decode_mla_plain(*args, scale=scale)
+        torch.cuda.synchronize()
+        assert paged_flash_decode_mla.launches == before + 1
+        _close(out, ref, dtype)
+        return
+    W = 5
+    kl = torch.tensor(_verify_lens(B, max_blocks * blk, W, 64),
+                      dtype=torch.int32, device=cuda)
+    vargs = (torch.randn((B, W, 64, 512), generator=g, device=cuda).to(dtype),
+             torch.randn((B, W, 64, 64), generator=g, device=cuda).to(dtype),
+             args[2], args[3], args[4], kl)
+    before = paged_flash_verify_mla.launches
+    out = paged_flash_verify_mla(*vargs, scale=scale)
+    ref = paged_flash_verify_mla_plain(*vargs, scale=scale)
+    torch.cuda.synchronize()
+    assert paged_flash_verify_mla.launches == before + 1
+    _close(out, ref, dtype)
+
+
+def test_reduced_sharded_fleet_on_card_equals_cpu(cuda):
+    """The reduced float32 qwen3-moe fleet over 2 ranks on the card (both
+    kernels on) gives the tokens of the same fleet over 2 CPU ranks and of
+    the unsharded fleet; each rank launched both kernels."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.serving.fleet import LocalFleet
+    arch = "qwen3-moe-235b-a22b"
+    kw = dict(batch=2, max_seq=64, gen_tokens=6, warmup=False,
+              decode_impl="flash_paged",
+              arch_overrides={arch: {"dtype": "float32",
+                                     "attn_impl": "pallas"}})
+    prompts = ["shard me across ranks", "tiny",
+               " ".join(f"w{i}" for i in range(30))]
+    want = [o["tokens"] for o in LocalFleet([arch], device="cpu", **kw)
+            .generate(arch, prompts)]
+    for dev in ("cuda", "cpu"):
+        with LM.host_ranks(2, device=dev):
+            f = LocalFleet([arch], model_axis=2, device=dev, **kw)
+            f.rank_stats(reset=True)
+            got = [o["tokens"] for o in f.generate(arch, prompts)]
+            stats = f.rank_stats()
+        assert got == want, dev
+        if dev == "cuda":
+            for s in stats:
+                assert s["launches"]["flash_attention"] > 0
+                assert s["launches"]["paged_flash_decode"] > 0
+            assert stats[0]["launches"] == stats[1]["launches"]

@@ -138,13 +138,19 @@ def test_unported_keywords_and_device_rule(monkeypatch):
     # speculative decoding is ported: only a malformed config raises
     with pytest.raises(ValueError, match="SpecConfig"):
         LocalFleet([ARCH], speculative=object(), **kw)
-    with pytest.raises(NotImplementedError):
+    # the model axis is ported: without ranks brought up it raises
+    with pytest.raises(RuntimeError, match="model axis"):
         LocalFleet([ARCH], model_axis=2, **kw)
     # the contiguous cache is ported: paged=False serves from slot rows
     contig = LocalFleet([ARCH], paged=False, **kw)
     assert not contig.members[ARCH].paged
-    with pytest.raises(NotImplementedError):
-        LocalFleet([ARCH], decode_impl="shardmap", **kw)
+    # decode_impl="shardmap" is ported: on one rank it is the plain path
+    xla = LocalFleet([ARCH], paged=False, decode_impl="xla", gen_tokens=4,
+                     **kw)
+    sm = LocalFleet([ARCH], paged=False, decode_impl="shardmap",
+                    gen_tokens=4, **kw)
+    assert [o["tokens"] for o in sm.generate(ARCH, PROMPTS[:3])] == \
+        [o["tokens"] for o in xla.generate(ARCH, PROMPTS[:3])]
     with pytest.raises(ValueError, match="unknown decode_impl"):
         LocalFleet([ARCH], decode_impl="bogus", **kw)
     with pytest.raises(ValueError, match="unknown ModelConfig field"):

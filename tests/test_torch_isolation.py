@@ -4,7 +4,9 @@ package or ``msgpack``, and serving a request — plain and speculative —
 extracting a batch's signals and deciding on them, routing a batch through
 ``SemanticRouter.route_batch`` into a reduced fleet, serving a text and
 an image request through ``AsyncFrontend``, taking two train steps and a
-checkpoint round trip (with ``msgpack`` blocked) loads none of them."""
+checkpoint round trip (with ``msgpack`` blocked) loads none of them; nor
+does serving a request through a sharded fleet on two CPU ranks, in any
+rank (the worker ranks run ``launch.mesh.worker_loop``)."""
 
 import ast
 import os
@@ -167,3 +169,28 @@ def test_serving_a_request_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout, res.stdout
+
+
+def test_sharded_fleet_loads_no_jax_in_any_rank():
+    code = (
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "from repro_torch.launch.mesh import host_ranks\n"
+        "from repro_torch.serving.fleet import LocalFleet\n"
+        "if __name__ == '__main__':\n"
+        "    with host_ranks(2, device='cpu') as ctl:\n"
+        "        f = LocalFleet(['qwen3-moe-235b-a22b'], batch=2, "
+        "gen_tokens=3, warmup=False, model_axis=2, "
+        "decode_impl='flash_paged', device='cpu')\n"
+        "        out = f.generate('qwen3-moe-235b-a22b', ['hello ranks'])\n"
+        "        assert len(out[0]['tokens']) == 3, out\n"
+        "        bad = ctl.gather(eval, \"sorted(m for m in "
+        "__import__('sys').modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'repro', 'msgpack') and __import__('sys').modules[m] is not "
+        "None)\")\n"
+        "    print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED [[], []]" in res.stdout, res.stdout

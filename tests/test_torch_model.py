@@ -172,12 +172,14 @@ def test_init_params_scheme_and_device_rule(monkeypatch):
 
 
 def test_unported_configs_raise():
-    """``decode_impl="shardmap"`` (multi-device) still raises;
-    ``attn_impl="blocked"`` (ported with training), cross-attention
-    context and the contiguous cache are served."""
+    """Only an unknown lowering raises: ``decode_impl="shardmap"`` (the
+    sharded split-KV decode), ``attn_impl="blocked"`` (ported with
+    training), cross-attention context and the contiguous cache are
+    served."""
     cfg = get_config(ARCH)
     with pytest.raises(NotImplementedError):
-        MD.check_supported(cfg.replace(decode_impl="shardmap"))
+        MD.check_supported(cfg.replace(decode_impl="bogus"))
+    MD.check_supported(cfg.replace(decode_impl="shardmap"))
     MD.check_supported(cfg.replace(attn_impl="blocked"))
     MD.check_supported(cfg.replace(cross_ctx_len=4))
     small = get_reduced(ARCH).replace(dtype="float32")
