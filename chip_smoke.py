@@ -207,7 +207,40 @@ Phases, in order; any failure exits non-zero before the result line:
    and ``build_serve_steps`` under ``shardmap`` and ``xla`` (4 rows, 8
    tokens), on the card's ranks == on 2 CPU ranks == unsharded on the CPU,
    token for token.
-15. times: kernel, plain version and one PyTorch library call at the
+15. shard_train: the model axis, training half, on the one card (no
+   kernel: every count zeroed before the sharded steps stays 0).  (a)
+   qwen3-moe-235b-a22b at published widths cut to 1 of 94 layers (3.73 B
+   parameters), batch 8 x seq 512, ``moe_impl="ep"``, remat on,
+   ``attn_impl="blocked"``, weights from one seeded stream (each leaf
+   drawn whole, then cut): step 0 of the same weights in float32 (the
+   independent reading: twice the unsharded bf16 member's error against
+   it bounds the loss, gradient-norm and gradient checks below), then
+   ``make_step_fn`` unsharded in this process for 3 steps, freed; then
+   ``build_train_step`` on ``make_host_mesh(model=2)`` over 2 ranks
+   sharing the card, the same 3 steps: each rank holds about half the
+   parameter and moment bytes, every step's loss and gradient norm
+   within the limits of the unsharded run's; then one sharded step at lr
+   3e-4 from step 0 (warmup 1, which moves bf16 weights) from the same
+   draw: its gradient, gathered whole (``bridge.whole_params``), leaf by
+   leaf within twice that leaf's bf16-vs-float32 error norm of the
+   unsharded gradient, and its weights within one bf16 rounding of the
+   one-process ``adamw_update`` of that gradient; step ms p50 sharded and
+   unsharded, host-staged collective seconds a step and their share,
+   each rank's peak memory, the model-FLOP share (6 x active parameters
+   x tokens over 989 TFLOP/s).  (b) smollm-360m at published widths and
+   depth through ``launch.train.main`` on 2 ranks (data 2 x model 1:
+   data parallelism with FSDP), batch 8 x seq 512: 5 steps
+   uninterrupted; the crash drill (``--ckpt-every 3 --fail-at-step 4``)
+   ends every rank with code 17, a fresh 2-rank world resumes to the
+   uninterrupted run's final loss (rel 1e-4); the 2 ranks' step-3
+   checkpoint restores in one process without ranks and gives the
+   uninterrupted run's step-3 loss (rel 1e-4); step ms p50 beside the
+   ``train`` phase's unsharded one, checkpoint bytes, write and read
+   seconds.  (c) reduced float32 llama3.2-1b and qwen3-moe, 3 steps of
+   ``build_train_step`` on 2 card ranks, on 2 CPU ranks, and
+   ``make_step_fn`` unsharded on the CPU: losses and gradient norms
+   within rel 1e-5.
+16. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 (and
    at the whisper encoder's bidirectional 1500 frames and jamba's 32/8
@@ -228,6 +261,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -262,7 +296,7 @@ WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
           "mla_fleet", "contig", "router", "qos", "audio", "train", "shard",
-          "times")
+          "shard_train", "times")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -3184,6 +3218,7 @@ def train_smollm(card):
     del model, opt, step
     gc.collect()
     torch.cuda.empty_cache()
+    return p50
 
 
 def train_moe(card):
@@ -3229,7 +3264,6 @@ def train_adapters_phase(card):
     --train-adapters`` runs it (the default encoder, three tasks x 60
     steps): "trained", then "loaded" from the same cache; then
     ``train_adapter`` for jailbreak on the full-width encoder."""
-    import contextlib
     import dataclasses
     import io
     import shutil
@@ -3407,7 +3441,9 @@ def phase_train(card, ctx):
     for part, fn in (("smollm", train_smollm), ("moe", train_moe),
                      ("adapters", train_adapters_phase),
                      ("card vs cpu", lambda card: train_card_vs_cpu())):
-        fn(card)
+        out = fn(card)
+        if part == "smollm":
+            ctx["train step ms p50"] = out
         now = time.perf_counter()
         secs[part] = round(now - prev, 1)
         prev = now
@@ -3941,7 +3977,587 @@ def phase_shard(card, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: times
+# phase 15: shard_train — the model axis, training half, on one card
+# ---------------------------------------------------------------------------
+
+ST_LAYERS = 1                   # of the 94: 2.488 B + 2 x 0.622 B params
+ST_BATCH, ST_SEQ, ST_STEPS = 8, 512, 3
+ST_RANKS = 2
+ST_LAUNCH = ["--arch", ARCH, "--batch", "8", "--seq", "512", "--lr", "3e-4",
+             "--log-every", "1", "--device", "cuda"]
+ST_LAUNCH_STEPS = 5             # the drill: --ckpt-every 3 --fail-at-step 4
+ST_SMALL = ("llama3.2-1b", "qwen3-moe-235b-a22b")
+ST_SMALL_REL = 1e-5
+
+
+def st_opt():
+    """(a)'s optimizer for its 3 steps: the reference's ``AdamWConfig()``
+    (``build_train_step``'s default, warmup over 100 steps).  At lr 3e-4
+    from step 0, Adam's first update of +-lr on every weight throws the
+    full-width model far off (loss 12.5 to 21.6), where any rounding
+    difference grows step by step."""
+    from repro_torch.training.optimizer import AdamWConfig
+    return AdamWConfig()
+
+
+def st_move_opt():
+    """(a)'s one update held element by element: lr 3e-4 from step 0
+    (warmup 1).  A weight of 0.016 has a bf16 step of 1.2e-4, so the +-lr
+    of Adam's first update moves nearly every weight (at the default's
+    warmup, lr 3e-6, almost every update rounds away)."""
+    from repro_torch.training.optimizer import AdamWConfig
+    return AdamWConfig(warmup_steps=1)
+
+
+def st_config():
+    """qwen3-moe-235b-a22b at published widths, 1 of its 94 layers, with
+    the training attention (``"blocked"``: the kernel has no gradient)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    return get_config(SHARD_ARCH).replace(
+        groups=(LayerGroup((BlockSpec("attn", "moe"),), ST_LAYERS),),
+        attn_impl="blocked")
+
+
+def st_active(cfg, n):
+    """Parameters a token meets: all but the unrouted experts' SwiGLUs."""
+    n_moe = sum(g.repeats for g in cfg.groups for b in g.period
+                if b.ffn == "moe")
+    per = 3 * cfg.d_model * cfg.d_ff_expert
+    return n - n_moe * (cfg.n_experts - cfg.moe_top_k) * per
+
+
+def st_free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def st_batch(cfg, i=0):
+    """``TokenStream``'s global batch ``i`` of (a)'s shape, on the CPU."""
+    import torch
+    from repro_torch.data.pipeline import TokenStream
+    return tuple(torch.from_numpy(a) for a in TokenStream(
+        cfg.vocab_size, ST_BATCH, ST_SEQ).batch_at(i))
+
+
+def st_steps(cfg, params, opt, step, shape, mesh=None):
+    """``steps`` steps of ``step`` on ``TokenStream``'s batches (``shape``
+    = batch, seq, steps): per step the loss, gradient norm, seconds and
+    the rank mesh's host-staged collective seconds."""
+    import torch
+    from repro_torch.data.pipeline import TokenStream
+    batch, seq, steps = shape
+    stream = TokenStream(cfg.vocab_size, batch, seq)
+    rows = []
+    for i in range(steps):
+        toks, labels = (torch.from_numpy(a) for a in stream.batch_at(i))
+        c0 = mesh.stats.seconds if mesh is not None else 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, toks, labels)
+        torch.cuda.synchronize()
+        rows.append({**{k: float(met[k]) for k in
+                        ("loss", "grad_norm", "ce", "moe_lb", "moe_z")},
+                     "s": time.perf_counter() - t0,
+                     "coll_s": (mesh.stats.seconds - c0) if mesh is not None
+                     else 0.0})
+    return rows
+
+
+@contextlib.contextmanager
+def st_first_grads():
+    """Within the block, the gradient that a train step of ``train_lib``
+    hands to its AdamW update first (the rank's blocks, after the data
+    sums) is copied to the CPU into the dict it yields."""
+    from repro_torch.training import train_lib
+    update, first = train_lib.adamw_update, {}
+
+    def spy(cfg, params, grads, state, **kw):
+        if not first:
+            first.update({k: g.detach().cpu() for k, g in grads.items()})
+        return update(cfg, params, grads, state, **kw)
+    train_lib.adamw_update = spy
+    try:
+        yield first
+    finally:
+        train_lib.adamw_update = update
+
+
+def st_sharded_rank(cfg, shape, sink):
+    """One rank of (a): ``cfg`` drawn as this rank's blocks of
+    ``make_host_mesh(2)`` on the card (each leaf whole from one seeded
+    stream, then cut), ``build_train_step``'s steps with every kernel's
+    count zeroed just before and read just after; then the weights drawn
+    again and one step of ``st_move_opt`` on the step-0 batch.  Rank 0
+    (the caller's process) puts that step's gradient and the weights after
+    it, whole (``bridge.whole_params``, on the CPU), into ``sink``."""
+    import torch
+    from repro_torch.bridge import whole_params
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_lib import build_train_step
+    mesh = LM.make_host_mesh(ST_RANKS)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # rank 0's process holds more
+    params = MD.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        mesh=mesh)
+    opt = init_opt_state(params)
+    held = sum(p.numel() * p.element_size() for p in params.parameters())
+    held_opt = sum(t.numel() * t.element_size()
+                   for d in (opt.m, opt.v) for t in d.values())
+    step, _ = build_train_step(cfg, mesh, st_opt(), batch=shape[0],
+                               moe_impl="ep", remat=True)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    mesh.stats.reset()
+    rows = st_steps(cfg, params, opt, step, shape, mesh)
+    out = {"rows": rows, "held": held, "held_opt": held_opt,
+           "launches": {n: fn.launches for n, fn in wrappers.items()},
+           "calls": mesh.stats.calls, "bytes": mesh.stats.bytes,
+           "peak": torch.cuda.max_memory_allocated() - base,
+           "coords": mesh.coords}
+    del params, opt, step
+    st_free()
+    t0 = time.perf_counter()
+    params = MD.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        mesh=mesh)
+    step, _ = build_train_step(cfg, mesh, st_move_opt(), batch=shape[0],
+                               moe_impl="ep", remat=True)
+    with st_first_grads() as first:
+        step(params, init_opt_state(params), *st_batch(cfg))
+    grads = whole_params(first, params, mesh)
+    del first
+    moved = whole_params({k: p.detach().cpu()
+                          for k, p in params.named_parameters()}, params, mesh)
+    out["whole_s"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        sink.update(grads=grads, moved=moved)
+    del params, step, grads, moved
+    st_free()
+    return out
+
+
+def st_small_rank(arch, named, device):
+    """One rank of (c): ``build_train_step`` on ``make_host_mesh(2)`` for
+    the reduced float32 ``arch`` from the whole weights ``named`` on
+    ``device`` (``None``: ``make_step_fn`` without a mesh on the CPU, the
+    unsharded run); per step (loss, gradient norm)."""
+    import torch
+    from repro_torch.bridge import shard_params
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_lib import build_train_step, make_step_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch).replace(dtype="float32")
+    oc = AdamWConfig(warmup_steps=1)
+    if device is None:
+        params = MD.Model(cfg, "cpu")
+        params.load_state_dict(named)
+        step = make_step_fn(cfg, oc, moe_impl="ep")
+    else:
+        mesh = LM.make_host_mesh(ST_RANKS)
+        params = MD.Model(cfg, device, mesh=mesh)
+        params.load_state_dict(shard_params(named, cfg, mesh))
+        step, _ = build_train_step(cfg, mesh, oc, batch=4, moe_impl="ep")
+    opt = init_opt_state(params)
+    stream = TokenStream(cfg.vocab_size, 4, 32)
+    out = []
+    for i in range(ST_STEPS):
+        toks, labels = (torch.from_numpy(a) for a in stream.batch_at(i))
+        params, opt, met = step(params, opt, toks, labels)
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    return out
+
+
+def st_launch_rank(argv, stats=None):
+    """One rank of (b): ``launch.train.main(argv)``, with this rank's
+    host-staged collective seconds, calls and bytes over the run, its
+    stats (into ``stats``: rank 0's reach the caller even when the run
+    ends in the drill's ``SystemExit``, which passes) and its peak
+    memory."""
+    import torch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import train as T
+    mesh = LM.make_host_mesh()
+    mesh.stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {} if stats is None else stats
+    losses = T.main(argv, stats=stats)
+    out = {"losses": losses, "stats": stats, "coll_s": mesh.stats.seconds,
+           "calls": mesh.stats.calls, "bytes": mesh.stats.bytes,
+           "peak": torch.cuda.max_memory_allocated()}
+    st_free()
+    return out
+
+
+def st_close(label, got, want, limit, what):
+    err = abs(got - want)
+    check(err <= limit, f"{label}: {what} {got!r} vs unsharded {want!r}: "
+          f"|diff| {err:.4e} above the limit {limit:.4e}")
+    return err
+
+
+def st_bf16_ulp(x):
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    import torch
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def st_check_update(label, cfg, grads, moved):
+    """The sharded weights after one step of ``st_move_opt`` (``moved``)
+    against the one-process update: ``optimizer.adamw_update`` without a
+    mesh on the same draw and the sharded step's own gradient (``grads``,
+    on the card, itself held against the unsharded one by ``st_check_grads``).  The
+    inputs are the same, and only float32 roundings differ (the clip
+    factor's norm is summed in another order: blocks, then ranks), so
+    every element lies within one bf16 rounding at the larger of the
+    weight before and after the step (where ``w0 - update`` cancels to
+    near zero, the result's own bf16 step is finer than the float32
+    rounding of its operands).  (AdamW's first update is
+    ``lr g / (|g| + eps)``, not +-lr, where the clipped gradient is near
+    ``eps`` — ``lm_head``'s at this width — so two bf16 gradients do not
+    bound the weights by a sign-flip count there.)"""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    model = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    w0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    adamw_update(st_move_opt(), model, grads, init_opt_state(model))
+    st_free()
+    apart = changed = total = 0
+    for k, p in model.named_parameters():
+        a16 = moved[k].cuda()
+        a = a16.float()
+        b = p.detach().float()
+        d = (a - b).abs()
+        ulp = st_bf16_ulp(torch.maximum(torch.maximum(a.abs(), b.abs()),
+                                        w0[k].float().abs()))
+        over = int((d > ulp).sum())
+        if over:
+            i = int(torch.argmax(d / ulp))
+            check(False, f"{label}: {k}: {over} elements of the sharded "
+                  f"update beyond one bf16 rounding of the one-process "
+                  f"update; the worst: sharded {float(a.view(-1)[i])!r}, "
+                  f"one-process {float(b.view(-1)[i])!r}, before "
+                  f"{float(w0[k].view(-1)[i])!r}, gradient "
+                  f"{float(grads[k].view(-1)[i])!r}")
+        apart += int((d > 0).sum())
+        changed += int((a16 != w0[k]).sum())
+        total += d.numel()
+        del a16, a, b, d, ulp
+    del model, w0
+    st_free()
+    return {"elements": total, "moved by the step": changed,
+            "one rounding apart": apart}
+
+
+def st_check_grads(label, got, want, e_leaf):
+    """The sharded step-0 gradient against the unsharded one (both on the
+    card), leaf by leaf: the norm of the difference within twice the unsharded member's
+    own bf16-vs-float32 error norm of that leaf (``e_leaf``), so a partial
+    gradient on one small leaf shows."""
+    import torch
+    worst_k, worst, diff2 = None, 0.0, 0.0
+    for k, w in want.items():
+        d = float(torch.linalg.vector_norm(got[k].float() - w.float()))
+        check(d <= 2 * e_leaf[k], f"{label}: gradient of {k}: |sharded - "
+              f"unsharded| {d:.4e} above twice its bf16 error "
+              f"{2 * e_leaf[k]:.4e}")
+        share = d / max(2 * e_leaf[k], 1e-30)
+        if share >= worst:
+            worst_k, worst = k, share
+        diff2 += d * d
+    return {"norm of the difference": math.sqrt(diff2), "worst leaf": worst_k,
+            "worst share of limit": worst}
+
+
+def phase_shard_train(card, ctx):
+    """The model axis, training half, on one card: (a) the cut
+    qwen3-moe unsharded here then over 2 ranks, (b) smollm-360m through
+    the launcher on 2 data ranks with the crash drill, (c) reduced float32
+    training on card ranks == CPU ranks == unsharded CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.checkpoint.ckpt import read_manifest
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import global_norm, init_opt_state
+    from repro_torch.training.train_lib import make_step_fn, value_and_grad
+    label = "shard_train"
+    t_phase = time.perf_counter()
+    marks = {}
+    shape = (ST_BATCH, ST_SEQ, ST_STEPS)
+    st_free()
+    log(f"{label}: memory_allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # (a) unsharded: the bf16 steps, then the float32 reading of step 0
+    cfg = st_config()
+    torch.cuda.reset_peak_memory_stats()
+    model = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    opt = init_opt_state(model)
+    step = make_step_fn(cfg, st_opt(), moe_impl="ep", remat=True)
+    un = st_steps(cfg, model, opt, step, shape)
+    peak_un = torch.cuda.max_memory_allocated()
+    del model, opt, step
+    st_free()
+    model = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    # the reading, on the same draw: the unsharded member's bf16 error against the same
+    # weights in float32 on the step-0 batch, as bounds (the triangle
+    # inequality: two bf16 paths, each that far from float32, are at most
+    # twice it apart): the mean absolute per-token cross-entropy error
+    # (plus the aux terms' errors) bounds the loss' error, and each leaf's
+    # gradient error norm bounds that leaf's sharded-vs-unsharded
+    # difference
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = MD.Model(cfg32, "cuda")
+    m32.load_state_dict(model.state_dict())
+    toks, labels = (t.cuda() for t in st_batch(cfg))
+    reading = {}
+    for tag, c, m in (("bf16", cfg, model), ("f32", cfg32, m32)):
+        with torch.no_grad():
+            logits = MD.forward(c, m, toks, moe_impl="ep")[0].float()
+            tok_ce = torch.logsumexp(logits, -1) - torch.gather(
+                logits, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+            del logits
+        loss, met, g = value_and_grad(c, m, toks, labels, moe_impl="ep",
+                                      remat=True)
+        reading[tag] = {"ce_t": tok_ce[labels >= 0], "loss": float(loss),
+                        "grad_norm": float(global_norm(g)), "grads": g,
+                        **{k: float(v) for k, v in met.items()}}
+        del g
+    r16, r32 = reading["bf16"], reading["f32"]
+    e_loss = float((r16["ce_t"] - r32["ce_t"]).abs().mean()) + \
+        0.01 * abs(r16["moe_lb"] - r32["moe_lb"]) + \
+        1e-3 * abs(r16["moe_z"] - r32["moe_z"])
+    g16, g32 = r16.pop("grads"), r32.pop("grads")
+    e_leaf = {k: float(torch.linalg.vector_norm(g16[k].float() - g32[k]))
+              for k in g32}
+    e_gn = math.sqrt(sum(e * e for e in e_leaf.values()))
+    # g16 stays: the unsharded step-0 gradient (make_step_fn's step 0
+    # runs this value_and_grad on these weights and this batch)
+    for r in (r16, r32):
+        del r["ce_t"]
+    del model, m32, m, reading, g32
+    st_free()
+    lim_loss, lim_gn = 2 * e_loss, 2 * e_gn
+    active = st_active(cfg, n)
+    flops = 6 * active * ST_BATCH * ST_SEQ
+    un_p50 = 1e3 * statistics.median(r["s"] for r in un[1:])
+    log(f"{label}: unsharded {cfg.name} ({cfg.n_blocks} of 94 layers, "
+        f"{n / 1e9:.3f} B params, {nbytes / 1e9:.2f} GB bf16, "
+        f"{active / 1e9:.3f} B active), batch {ST_BATCH} x {ST_SEQ}, ep, "
+        f"remat: losses {[r['loss'] for r in un]}, grad norms "
+        f"{[r['grad_norm'] for r in un]}; step 0, bf16 vs float32: loss "
+        f"{r16['loss']!r} vs {r32['loss']!r}, grad norm "
+        f"{r16['grad_norm']!r} vs {r32['grad_norm']!r}, ce / moe_lb / "
+        f"moe_z {[r16[k] for k in ('ce', 'moe_lb', 'moe_z')]} vs "
+        f"{[r32[k] for k in ('ce', 'moe_lb', 'moe_z')]}; mean |per-token "
+        f"ce error| + aux terms' {e_loss:.4e}, |gradient error| "
+        f"{e_gn:.4e} over {len(e_leaf)} leaves (each leaf's limit twice "
+        f"its own): limits twice those, loss {lim_loss:.4e}, grad norm "
+        f"{lim_gn:.4e}")
+    marks["unsharded"] = time.perf_counter()
+    ck = tempfile.mkdtemp(prefix="chip_smoke_shard_train_")
+    drill = ST_LAUNCH + ["--ckpt-dir", os.path.join(ck, "ck"),
+                         "--ckpt-every", "3", "--steps",
+                         str(ST_LAUNCH_STEPS)]
+    small, drill_stats = {}, {}
+    try:
+        try:
+            with LM.host_ranks(ST_RANKS) as ctl:
+                whole = {}
+                ranks = ctl.gather(st_sharded_rank, cfg, shape, whole)
+                marks["sharded"] = time.perf_counter()
+                st_check_sharded(label, ranks, un, n, nbytes, lim_loss,
+                                 lim_gn)
+                g_s = {k: v.cuda() for k, v in whole.pop("grads").items()}
+                gq = st_check_grads(label, g_s, g16, e_leaf)
+                del g16
+                uq = st_check_update(label, cfg, g_s, whole.pop("moved"))
+                del g_s
+                marks["update"] = time.perf_counter()
+                sh = ranks[0]["rows"]
+                sh_p50 = 1e3 * statistics.median(r["s"] for r in sh[1:])
+                coll = 1e3 * statistics.median(r["coll_s"] for r in sh[1:])
+                share = 100 * flops / PEAK_OPS["bfloat16"] / 1e-3
+                log(f"{label}: one step at lr {st_move_opt().lr} from step "
+                    f"0: its gradient, sharded vs unsharded, leaf by leaf "
+                    f"(whole_params): {json.dumps(gq)}; its update, "
+                    f"sharded vs one-process adamw_update of that "
+                    f"gradient: {json.dumps(uq)}, none beyond one bf16 "
+                    f"rounding; the step and gathering both whole "
+                    f"{ranks[0]['whole_s']:.1f} s [{card}]")
+                log(f"{label}: {cfg.name} over mesh data 1 x model "
+                    f"{ST_RANKS} ({ST_RANKS} ranks on the card, gloo): held "
+                    f"per rank {[round(r['held'] / 1e9, 3) for r in ranks]} "
+                    f"GB of {nbytes / 1e9:.2f} GB parameters, moments "
+                    f"{[round(r['held_opt'] / 1e9, 3) for r in ranks]} GB "
+                    f"of {8 * n / 1e9:.2f}; step ms p50 (steps "
+                    f"1-{ST_STEPS - 1}) sharded {sh_p50:.2f} vs unsharded "
+                    f"{un_p50:.2f}; host-staged collectives {coll:.2f} ms a "
+                    f"step ({100 * coll / sh_p50:.1f}%), "
+                    f"{ranks[0]['calls']} calls and "
+                    f"{ranks[0]['bytes'] / 1e9:.2f} GB staged over "
+                    f"{ST_STEPS} steps; max_memory_allocated per rank (above "
+                    f"what its process held before) "
+                    f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB vs "
+                    f"unsharded {peak_un / 2**30:.2f} GiB; model-FLOP share "
+                    f"(6 x {active / 1e9:.3f} B active x "
+                    f"{ST_BATCH * ST_SEQ} tokens = {flops / 1e12:.2f} TFLOP "
+                    f"a step over 989 TFLOP/s) sharded "
+                    f"{share / sh_p50:.2f}%, unsharded {share / un_p50:.2f}%"
+                    f" [{card}]")
+                # (c) reduced float32 on the card's ranks
+                for arch in ST_SMALL:
+                    cfg_s = get_reduced(arch).replace(dtype="float32")
+                    named = MD.init_params(
+                        cfg_s, torch.Generator().manual_seed(0),
+                        "cpu").state_dict()
+                    # the same ranks compute on the card, then on the CPU
+                    small[arch] = {"named": named, "card": ctl.gather(
+                        st_small_rank, arch, named, "cuda"),
+                        "cpu": ctl.gather(st_small_rank, arch, named, "cpu")}
+                marks["small"] = time.perf_counter()
+                # (b) the launcher over 2 data ranks: uninterrupted, then
+                # the drill, which ends this world
+                full = ctl.gather(st_launch_rank, ST_LAUNCH + [
+                    "--steps", str(ST_LAUNCH_STEPS)])
+                marks["launch"] = time.perf_counter()
+                ctl.run(None, st_launch_rank, drill + ["--fail-at-step",
+                                                       "4"],
+                        gather=True, stats=drill_stats)
+                check(False, f"{label}: --fail-at-step 4 did not exit")
+        except SystemExit as e:
+            # host_ranks lets the SystemExit out only when every worker
+            # rank exited with the same code
+            check(e.code == 17, f"{label}: the drill's world ended with "
+                  f"{e.code!r}, not 17")
+        marks["drill"] = time.perf_counter()
+        ckd = os.path.join(ck, "ck")
+        check(latest_step(ckd) == 3, f"{label}: latest checkpoint "
+              f"{latest_step(ckd)}, not 3")
+        check(read_manifest(ckd, 3)["process_count"] == ST_RANKS,
+              f"{label}: the drill's checkpoint is not {ST_RANKS} ranks'")
+        ck_bytes = dir_bytes(os.path.join(ckd, "step_00000003"))
+        shutil.copytree(ckd, os.path.join(ck, "one"))
+        with LM.host_ranks(ST_RANKS) as ctl:
+            resumed = ctl.gather(st_launch_rank, drill)
+        marks["resume"] = time.perf_counter()
+        # the 2 ranks' step-3 checkpoint in one process, no ranks
+        one = {}
+        alone = T.main(ST_LAUNCH + ["--ckpt-dir", os.path.join(ck, "one"),
+                                    "--ckpt-every", "100", "--steps", "4"],
+                       stats=one)
+        marks["restore alone"] = time.perf_counter()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    lf = full[0]["losses"]
+    check(all(r["losses"] == lf for r in full),
+          f"{label}: the launcher's ranks disagree: "
+          f"{[r['losses'] for r in full]}")
+    check(len(resumed[0]["losses"]) == ST_LAUNCH_STEPS - 3,
+          f"{label}: resumed {len(resumed[0]['losses'])} steps")
+    rel = abs(resumed[0]["losses"][-1] - lf[-1]) / abs(lf[-1])
+    rel1 = abs(alone[0] - lf[3]) / abs(lf[3])
+    st = full[0]["stats"]
+    l_p50 = 1e3 * statistics.median(st["step_s"][1:])
+    train_p50 = ctx.get("train step ms p50")
+    log(f"{label}: launcher {ARCH} over mesh data {ST_RANKS} x model 1 "
+        f"(FSDP): losses {lf}; step ms p50 {l_p50:.2f} vs the train "
+        f"phase's unsharded "
+        f"{'%.2f' % train_p50 if train_p50 else 'not measured in this run'}"
+        f"; host-staged collectives "
+        f"{1e3 * full[0]['coll_s'] / ST_LAUNCH_STEPS:.2f} ms a step on "
+        f"average ({full[0]['calls']} calls, "
+        f"{full[0]['bytes'] / 1e9:.2f} GB over {ST_LAUNCH_STEPS} steps); "
+        f"max_memory_allocated per rank "
+        f"{[round(r['peak'] / 2**30, 2) for r in full]} GiB [{card}]")
+    log(f"{label}: drill: every rank exited 17 at step 4; resumed at 3 to "
+        f"{resumed[0]['losses'][-1]!r} vs {lf[-1]!r} (rel {rel:.3e}); the "
+        f"2-rank step-3 checkpoint in one process: {alone!r} vs the 2-rank "
+        f"run's step 3 {lf[3]!r} (rel {rel1:.3e}); checkpoint {ck_bytes} "
+        f"bytes ({ST_RANKS} shard files), write s (rank 0) "
+        f"{[round(x, 2) for x in drill_stats['save_s']]}, read s "
+        f"{resumed[0]['stats']['restore_s']:.2f} over {ST_RANKS} ranks, "
+        f"{one['restore_s']:.2f} in one process [{card}]")
+    check(rel <= TRAIN_REL, f"{label}: resumed final loss off by rel "
+          f"{rel:.3e} > {TRAIN_REL}")
+    check(len(alone) == 1 and rel1 <= TRAIN_REL, f"{label}: the 2-rank "
+          f"checkpoint in one process off by rel {rel1:.3e} > {TRAIN_REL}")
+    # (c) against the unsharded CPU run
+    for arch in ST_SMALL:
+        plain = st_small_rank(arch, small[arch]["named"], None)
+        runs = small[arch]["card"] + small[arch]["cpu"]
+        worst = max(abs(a - b) / abs(b) for run in runs
+                    for got, want in zip(run, plain)
+                    for a, b in zip(got, want))
+        log(f"{label}: reduced float32 {arch}, {ST_STEPS} steps (loss, grad "
+            f"norm): card ranks {runs[0]}, CPU ranks {runs[ST_RANKS]}, "
+            f"unsharded CPU {plain}; worst rel {worst:.3e} [{card}]")
+        check(worst <= ST_SMALL_REL, f"{label}: reduced {arch} off by rel "
+              f"{worst:.3e} > {ST_SMALL_REL}")
+    marks["small unsharded"] = time.perf_counter()
+    prev, secs = t_phase, {}
+    for k, t in marks.items():
+        secs[k] = round(t - prev, 1)
+        prev = t
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s, seconds per "
+        f"part {json.dumps(secs)}")
+
+
+def st_check_sharded(label, ranks, un, n, nbytes, lim_loss, lim_gn):
+    """(a)'s checks: no kernel launched; each rank holds about half the
+    parameter and moment bytes; the ranks agree; every step's loss and
+    gradient norm within the limits of the unsharded run's."""
+    for r in ranks:
+        check(not any(r["launches"].values()), f"{label}: the training "
+              f"path launched a kernel: {r['launches']}")
+        check(abs(r["held"] - nbytes / ST_RANKS) < 0.01 * nbytes,
+              f"{label}: rank {r['coords']} holds {r['held']} parameter "
+              f"bytes of {nbytes}")
+        check(abs(r["held_opt"] - 8 * n / ST_RANKS) < 0.01 * 8 * n,
+              f"{label}: rank {r['coords']} holds {r['held_opt']} moment "
+              f"bytes of {8 * n}")
+        check([(x["loss"], x["grad_norm"]) for x in r["rows"]] ==
+              [(x["loss"], x["grad_norm"]) for x in ranks[0]["rows"]],
+              f"{label}: the ranks' metrics differ")
+    rows = list(zip(ranks[0]["rows"], un))
+    for i, (a, b) in enumerate(rows):
+        log(f"  {label} step {i}: loss sharded {a['loss']!r} vs unsharded "
+            f"{b['loss']!r} (|diff| {abs(a['loss'] - b['loss']):.3e}, limit "
+            f"{lim_loss:.3e}); grad norm {a['grad_norm']!r} vs "
+            f"{b['grad_norm']!r} (|diff| "
+            f"{abs(a['grad_norm'] - b['grad_norm']):.3e}, limit "
+            f"{lim_gn:.3e}); ce / moe_lb / moe_z sharded "
+            f"{[a[k] for k in ('ce', 'moe_lb', 'moe_z')]}, unsharded "
+            f"{[b[k] for k in ('ce', 'moe_lb', 'moe_z')]}")
+    for i, (a, b) in enumerate(rows):
+        st_close(f"{label} step {i}", a["loss"], b["loss"], lim_loss, "loss")
+        st_close(f"{label} step {i}", a["grad_norm"], b["grad_norm"], lim_gn,
+                 "grad norm")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush, reps=25, warm=3):
@@ -4410,6 +5026,8 @@ def main(argv=None) -> int:
             phase_shard(card, ctx)
             for k, v in ctx["shard launches"].items():
                 launches[k] = launches.get(k, 0) + v
+        if "shard_train" in phases:
+            phase_shard_train(card, ctx)
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
     except Failure as e:

@@ -14,11 +14,15 @@ is exact; ``load_state_dict`` casts them back to the model's dtype.
 over each group's repeats into the reference's nested tree
 (``ref_tree`` keeps torch tensors of each leaf's dtype; ``params_to_jax``
 gives numpy arrays, bf16 widened to float32 since numpy has no bf16).
-``shard_params`` cuts whole weights into one rank's blocks.
+``shard_params`` cuts whole weights into one rank's blocks,
+``shard_opt_state`` a whole optimizer state, and ``whole_params`` gathers
+a rank mesh's blocks back into whole leaves.
 ``opt_state_to_jax`` / ``opt_state_from_jax`` map ``training.optimizer``'s
 ``OptState`` (``m``/``v`` keyed like the model's parameters) onto the
 reference's ``OptState(step, m, v)`` trees and back.  Checkpoints go
-through these maps, so either package restores the other's.
+through these maps, so either package restores the other's;
+``train_state_tree`` is a sharded train state as the reference's tree of
+``checkpoint.ckpt.Blocks``.
 """
 
 from __future__ import annotations
@@ -92,23 +96,36 @@ def _set_path(tree: dict, path, leaf) -> None:
     tree[path[-1]] = leaf
 
 
-def _stack_groups(named: Mapping[str, torch.Tensor], groups, blocks: str,
-                  prefix: str, tree: dict) -> None:
-    """``{blocks}.{n}.<leaf>`` -> ``tree[f"{prefix}{i}"]["b{j}"][...]``
-    stacked over group i's repeats (the inverse of ``_groups``)."""
+TOP_LEAVES = ("embed", "final_norm", "lm_head", "enc_final_norm")
+
+
+def _stack_groups(names, groups, blocks: str, prefix: str, tree: dict,
+                  make) -> None:
+    """``{blocks}.{n}.<leaf>`` -> ``tree[f"{prefix}{i}"]["b{j}"][...]`` =
+    ``make(port names of group i's repeats)`` (the inverse of
+    ``_groups``)."""
     n = 0
     for i, g in enumerate(groups):
         period = len(g.period)
         gt: dict = {}
         for j in range(period):
             head = f"{blocks}.{n + j}."
-            for name in [k[len(head):] for k in named if k.startswith(head)]:
-                stacked = torch.stack([
-                    named[f"{blocks}.{n + r * period + j}.{name}"]
-                    for r in range(g.repeats)])
-                _set_path(gt, [f"b{j}"] + name.split("."), stacked)
+            for name in [k[len(head):] for k in names if k.startswith(head)]:
+                _set_path(gt, [f"b{j}"] + name.split("."), make([
+                    f"{blocks}.{n + r * period + j}.{name}"
+                    for r in range(g.repeats)]))
         tree[f"{prefix}{i}"] = gt
         n += period * g.repeats
+
+
+def _tree(names, cfg: ModelConfig, top, stacked) -> dict:
+    """The reference's tree over the port's parameter ``names``: ``top(name)``
+    at a top-level leaf, ``stacked(names of the repeats)`` at a group's."""
+    tree = {k: top(k) for k in TOP_LEAVES if k in names}
+    _stack_groups(names, cfg.groups, "blocks", "g", tree, stacked)
+    _stack_groups(names, cfg.encoder_groups, "enc_blocks", "enc_g", tree,
+                  stacked)
+    return tree
 
 
 def ref_tree(named, cfg: ModelConfig) -> dict:
@@ -119,11 +136,45 @@ def ref_tree(named, cfg: ModelConfig) -> dict:
     if isinstance(named, Model):
         named = dict(named.named_parameters())
     named = {k: v.detach().cpu() for k, v in named.items()}
-    tree = {k: named[k] for k in ("embed", "final_norm", "lm_head",
-                                  "enc_final_norm") if k in named}
-    _stack_groups(named, cfg.groups, "blocks", "g", tree)
-    _stack_groups(named, cfg.encoder_groups, "enc_blocks", "enc_g", tree)
-    return tree
+    return _tree(named, cfg, named.__getitem__,
+                 lambda ns: torch.stack([named[n] for n in ns]))
+
+
+def blocks_tree(named, model: Model, cfg: ModelConfig) -> dict:
+    """The reference's tree of a sharded ``model``'s blocks (``named``: the
+    model, or a mapping of blocks keyed like its parameters — optimizer
+    moments) as ``checkpoint.ckpt.Blocks``: each leaf's whole shape and
+    spec from ``model``'s parameter (a group leaf stacked over its
+    repeats: a leading repeats dim, replicated), its dtype and this rank's
+    block from ``named``."""
+    from repro_torch.checkpoint.ckpt import Blocks
+    params = dict(model.named_parameters())
+    if isinstance(named, Model):
+        named = params
+
+    def top(n):
+        p = params[n]
+        return Blocks(p._full, p._spec, named[n].dtype,
+                      lambda: named[n].detach())
+
+    def stacked(ns):
+        p = params[ns[0]]
+        return Blocks((len(ns),) + tuple(p._full), (None,) + tuple(p._spec),
+                      named[ns[0]].dtype,
+                      lambda: torch.stack([named[n].detach() for n in ns]))
+
+    return _tree(params, cfg, top, stacked)
+
+
+def train_state_tree(params: Model, opt_state, cfg: ModelConfig):
+    """A sharded train state ``(params, OptState)`` as the reference's
+    checkpoint tree ``(params, OptState(step, m, v))`` of ``Blocks`` (the
+    step a CPU tensor): what ``checkpoint.save_checkpoint(..., mesh=)``
+    writes, and the target its restore fills with this rank's blocks."""
+    return (blocks_tree(params, params, cfg),
+            type(opt_state)(opt_state.step.detach().cpu(),
+                            blocks_tree(opt_state.m, params, cfg),
+                            blocks_tree(opt_state.v, params, cfg)))
 
 
 def to_numpy(tree):
@@ -190,6 +241,39 @@ def shard_params(named: Mapping[str, torch.Tensor], cfg: ModelConfig, mesh,
                                           coords)].contiguous()
         block._spec = spec
         out[name] = block
+    return out
+
+
+def shard_opt_state(tree, cfg: ModelConfig, mesh, device="cuda"):
+    """A whole optimizer state (the reference's ``OptState(step, m, v)``
+    trees, or any ``(step, m, v)`` triple) -> the port's ``OptState``
+    holding this rank's blocks of ``m`` and ``v`` under the parameters'
+    specs, on ``device``."""
+    state = opt_state_from_jax(tree, "cpu")
+    dev = resolve_device(device)
+
+    def cut(named):
+        return {k: v.to(dev) for k, v in
+                shard_params(named, cfg, mesh).items()}
+
+    return type(state)(state.step.to(dev), cut(state.m), cut(state.v))
+
+
+def whole_params(named, model: Model, mesh) -> dict:
+    """Whole leaves from a rank's blocks: ``named`` (a sharded ``model``,
+    or a mapping of its blocks: gradients, moments) -> name -> the whole
+    tensor on the CPU, on every rank (an all-gather per sharded dim of
+    each leaf, in one order on every rank)."""
+    params = dict(model.named_parameters())
+    if isinstance(named, Model):
+        named = params
+    out = {}
+    for name, t in named.items():
+        t = t.detach()
+        for dim, ax in enumerate(getattr(params[name], "_spec", ())):
+            if ax is not None:
+                t = mesh.all_gather(t, ax, dim)
+        out[name] = t.cpu()
     return out
 
 

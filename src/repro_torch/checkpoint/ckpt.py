@@ -4,7 +4,7 @@ either package restores the other's.
 Layout:  <dir>/step_<n>/
              manifest.msgpack     {step, meta, process_count,
                                    keys: {key: {shape, dtype[, stored_as]}}}
-             shard_0.npz          the arrays, npz keys with "/" -> "__"
+             shard_<p>.npz        the arrays, npz keys with "/" -> "__"
 
 * Keys are the reference's tree-path strings: dict keys, tuple indices and
   ``.field`` for a NamedTuple's fields, joined with "/" — e.g. a train
@@ -18,18 +18,56 @@ Layout:  <dir>/step_<n>/
   ``.tmp`` directories.
 * The manifest is MessagePack through ``checkpoint.codec`` (the
   ``msgpack`` package is not required).
+* Over a rank mesh (``mesh=``): a leaf may be a ``Blocks`` — this rank's
+  block of a leaf split under a spec.  Every key is written whole, by one
+  rank: leaf ``i`` of the flattened tree by rank ``i % world``, which
+  gathers its blocks (one whole leaf in flight at a time) into its
+  ``shard_<rank>.npz``; ``process_count`` is the world size.  After a
+  barrier has seen every rank's file, rank 0 writes the manifest and
+  publishes the directory.  A restore onto a mesh reads each key from
+  whichever shard holds it and keeps the rank's block of every ``Blocks``
+  target, whatever mesh (or package: the reference reads every shard
+  file) wrote it.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Optional
+import zipfile
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import codec
+from repro_torch.sharding import rules as R
+
+
+class Blocks:
+    """A checkpoint leaf held as blocks over a rank mesh: its whole shape
+    ``full``, its spec (``sharding.rules``) and its torch ``dtype``.  To
+    save, ``block()`` makes this rank's block (a tensor); as a restore
+    target it needs none."""
+
+    def __init__(self, full, spec, dtype: torch.dtype,
+                 block: Optional[Callable[[], torch.Tensor]] = None):
+        self.full = tuple(full)
+        self.spec = tuple(spec)
+        self.dtype = dtype
+        self.block = block
+
+    def whole(self, mesh, dst: int) -> Optional[np.ndarray]:
+        """The whole leaf on rank ``dst`` (numpy; bf16 as float32), from
+        every rank's block; None on the other ranks.  Collective."""
+        parts = mesh.gather_to(self.block(), dst)
+        if parts is None:
+            return None
+        out = np.empty(self.full, dtype=parts[0].numpy().dtype)
+        for r, part in enumerate(parts):
+            out[R.block_slices(self.full, self.spec, mesh,
+                               mesh.coords_of(r))] = part.numpy()
+        return out
 
 
 def _flatten(tree, prefix=()):
@@ -63,9 +101,33 @@ def _unflatten(tree, leaves: Dict[str, Any], prefix=()):
 
 
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, Blocks)):
         return str(leaf.dtype).replace("torch.", "")
     return str(np.asarray(leaf).dtype)
+
+
+def _shape(leaf) -> list:
+    return list(leaf.full if isinstance(leaf, Blocks) else
+                np.shape(leaf) if not isinstance(leaf, torch.Tensor)
+                else leaf.shape)
+
+
+class _NpzWriter:
+    """An ``.npz`` written member by member (``np.savez``'s layout), so a
+    rank holds one whole array at a time."""
+
+    def __init__(self, path: str):
+        self.zf = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                                  allowZip64=True)
+
+    def write(self, key: str, arr: np.ndarray) -> None:
+        with self.zf.open(key.replace("/", "__") + ".npy", "w",
+                          force_zip64=True) as f:
+            np.lib.format.write_array(f, np.asanyarray(arr),
+                                      allow_pickle=False)
+
+    def close(self) -> None:
+        self.zf.close()
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -78,28 +140,53 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    meta: Optional[Dict] = None) -> str:
-    """One process writes every leaf to ``shard_0.npz``."""
+                    meta: Optional[Dict] = None, mesh=None) -> str:
+    """Write ``tree`` as checkpoint ``step``.  One process (no ``mesh``,
+    or a mesh of one rank) writes every leaf to ``shard_0.npz``; over a
+    rank mesh every rank calls this with its blocks, and rank ``r`` writes
+    the whole leaves ``i`` with ``i % world == r`` to ``shard_<r>.npz``.
+    Leaves that are not ``Blocks`` are the same on every rank."""
+    world = 1 if mesh is None else mesh.size
+    rank = 0 if mesh is None else mesh.rank
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    if rank == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    if world > 1:
+        mesh.barrier()
 
-    manifest = {"step": step, "meta": meta or {}, "process_count": 1,
+    manifest = {"step": step, "meta": meta or {}, "process_count": world,
                 "keys": {}}
-    arrays = {}
-    for key, leaf in _flatten(tree):
-        dtype = _dtype_name(leaf)
-        arr = _to_numpy(leaf)
-        manifest["keys"][key] = {"shape": list(arr.shape), "dtype": dtype}
-        if dtype == "bfloat16":
-            manifest["keys"][key]["stored_as"] = "float32"
-        arrays[key.replace("/", "__")] = arr
-    np.savez(os.path.join(tmp, "shard_0.npz"), **arrays)
-    with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
-        f.write(codec.packb(manifest))
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)                      # atomic publish
+    out = _NpzWriter(os.path.join(tmp, f"shard_{rank}.npz"))
+    try:
+        for i, (key, leaf) in enumerate(_flatten(tree)):
+            dtype = _dtype_name(leaf)
+            manifest["keys"][key] = {"shape": _shape(leaf), "dtype": dtype}
+            if dtype == "bfloat16":
+                manifest["keys"][key]["stored_as"] = "float32"
+            owner = i % world
+            if isinstance(leaf, Blocks):
+                arr = leaf.whole(mesh, owner) if world > 1 else \
+                    _to_numpy(leaf.block())
+            else:
+                arr = _to_numpy(leaf) if rank == owner else None
+            if rank == owner:
+                out.write(key, arr)
+            del arr
+    finally:
+        out.close()
+    if world > 1:
+        mesh.barrier()                     # every rank's shard is written
+    if rank == 0:
+        with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
+            f.write(codec.packb(manifest))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                  # atomic publish
+    if world > 1:
+        mesh.barrier()                     # published before any rank goes on
     return final
 
 
@@ -117,28 +204,40 @@ def read_manifest(ckpt_dir: str, step: int) -> dict:
         return codec.unpackb(f.read())
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, target: Any) -> Any:
-    """``target``: a tree of torch tensors or numpy arrays giving the
-    structure and each leaf's dtype.  Returns (tree, meta): the same
-    structure with CPU torch tensors where ``target`` has tensors (cast
-    to their dtype) and numpy arrays where it has arrays."""
+def restore_checkpoint(ckpt_dir: str, step: int, target: Any,
+                       mesh=None) -> Any:
+    """``target``: a tree of torch tensors, numpy arrays or (with
+    ``mesh``, this rank's position) ``Blocks``, giving the structure and
+    each leaf's dtype.  Returns (tree, meta): the same structure with CPU
+    torch tensors where ``target`` has tensors (cast to their dtype),
+    numpy arrays where it has arrays, and this rank's block (a CPU tensor
+    of the leaf's dtype) where it has ``Blocks``.  Keys are read one at a
+    time from whichever shard file holds them."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     manifest = read_manifest(ckpt_dir, step)
-    data = {}
-    for fn in os.listdir(path):
-        if fn.startswith("shard_") and fn.endswith(".npz"):
-            with np.load(os.path.join(path, fn)) as z:
-                for k in z.files:
-                    data[k.replace("__", "/")] = z[k]
-    leaves = {}
-    for key, leaf in _flatten(target):
-        arr = data[key]
-        stored_bf16 = manifest["keys"][key].get("stored_as") == "float32"
-        if isinstance(leaf, torch.Tensor):
-            t = torch.as_tensor(arr)
-            if stored_bf16:
-                t = t.to(torch.bfloat16)
-            leaves[key] = t.to(leaf.dtype)
-        else:       # numpy has no bf16: a stored bf16 leaf stays float32
-            leaves[key] = arr.astype(np.asarray(leaf).dtype)
+    files = [np.load(os.path.join(path, fn)) for fn in sorted(os.listdir(
+        path)) if fn.startswith("shard_") and fn.endswith(".npz")]
+    try:
+        where = {k.replace("__", "/"): z for z in files for k in z.files}
+        leaves = {}
+        for key, leaf in _flatten(target):
+            arr = where[key][key.replace("/", "__")]
+            stored_bf16 = manifest["keys"][key].get("stored_as") == \
+                "float32"
+            if isinstance(leaf, Blocks):
+                arr = arr[R.block_slices(arr.shape, leaf.spec, mesh,
+                                         mesh.coords)]
+                leaf = torch.empty((), dtype=leaf.dtype)
+            if isinstance(leaf, torch.Tensor):
+                t = torch.as_tensor(arr if arr.flags.c_contiguous
+                                    else arr.copy())
+                if stored_bf16:
+                    t = t.to(torch.bfloat16)
+                leaves[key] = t.to(leaf.dtype)
+            else:       # numpy has no bf16: a stored bf16 leaf stays float32
+                leaves[key] = arr.astype(np.asarray(leaf).dtype)
+            del arr
+    finally:
+        for z in files:
+            z.close()
     return _unflatten(target, leaves), manifest["meta"]

@@ -12,8 +12,12 @@ written out (``RankMesh.all_reduce`` / ``all_gather``).
   ``reshape(data, model)``), one process group per axis and one over the
   whole mesh.  The ranks talk through ``gloo``: on one card every rank
   shares it (NCCL refuses two ranks on one device), and the collectives
-  stage CUDA tensors through host memory (``bf16``/``f16`` travel as
-  float32).  Their wall time is kept in ``RankMesh.stats``.
+  stage CUDA tensors through host memory (a reduction's ``bf16``/``f16``
+  travels as float32, a gather's as its bits).  Their wall time is kept
+  in ``RankMesh.stats``.  Training takes their differentiable twins
+  (``RankMesh.psum`` / ``enter`` / ``gather`` / ``first``,
+  ``torch.autograd.Function``s): the backward of each issues its
+  collective in the graph's order, the same on every rank.
 * ``make_production_mesh`` / ``make_host_mesh`` / ``data_axes`` /
   ``stage_split`` — the reference's functions over ranks.
 * Bringing ranks up: ``host_ranks(world)`` makes this process rank 0 and
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
 import math
 import os
 import shutil
@@ -47,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import axis_index
 
 # the command channel (the default group) waits as long as a controller
 # may do other work between commands; the model's collectives wait for
@@ -104,8 +110,10 @@ class RankMesh(Mesh):
         self.stats = CollectiveStats()
         self._groups: Dict[tuple, object] = {}
         if self.size > 1:
-            for axes in [(a,) for a in self.axis_names] + [self.axis_names]:
-                self._groups[axes] = _new_groups(self, axes)
+            # every non-empty set of axes, in one order on every rank
+            for n in range(1, len(self.axis_names) + 1):
+                for axes in itertools.combinations(self.axis_names, n):
+                    self._groups[axes] = _new_groups(self, axes)
 
     def _group(self, axis):
         axes = tuple(axis) if isinstance(axis, tuple) else (axis,)
@@ -146,17 +154,148 @@ class RankMesh(Mesh):
         if n == 1:
             return t
         t0 = time.perf_counter()
-        host = self._stage(t).contiguous()
+        if t.dtype in _WIDE:    # no arithmetic: 16-bit floats move as bits
+            host = t.detach().to("cpu").contiguous().view(torch.uint8)
+        else:
+            host = self._stage(t).contiguous()
         parts = [torch.empty_like(host) for _ in range(n)]
         dist.all_gather(parts, host, group=group)
-        out = torch.cat(parts, dim=dim).to(t.device, t.dtype)
+        out = torch.cat(parts, dim=dim)
+        if t.dtype in _WIDE:
+            out = out.view(t.dtype)
+        out = out.to(t.device, t.dtype)
         self._count(t0, host, n)
         return out
+
+    def reduce_scatter(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """``t`` summed over ``axis``, then this rank's block of ``dim``
+        (``gloo`` has no reduce-scatter: an all-reduce and a slice, its
+        bytes counted as the all-reduce's)."""
+        if self.axis_size(axis) == 1:
+            return t
+        return self.own_block(self.all_reduce(t, axis), axis,
+                              dim).contiguous()
+
+    def own_block(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """This rank's block of ``t``'s ``dim`` split over ``axis``."""
+        b = t.shape[dim] // self.axis_size(axis)
+        return t.narrow(dim, self.index(axis) * b, b)
+
+    def index(self, axis) -> int:
+        """This rank's row-major index along ``axis`` (a name or a tuple
+        of names)."""
+        return axis_index(self, axis, self.coords)
+
+    # -- differentiable twins (training) -----------------------------------
+
+    def psum(self, t: torch.Tensor, axis="model") -> torch.Tensor:
+        """Sum of a partial result (a row-parallel product, vocab-parallel
+        embedding rows, expert shares, a loss' partial sums): forward
+        ``all_reduce``; backward the identity, since what follows is the
+        same on every rank of ``axis``."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _PSum.apply(t, self, axis)
+
+    def enter(self, t: torch.Tensor, axis="model") -> torch.Tensor:
+        """Entry of a replicated value into a branch split over ``axis``
+        (Megatron's "f"): forward the identity; backward the all-reduce of
+        the ranks' partial gradients."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _Enter.apply(t, self, axis)
+
+    def gather(self, t: torch.Tensor, axis, dim: int, *,
+               grad: str = "sum") -> torch.Tensor:
+        """Tiled all-gather of ``t``'s blocks along ``dim``.  Backward:
+        ``grad="sum"`` reduce-scatters (the ranks' partial gradients of
+        the whole are summed onto each block: what consumes the gathered
+        tensor is split over ``axis``); ``"slice"`` keeps the rank's block
+        of the gradient (the consumer is replicated over ``axis``, so every
+        rank holds the whole gradient)."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _Gather.apply(t, self, axis, dim, grad)
+
+    def first(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """The value of index 0 along ``axis`` on every rank of it; the
+        gradient reaches each rank's ``t`` divided by the axis' size.  This
+        is what GSPMD gives a value that a ``shard_map`` declares
+        replicated (``P()``, ``check_rep=False``) while its shards differ:
+        the result reads the first device's, and the transpose averages."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _First.apply(t, self, axis)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh."""
+        if self.size > 1:
+            dist.barrier(group=self._groups[self.axis_names])
+
+    def gather_to(self, t: torch.Tensor, dst: int) -> Optional[List]:
+        """Every rank's ``t`` (equal shapes; staged as ``all_gather``)
+        collected on global rank ``dst`` in mesh-rank order; None on the
+        other ranks."""
+        t0 = time.perf_counter()
+        host = self._stage(t).contiguous()
+        parts = ([torch.empty_like(host) for _ in range(self.size)]
+                 if self.rank == dst else None)
+        dist.gather(host, parts, dst=dst,
+                    group=self._groups[self.axis_names])
+        self._count(t0, host, self.size if self.rank == dst else 1)
+        return parts
 
     def _count(self, t0: float, host: torch.Tensor, n: int = 1):
         self.stats.calls += 1
         self.stats.seconds += time.perf_counter() - t0
         self.stats.bytes += host.numel() * host.element_size() * n
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh.all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), ctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, grad):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.grad = mesh, axis, dim, grad
+        return mesh.all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        g = m.reduce_scatter(g.contiguous(), axis, dim) \
+            if ctx.grad == "sum" else m.own_block(g, axis, dim)
+        return g, None, None, None, None
+
+
+class _First(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.n = mesh.axis_size(axis)
+        mine = t if mesh.index(axis) == 0 else torch.zeros_like(t)
+        return mesh.all_reduce(mine, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
 
 
 def _new_groups(mesh: Mesh, axes: tuple):
@@ -366,6 +505,9 @@ class Controller:
             bad = [o[1] for o in outs if o[0] == "err"]
             if bad:
                 raise RuntimeError("a worker rank failed:\n" + bad[0])
+            codes = [o[1] for o in outs if o[0] == "exit"]
+            if codes:
+                raise RuntimeError(f"worker ranks exited with codes {codes}")
             if gather:
                 return [res] + [o[1] for o in outs[1:]]
             return self._mirror(res, h)
@@ -414,6 +556,16 @@ def worker_loop(device="cuda") -> None:
             if keep is not None:
                 objs[keep] = res
             out = ("ok", res if wait == "value" else None)
+        except SystemExit as e:
+            # the call ended the program (the launcher's crash drill): the
+            # rank reports its code and exits with it, as the controller
+            # does
+            code = e.code if isinstance(e.code, int) else 1
+            if wait is not None:
+                dist.gather_object(("exit", code), None, dst=0)
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(code)
         except Exception:                  # noqa: BLE001 — reported
             text = f"rank {rank}: {traceback.format_exc()}"
             if wait is None:
@@ -505,7 +657,10 @@ def host_ranks(world: int, device="cuda"):
     0 yields the controller, the others run the worker loop until rank 0
     leaves the block, then yield None.  On leaving, the workers stop, the
     spawned ones are joined (a rank that exited non-zero raises) and the
-    process group is destroyed."""
+    process group is destroyed.  A call that exits the program on every
+    rank (``SystemExit``, the launcher's crash drill) ends each worker
+    with its code; the ``SystemExit`` leaves the block only when every
+    spawned worker exited with the same code."""
     global _CONTROLLER
     resolve_device(device)
     if _CONTROLLER is not None or dist.is_initialized():
@@ -516,6 +671,7 @@ def host_ranks(world: int, device="cuda"):
     store = None if torchrun else os.path.join(tmp, "store")
     procs = [] if torchrun else _start(world, store, device)
     ok = False
+    exit_code = None
     try:
         _init(0, world, store)
         if dist.get_rank() != 0:
@@ -524,17 +680,25 @@ def host_ranks(world: int, device="cuda"):
             ok = True
             return
         _CONTROLLER = Controller()
-        yield _CONTROLLER
+        try:
+            yield _CONTROLLER
+        except SystemExit as e:
+            exit_code = e.code if isinstance(e.code, int) else 1
+            raise
         ok = True
     finally:
         try:
             if ok and _CONTROLLER is not None:
                 _CONTROLLER.stop()
         finally:
-            codes = _reap(procs, 60.0 if ok else 5.0)
+            codes = _reap(procs, 60.0 if ok or exit_code is not None
+                          else 5.0)
             _teardown()
             torch.set_num_threads(threads)
             if tmp is not None:
                 shutil.rmtree(tmp, ignore_errors=True)
+        if exit_code is not None and any(c != exit_code for c in codes):
+            raise RuntimeError(f"rank 0 exited with code {exit_code}, the "
+                               f"worker ranks with {codes}")
     if any(c != 0 for c in codes):
         raise RuntimeError(f"worker ranks exited with codes {codes}")

@@ -13,6 +13,17 @@ block holds a ``"data"`` share of (ZeRO-3) before use; head counts are
 read off the weights, so a column-parallel projection yields the rank's
 heads, and ``row_parallel_sum`` all-reduces a row-parallel product over
 ``"model"``.  Unsharded tensors pass through both unchanged.
+
+The collectives are the mesh's differentiable ones, so a train step's
+gradients cross the ranks: ``W``'s gather reduce-scatters its gradient
+over ``"data"`` (each data rank computed its rows' share) and keeps the
+rank's block over ``"model"`` (a model-gathered weight feeds compute that
+is replicated over ``"model"``); ``row_parallel_sum`` is a sum of partial
+results; ``enter`` marks where a value replicated over ``"model"`` enters a
+branch split over it (column-parallel, head-split, expert-split or
+vocab-split), whose backward sums the ranks' partial gradients.  A branch
+that is not split (heads that do not divide the axis) runs whole on every
+rank and takes no ``enter``.
 """
 
 from __future__ import annotations
@@ -46,23 +57,24 @@ def W(t: Tensor, *, model: bool = False) -> Tensor:
     axes = ("pod", "data", "model") if model else ("pod", "data")
     mesh = None
     for dim, ax in enumerate(spec):
-        if ax is None or (ax if isinstance(ax, tuple) else (ax,))[0] \
-                not in axes:
+        first = (ax if isinstance(ax, tuple) else (ax,))[0]
+        if ax is None or first not in axes:
             continue
         mesh = mesh or current_mesh()
         if mesh is None:
             raise RuntimeError("a sharded parameter used outside its mesh's "
                                "sharding_rules")
-        t = mesh.all_gather(t, ax, dim)
+        t = mesh.gather(t, ax, dim,
+                        grad="slice" if first == "model" else "sum")
     return t
 
 
-def split_over(t: Tensor, axis: str = "model") -> bool:
-    """Whether ``t``'s spec splits its leading dim over ``axis`` (a
-    row-parallel weight) on a mesh where that axis has more than one
-    rank."""
+def split_over(t: Tensor, axis: str = "model", dim: int = 0) -> bool:
+    """Whether ``t``'s spec splits its dim ``dim`` over ``axis`` (the rows
+    of a row-parallel weight, the columns of a column-parallel one) on a
+    mesh where that axis has more than one rank."""
     spec = getattr(t, "_spec", None)
-    if not spec or spec[0] != axis:
+    if not spec or len(spec) <= dim or spec[dim] != axis:
         return False
     mesh = current_mesh()
     return mesh is not None and mesh.shape.get(axis, 1) > 1
@@ -72,8 +84,18 @@ def row_parallel_sum(y: Tensor, w: Tensor) -> Tensor:
     """``y = x @ w`` for a row-parallel ``w`` (rows split over
     ``"model"``) is a partial sum: all-reduce it; else ``y``."""
     if split_over(w):
-        return current_mesh().all_reduce(y, "model")
+        return current_mesh().psum(y, "model")
     return y
+
+
+def enter(x: Tensor, split: bool = True) -> Tensor:
+    """``x`` (replicated over ``"model"``) entering a branch that is split
+    over ``"model"`` when ``split``: the identity forward, the all-reduce
+    of its gradient backward; ``x`` itself otherwise."""
+    mesh = current_mesh()
+    if not split or mesh is None:
+        return x
+    return mesh.enter(x, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -252,12 +274,16 @@ def attn_qkv(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     B, Sq, d = x.shape
     Skv = kv_x.shape[1]
     hd = cfg.head_dim
-    q = (x @ W(p["wq"])).reshape(B, Sq, -1, hd)
-    k = (kv_x @ W(p["wk"])).reshape(B, Skv, -1, hd)
-    v = (kv_x @ W(p["wv"])).reshape(B, Skv, -1, hd)
+    # the rank's heads: x, and the replicated q/k norm scales, enter
+    split = split_over(p["wq"], dim=1)
+    xe = enter(x, split)
+    kv_xe = xe if kv_x is x else enter(kv_x, split)
+    q = (xe @ W(p["wq"])).reshape(B, Sq, -1, hd)
+    k = (kv_xe @ W(p["wk"])).reshape(B, Skv, -1, hd)
+    v = (kv_xe @ W(p["wv"])).reshape(B, Skv, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, enter(p["q_norm"], split), cfg.norm_eps)
+        k = rms_norm(k, enter(p["k_norm"], split), cfg.norm_eps)
     if rope is not None:
         q = apply_rope(q, *rope)
     if kv_rope is not None:
@@ -363,5 +389,6 @@ def mla_attention(p: Mapping[str, Tensor], cfg: ModelConfig, q_nope, q_rope,
 def ffn_apply(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
     """SwiGLU; column-parallel ``w_gate``/``w_up`` and row-parallel
     ``w_down`` over ``"model"`` when the rules split ``d_ff``."""
+    x = enter(x, split_over(p["w_down"]))
     y = (F.silu(x @ W(p["w_gate"])) * (x @ W(p["w_up"]))) @ W(p["w_down"])
     return row_parallel_sum(y, p["w_down"])

@@ -51,11 +51,18 @@ vocab-parallel (the logits come back as the rank's vocab shard;
 over ``"model"``: KV heads when they divide it, else a sequence shard,
 which ``decode_impl="shardmap"`` always takes (``smdec``); paged pools
 split heads or stay whole; the batch stays whole on every rank.  Members
-with SSM state, cross-attention or an encoder do not shard yet.
+with SSM state, cross-attention or an encoder take no model axis yet.
+
+Training over ranks (``training.train_lib.build_train_step``): the batch
+is split over ``"data"`` (``sharding.ctx.row_axes``), the collectives are
+the mesh's differentiable ones (``layers.enter`` where a replicated value
+enters a split branch), and ``loss_fn`` reduces the vocab shards and the
+rows' sums to the reference's global mean.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -75,7 +82,8 @@ from repro_torch.models import smdec
 from repro_torch.models import ssm as S
 from repro_torch.models.config import BlockSpec, LayerGroup, ModelConfig
 from repro_torch.sharding import rules as R
-from repro_torch.sharding.ctx import current_mesh
+from repro_torch.sharding.ctx import (capture, current_mesh, installed,
+                                      row_axes)
 
 Tensor = torch.Tensor
 
@@ -465,11 +473,13 @@ def _all_heads(t: Tensor, full: int) -> Tensor:
 
 
 def _own_heads(t: Tensor, local: int) -> Tensor:
-    """Every head (dim 2) of ``t`` -> this rank's ``local`` heads."""
+    """Every head (dim 2) of ``t`` -> this rank's ``local`` heads (``t``,
+    replicated over ``"model"``, enters the head-split branch)."""
     if t.shape[2] == local:
         return t
-    j = current_mesh().coords["model"]
-    return t[:, :, j * local:(j + 1) * local]
+    mesh = current_mesh()
+    j = mesh.coords["model"]
+    return mesh.enter(t, "model")[:, :, j * local:(j + 1) * local]
 
 
 # ===========================================================================
@@ -720,7 +730,10 @@ def _mla_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     q_nope, q_rope = _own_heads(q_nope, H_loc), _own_heads(q_rope, H_loc)
     c_kv, k_rope = L.mla_kv_latent(mp, cfg, x, rope)
     if mode == "full" or bcache is None:
-        return h + _mla_naive(cfg, mp, q_nope, q_rope, c_kv, k_rope)
+        # the latents, computed whole on every rank, enter its heads
+        split = H_loc < cfg.n_heads
+        return h + _mla_naive(cfg, mp, q_nope, q_rope, L.enter(c_kv, split),
+                              L.enter(k_rope, split))
     if tbl is None and bcache.get("seq_split"):
         if mode == "prefill":
             _seq_write(bcache["ckv"], c_kv, int(pos))
@@ -815,10 +828,11 @@ def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
     else:   # SSM: a recurrent state per row, copied into the cache in place
         x = L.rms_norm(h, p.norm1, cfg.norm_eps)
         forward, step = S.FORWARD[mixer]
+        sp = _whole(getattr(p, mixer))
         if mode == "decode":
-            y, state = step(getattr(p, mixer), cfg, x, bcache)
+            y, state = step(sp, cfg, x, bcache)
         else:
-            y, state = forward(getattr(p, mixer), cfg, x, state=None,
+            y, state = forward(sp, cfg, x, state=None,
                                return_state=mode == "prefill")
         if state is not None and bcache is not None:
             for leaf, t in state.items():
@@ -831,6 +845,16 @@ def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
         y, aux = M.moe_apply(p.moe, cfg, x, moe_impl, aux=mode == "full")
         return h + y, None if aux is None else (aux["moe_lb"], aux["moe_z"])
     return h + L.ffn_apply(p.ffn, x), None
+
+
+def _whole(pd):
+    """An SSM mixer's leaves gathered whole where a mesh shards them
+    (over ``"data"``: SSM members take no model axis); ``pd`` itself when
+    none carries a spec."""
+    if not any(hasattr(t, "_spec") for t in pd.parameters()):
+        return pd
+    return {k: _whole(v) if isinstance(v, nn.ParameterDict)
+            else L.W(v, model=True) for k, v in pd.items()}
 
 
 def _period(cfg: ModelConfig, blocks, h: Tensor, lb, z, **kw):
@@ -880,8 +904,12 @@ def _run_groups(cfg: ModelConfig, blocks: nn.ModuleList,
                 period.append((blocks[n], bc))
                 n += 1
             if remat and train:
-                h, lb, z = checkpoint(_period, cfg, period, h, lb, z,
-                                      use_reentrant=False, **kw)
+                # the recompute sees the forward's mesh and rules
+                state = capture()
+                h, lb, z = checkpoint(
+                    _period, cfg, period, h, lb, z, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        installed(state)), **kw)
             else:
                 h, lb, z = _period(cfg, period, h, lb, z, **kw)
     return h, ({"moe_lb": lb, "moe_z": z} if train else None)
@@ -926,16 +954,18 @@ def _embed(params: Model, tokens: Tensor) -> Tensor:
     inside = (local >= 0) & (local < Vl)
     h = torch.where(inside[..., None], table[local.clamp(0, Vl - 1)],
                     torch.zeros((), dtype=table.dtype, device=table.device))
-    return mesh.all_reduce(h, "model")
+    return mesh.psum(h, "model")
 
 
 def _logits(cfg: ModelConfig, params: Model, h: Tensor) -> Tensor:
     """Logits over the vocabulary — the rank's vocab shard when the rules
-    split it over ``"model"`` (``serve_lib.greedy`` reduces shards)."""
+    split it over ``"model"`` (``serve_lib.greedy`` and ``loss_fn``
+    reduce shards)."""
     h = L.rms_norm(h, params.final_norm, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ L.W(params.embed).T
-    return h @ L.W(params.lm_head)
+        return L.enter(h, L.split_over(params.embed)) @ L.W(params.embed).T
+    return L.enter(h, L.split_over(params.lm_head, dim=1)) @ \
+        L.W(params.lm_head)
 
 
 def _take_last(h: Tensor, lens) -> Tensor:
@@ -986,16 +1016,45 @@ def loss_fn(cfg: ModelConfig, params: Model, tokens: Tensor, labels: Tensor,
     labels = labels.long()
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mesh = current_mesh()
+    if logits.shape[-1] < cfg.vocab_size:
+        logz, gold = _vocab_parallel_ce(mesh, logits, safe)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    num, den = ((logz - gold) * mask).sum(), mask.sum()
+    rows = row_axes()
+    lb, z = aux["moe_lb"], aux["moe_z"]
+    if rows:
+        # the rank holds its rows: the sums are the global batch's, and
+        # each MoE aux loss is the first data shard's value with the
+        # shards' mean gradient, as GSPMD gives the reference's
+        # (``moe.moe_ep``'s per-shard aux out of its ``shard_map``)
+        num = mesh.psum(num, rows)
+        den = mesh.all_reduce(den, rows)
+        if cfg.n_experts:
+            lb, z = mesh.first(lb, rows), mesh.first(z, rows)
+    ce = num / torch.clamp(den, min=1.0)
     n_moe = max(1, sum(1 for g in cfg.groups for s in g.period
                        if s.ffn == "moe"))
-    total = ce + lb_coef * aux["moe_lb"] / n_moe + \
-        z_coef * aux["moe_z"] / n_moe
-    metrics = {"ce": ce, "moe_lb": aux["moe_lb"] / n_moe,
-               "moe_z": aux["moe_z"] / n_moe}
+    total = ce + lb_coef * lb / n_moe + z_coef * z / n_moe
+    metrics = {"ce": ce, "moe_lb": lb / n_moe, "moe_z": z / n_moe}
     return total, metrics
+
+
+def _vocab_parallel_ce(mesh, logits: Tensor, labels: Tensor):
+    """(logsumexp, gold logit) over a vocabulary split over ``"model"``:
+    ``logits`` is the rank's shard (float32); the max is all-reduced
+    without gradient, the sums of exponentials and the gold logit (from
+    the rank that owns it) as partial sums."""
+    Vl = logits.shape[-1]
+    m = mesh.all_reduce(logits.detach().amax(-1), "model", op="max")
+    se = mesh.psum(torch.exp(logits - m[..., None]).sum(-1), "model")
+    local = labels - mesh.coords["model"] * Vl
+    inside = (local >= 0) & (local < Vl)
+    g = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = mesh.psum(torch.where(inside, g, torch.zeros_like(g)), "model")
+    return torch.log(se) + m, gold
 
 
 @torch.no_grad()

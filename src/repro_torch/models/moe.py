@@ -21,6 +21,17 @@ rules split their ``d_ff``).  ``moe_apply`` returns ``(out, aux)`` as the
 reference's; the serving callers pass ``aux=False`` (the aux losses are
 then not computed, as XLA drops them from a jitted serving step) and
 drop it.
+
+In the train step the batch rows are split over ``"data"``
+(``sharding.ctx.row_axes``).  ``moe_ep`` then takes the rank's rows as
+they come, with the capacity of that shard, as the reference's
+``shard_map`` body does, and its aux losses are the shard's
+(``model.loss_fn`` reduces them as GSPMD does).  ``gshard`` and ``sort``,
+which the reference runs over the global batch, gather the rows, compute
+the whole batch and keep the rank's rows.  Routing runs replicated over
+``"model"``; the tokens and their top-k weights enter the expert-split
+compute through ``Mesh.enter``, so the router's gradient is the sum of
+every rank's experts' share.
 """
 
 from __future__ import annotations
@@ -32,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import W, row_parallel_sum
-from repro_torch.sharding.ctx import current_mesh
+from repro_torch.models.layers import W, enter, row_parallel_sum, split_over
+from repro_torch.sharding.ctx import current_mesh, row_axes
 
 Tensor = torch.Tensor
 
@@ -67,6 +78,7 @@ def _shared_expert(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
     """The shared experts' SwiGLU; column-/row-parallel over ``"model"``
     when the rules split their ``d_ff`` (partial outputs all-reduced)."""
     sp = p["shared"]
+    x = enter(x, split_over(sp["w_down"]))
     y = (F.silu(x @ W(sp["w_gate"])) * (x @ W(sp["w_up"]))) @ W(sp["w_down"])
     return row_parallel_sum(y, sp["w_down"])
 
@@ -114,10 +126,14 @@ def moe_gshard(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
                            pos_oh)
     dispatch = (combine > 0).to(x.dtype)
 
+    # under a mesh every rank gathers the whole expert set
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch, xg)   # (G,E,C,d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"]))
-    h = h * torch.einsum("gecd,edf->gecf", expert_in, p["w_up"])
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in,
+                            W(p["w_gate"], model=True)))
+    h = h * torch.einsum("gecd,edf->gecf", expert_in,
+                         W(p["w_up"], model=True))
+    expert_out = torch.einsum("gecf,efd->gecd", h,
+                              W(p["w_down"], model=True))
     out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
 
     out = out.reshape(B, S, d)
@@ -233,33 +249,36 @@ def moe_ep(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     computes its experts' share and the shares are all-reduced over
     ``"model"`` (no all-to-all, no dispatch einsum).  As the reference's
     ``shard_map`` body, each ``"data"`` rank computes its batch shard with
-    the capacity of that shard when the batch divides (then the shards are
-    all-gathered: every rank returns the whole batch), else the whole
-    batch.  No mesh, or ``E % model != 0``: ``moe_sort_local``."""
+    the capacity of that shard when the batch divides, else the whole
+    batch.  Serving holds the whole batch on every rank: the rank cuts its
+    shard and the shards are all-gathered, so every rank returns the whole
+    batch.  Training (``sharding.ctx.row_axes``): ``x`` is the rank's rows
+    already.  No mesh, or ``E % model != 0``: ``moe_sort_local``."""
     ep = _ep_mesh(cfg)
     if ep is None:
-        return moe_sort_local(p, cfg, x, aux)
+        return _global(moe_sort_local, p, cfg, x, aux)
     mesh, E_loc = ep
     B, S, d = x.shape
     E = cfg.n_experts
     dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
     n_dp = mesh.axis_size(dp) if dp else 1
-    split = n_dp > 1 and B % n_dp == 0
+    split = n_dp > 1 and B % n_dp == 0 and not row_axes()
     xl = x
     if split:
         b = B // n_dp
-        j = 0
-        for a in dp:
-            j = j * mesh.shape[a] + mesh.coords[a]
+        j = mesh.index(dp)
         xl = x[j * b:(j + 1) * b]
     C = _capacity(max(1, B * S // (n_dp if split else 1)), cfg.moe_top_k, E,
                   cfg.moe_capacity_factor)
     xf = xl.reshape(-1, d)
     idx, prob, aux_d = _route(p, cfg, xf, aux)
     off = mesh.coords["model"] * E_loc
-    out = _sort_core(W(p["w_gate"]), W(p["w_up"]), W(p["w_down"]), xf, idx,
-                     prob, E_loc, off, C)
-    out = mesh.all_reduce(out, "model").reshape(xl.shape)
+    # routing is replicated over "model"; the tokens and their weights
+    # enter the rank's experts
+    out = _sort_core(W(p["w_gate"]), W(p["w_up"]), W(p["w_down"]),
+                     mesh.enter(xf, "model"), idx, mesh.enter(prob, "model"),
+                     E_loc, off, C)
+    out = mesh.psum(out, "model").reshape(xl.shape)
     if split:
         out = mesh.all_gather(out, dp, dim=0)
     if cfg.n_shared_experts:
@@ -309,10 +328,22 @@ def moe_apply(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     """The MoE FFN: x (B,S,d) -> (out (B,S,d), aux ``{"moe_lb",
     "moe_z"}``, or None when ``aux`` is False)."""
     check_impl(impl)
-    if impl == "gshard":
-        return moe_gshard(p, cfg, x, aux)
     if impl == "ep":
         return moe_ep(p, cfg, x, aux)
     if impl == "ep_serve":
         return moe_ep_serve(p, cfg, x, aux)
-    return moe_sort_local(p, cfg, x, aux)
+    return _global(moe_gshard if impl == "gshard" else moe_sort_local,
+                   p, cfg, x, aux)
+
+
+def _global(fn, p, cfg: ModelConfig, x: Tensor, aux: bool):
+    """``fn`` over the global batch, as the reference's GSPMD program
+    computes it (routing and capacity of every row): when ``x`` holds the
+    rank's rows of a batch split over ``row_axes()``, the rows are
+    gathered and the rank keeps its own of the output."""
+    rows = row_axes()
+    if not rows:
+        return fn(p, cfg, x, aux)
+    mesh = current_mesh()
+    out, aux_d = fn(p, cfg, mesh.gather(x, rows, 0, grad="sum"), aux)
+    return out.narrow(0, mesh.index(rows) * x.shape[0], x.shape[0]), aux_d

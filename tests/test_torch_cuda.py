@@ -1059,3 +1059,87 @@ def test_reduced_sharded_fleet_on_card_equals_cpu(cuda):
                 assert s["launches"]["flash_attention"] > 0
                 assert s["launches"]["paged_flash_decode"] > 0
             assert stats[0]["launches"] == stats[1]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the model axis, training half: build_train_step over ranks on the card
+# ---------------------------------------------------------------------------
+
+def _train_rank(arch, named, device, steps=3, ckdir=None):
+    """One rank: ``steps`` of ``build_train_step`` on ``make_host_mesh(2)``
+    for the reduced float32 ``arch`` from the whole weights ``named`` on
+    ``device`` (``device`` None: ``make_step_fn`` on the CPU without a
+    mesh); per step (loss, grad norm), and the whole weights after on the
+    CPU.  ``ckdir``: the ranks also save their state there."""
+    from repro_torch.bridge import shard_params, train_state_tree, whole_params
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_lib import build_train_step, make_step_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch).replace(dtype="float32")
+    oc = AdamWConfig(warmup_steps=1)
+    mesh = None
+    if device is None:
+        params = MD.Model(cfg, "cpu")
+        params.load_state_dict(named)
+        step = make_step_fn(cfg, oc, moe_impl="ep")
+    else:
+        mesh = LM.make_host_mesh(2)
+        params = MD.Model(cfg, device, mesh=mesh)
+        params.load_state_dict(shard_params(named, cfg, mesh))
+        step, _ = build_train_step(cfg, mesh, oc, batch=4, moe_impl="ep")
+    opt = init_opt_state(params)
+    stream = TokenStream(cfg.vocab_size, 4, 32)
+    out = []
+    for i in range(steps):
+        toks, labels = (torch.from_numpy(a) for a in stream.batch_at(i))
+        params, opt, met = step(params, opt, toks, labels)
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    if ckdir is not None:
+        save_checkpoint(ckdir, steps, train_state_tree(params, opt, cfg),
+                        {"next_step": steps}, mesh=mesh)
+    if mesh is None:
+        return out, {k: v.cpu() for k, v in params.state_dict().items()}
+    return out, whole_params(params, params, mesh)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-moe-235b-a22b"])
+def test_sharded_train_step_on_card_equals_cpu(cuda, arch, tmp_path):
+    """``build_train_step`` over 2 card ranks (data 1 x model 2: tensor-,
+    vocab- and expert-parallel, gradients through the collectives) ==
+    over 2 CPU ranks == ``make_step_fn`` unsharded on the CPU, reduced
+    float32: losses and gradient norms within rel 1e-5; the card ranks'
+    checkpoint restores in one CPU process to their weights, bit for
+    bit."""
+    from repro_torch.bridge import (opt_state_to_jax, params_from_jax,
+                                    ref_tree)
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import init_opt_state
+    cfg = get_reduced(arch).replace(dtype="float32")
+    named = MD.init_params(cfg, torch.Generator().manual_seed(0),
+                           "cpu").state_dict()
+    want, _ = _train_rank(arch, named, None)
+    ck = str(tmp_path / "ck")
+    with LM.host_ranks(2, device="cuda") as ctl:
+        card = ctl.gather(_train_rank, arch, named, "cuda", 3, ck)
+        cpu = ctl.gather(_train_rank, arch, named, "cpu")
+    for run, _ in card + cpu:
+        for got, ref in zip(run, want):
+            for a, b in zip(got, ref):
+                assert abs(a - b) <= 1e-5 * abs(b), (run, want)
+    model = MD.Model(cfg, "cpu")
+    opt = init_opt_state(model)
+    (ptree, _), meta = restore_checkpoint(
+        ck, 3, (ref_tree(model, cfg), opt_state_to_jax(opt, cfg,
+                                                        numpy=False)))
+    assert meta == {"next_step": 3}
+    model.load_state_dict(params_from_jax(ptree))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, card[0][1][k]), k

@@ -5,8 +5,10 @@ extracting a batch's signals and deciding on them, routing a batch through
 ``SemanticRouter.route_batch`` into a reduced fleet, serving a text and
 an image request through ``AsyncFrontend``, taking two train steps and a
 checkpoint round trip (with ``msgpack`` blocked) loads none of them; nor
-does serving a request through a sharded fleet on two CPU ranks, in any
-rank (the worker ranks run ``launch.mesh.worker_loop``)."""
+does serving a request through a sharded fleet on two CPU ranks, or
+training over two CPU ranks through the launcher with sharded checkpoints
+written and restored, in any rank (the worker ranks run
+``launch.mesh.worker_loop``)."""
 
 import ast
 import os
@@ -188,6 +190,33 @@ def test_sharded_fleet_loads_no_jax_in_any_rank():
         "__import__('sys').modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'repro', 'msgpack') and __import__('sys').modules[m] is not "
         "None)\")\n"
+        "    print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED [[], []]" in res.stdout, res.stdout
+
+
+def test_sharded_training_loads_no_jax_in_any_rank():
+    code = (
+        "import sys, tempfile\n"
+        "sys.modules['msgpack'] = None\n"
+        "from repro_torch.launch import train as T\n"
+        "from repro_torch.launch.mesh import host_ranks\n"
+        "if __name__ == '__main__':\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    argv = ['--device', 'cpu', '--arch', 'qwen3-moe-235b-a22b', "
+        "'--reduced', '--batch', '2', '--seq', '16', '--ckpt-dir', d, "
+        "'--ckpt-every', '1']\n"
+        "    with host_ranks(2, device='cpu') as ctl:\n"
+        "        first = ctl.gather(T.main, argv + ['--steps', '2'])\n"
+        "        again = ctl.gather(T.main, argv + ['--steps', '3'])\n"
+        "        bad = ctl.gather(eval, \"sorted(m for m in "
+        "__import__('sys').modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'repro', 'msgpack') and __import__('sys').modules[m] is not "
+        "None)\")\n"
+        "    assert len(first[0]) == 2 and len(again[0]) == 1, (first, again)\n"
         "    print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
