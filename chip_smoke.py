@@ -158,8 +158,8 @@ Phases, in order; any failure exits non-zero before the result line:
    15/5 heads of 64, vocab 49 152, tied, bf16; seeded torch weights)
    through ``repro_torch.launch.train.main``: ``TokenStream`` batch 8 x
    seq 512, lr 3e-4, warmup 1, remat on, 12 steps; every loss finite, the
-   last below the first; step ms p50, tokens/s, the model-FLOP share (6 N
-   T over 989 TFLOP/s), peak memory.  Then the crash drill in a temporary
+   last below the first; step ms p50, tokens/s, the model-FLOP share
+   (``models.config.model_flops``: 6 N T over 989 TFLOP/s), peak memory.  Then the crash drill in a temporary
    directory (deleted after): ``--ckpt-every 6 --fail-at-step 9`` must end
    in SystemExit(17), the re-run resumes at step 6 and its final loss
    equals the uninterrupted run's within rel 1e-4 (if the card's atomics
@@ -226,8 +226,8 @@ Phases, in order; any failure exits non-zero before the result line:
    unsharded gradient, and its weights within one bf16 rounding of the
    one-process ``adamw_update`` of that gradient; step ms p50 sharded and
    unsharded, host-staged collective seconds a step and their share,
-   each rank's peak memory, the model-FLOP share (6 x active parameters
-   x tokens over 989 TFLOP/s).  (b) smollm-360m at published widths and
+   each rank's peak memory, the model-FLOP share (``model_flops``: 6 x
+   active parameters x tokens over 989 TFLOP/s).  (b) smollm-360m at published widths and
    depth through ``launch.train.main`` on 2 ranks (data 2 x model 1:
    data parallelism with FSDP), batch 8 x seq 512: 5 steps
    uninterrupted; the crash drill (``--ckpt-every 3 --fail-at-step 4``)
@@ -251,7 +251,29 @@ Phases, in order; any failure exits non-zero before the result line:
    (log lines), with ``ptxas``'s registers for ``flash_attention.cu``,
    ``paged_decode.cu``, ``paged_mla_decode.cu`` (and its launch geometry)
    and ``multi_lora.cu``; kernel 6 also in bf16 and with shuffled ids at
-   the path's shape (log lines).
+   the path's shape (log lines).  Each bound comes from the kernel's cost
+   function (``kernels.observed``) and the peaks of ``roofline.analysis``.
+17. roofline: the main path's own steps at full width on the H100
+   roofline, launch counts zeroed just before: (a) smollm-360m's fresh
+   paged prefill of the fleet's longest prompt (479 tokens,
+   ``attn_impl="pallas"``: kernel 1), (b) its batch-8 decode step under
+   ``flash_paged`` (kernel 2, rows at ``ROOF_LENS``), (d) the ``train``
+   phase's step (batch 8 x 512, remat, AdamW), (c) the deepseek-v2 cut's
+   batch-8 decode step (1 dense + 7 MoE layers, kernel 4).  Each: the
+   median of 10 CUDA-event runs, the profiler's device-busy time, and
+   ``roofline.op_cost.CostMode`` traced on the card — FLOPs by dtype,
+   bytes, the bound and its term, the predicted peak against
+   ``max_memory_allocated`` — held exactly to the same step traced on the
+   meta device, its matmul FLOPs within 1% of ``torch.profiler``'s
+   (``with_flops``), the roofline share (bound / measured) at most 1.05,
+   the model-FLOP share from ``model_flops``; ``op_lint`` clean on (b)
+   and (c) (no gathered (B, max_seq) KV view, no host sync); no kernel
+   built or loaded while a warmed step is replayed.  Beside the card's
+   work, ``launch.dryrun`` runs qwen3-1.7b x decode_32k, qwen3-moe-235b-a22b
+   x train_4k (both NOT-SHARDABLE over a model axis of 16: their query
+   heads split and their KV heads do not), smollm-360m x decode_32k and
+   deepseek-v2-236b x train_4k on the 16 x 16 mesh (rank 0, meta device,
+   subprocesses) and prints their counts.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX and
@@ -288,15 +310,17 @@ NUM_BLOCKS = 1 + (BATCH + 4) * (MAX_SEQ // BLOCK)
 # kernel vs plain: |a - b| <= TOL + TOL * |b| (tests/test_kernels.py:_tol's
 # atol = rtol; bf16: a couple of bf16 ulps of the O(1) outputs)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# the H100 SXM data sheet's rates (the port's one home of them); a
+# checkout without the package stops here, before any result
+from repro_torch.roofline.analysis import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline.analysis import PEAK_FLOPS as PEAK_OPS  # noqa: E402
 W_SPEC = 5                                # verify width: pending token + k = 4
 # the wide table of kernels 2-5: every row at 2048 keys (C = 8, P = 16)
 WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
           "mla_fleet", "contig", "router", "qos", "audio", "train", "shard",
-          "shard_train", "times")
+          "shard_train", "times", "roofline")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -3135,6 +3159,7 @@ def train_smollm(card):
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch import train as T
     from repro_torch.models import model as MD
+    from repro_torch.models.config import model_flops
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_lib import make_step_fn
     label = "train smollm-360m"
@@ -3159,7 +3184,7 @@ def train_smollm(card):
           f"below the first {full[0]}")
     steps_ms = [1e3 * t for t in stats["step_s"][1:]]
     p50 = statistics.median(steps_ms)
-    flops = 6 * n_params * tokens
+    flops = model_flops(cfg, tokens, "train")
     log(f"{label}: {n_params / 1e6:.2f} M parameters, {len(cfg.groups)} "
         f"group x {cfg.n_blocks} layers, d {cfg.d_model}, batch 8 x seq 512 "
         f"= {tokens} tokens a step, bf16, remat on, lr 3e-4 warmup 1; "
@@ -3167,7 +3192,8 @@ def train_smollm(card):
     log(f"{label}: step ms p50 {p50:.2f} (steps 1-{TRAIN_STEPS - 1}; step 0 "
         f"{1e3 * stats['step_s'][0]:.1f}), {tokens / p50 * 1e3:.0f} tokens/s,"
         f" model-FLOP share {100 * flops / (p50 / 1e3) / PEAK_OPS['bfloat16']:.2f}%"
-        f" (6 N T = {flops / 1e12:.3f} TFLOP a step over 989 TFLOP/s), "
+        f" (model_flops: 6 N T = {flops / 1e12:.3f} TFLOP a step over 989 "
+        f"TFLOP/s), "
         f"max_memory_allocated {peak / 2**30:.2f} GiB, launches "
         f"{json.dumps(counts)} [{card}]")
     gc.collect()
@@ -4019,14 +4045,6 @@ def st_config():
         attn_impl="blocked")
 
 
-def st_active(cfg, n):
-    """Parameters a token meets: all but the unrouted experts' SwiGLUs."""
-    n_moe = sum(g.repeats for g in cfg.groups for b in g.period
-                if b.ffn == "moe")
-    per = 3 * cfg.d_model * cfg.d_ff_expert
-    return n - n_moe * (cfg.n_experts - cfg.moe_top_k) * per
-
-
 def st_free():
     import torch
     gc.collect()
@@ -4296,6 +4314,7 @@ def phase_shard_train(card, ctx):
     from repro_torch.launch import mesh as LM
     from repro_torch.launch import train as T
     from repro_torch.models import model as MD
+    from repro_torch.models.config import model_flops
     from repro_torch.training.optimizer import global_norm, init_opt_state
     from repro_torch.training.train_lib import make_step_fn, value_and_grad
     label = "shard_train"
@@ -4359,8 +4378,8 @@ def phase_shard_train(card, ctx):
     del model, m32, m, reading, g32
     st_free()
     lim_loss, lim_gn = 2 * e_loss, 2 * e_gn
-    active = st_active(cfg, n)
-    flops = 6 * active * ST_BATCH * ST_SEQ
+    flops = model_flops(cfg, ST_BATCH * ST_SEQ, "train")
+    active = flops / (6 * ST_BATCH * ST_SEQ)
     un_p50 = 1e3 * statistics.median(r["s"] for r in un[1:])
     log(f"{label}: unsharded {cfg.name} ({cfg.n_blocks} of 94 layers, "
         f"{n / 1e9:.3f} B params, {nbytes / 1e9:.2f} GB bf16, "
@@ -4606,13 +4625,13 @@ def ptxas_lines(name):
 def time_flash(arch, S, heads, gen, flush, card, causal=True, note=""):
     """Kernel 1 (bf16, B = 1) at ``arch``'s (Hq, Hkv, hd) and S tokens,
     causal or bidirectional: kernel, plain version and SDPA over the
-    repeated KV heads, and the bound (q, k, v and out once; QK^T and PV
-    over the causal half, or every pair).  Returns (ms, plain, lib, t_ops,
-    t_bytes)."""
+    repeated KV heads, and the bound from the kernel's cost function (q,
+    k, v and out once; QK^T and PV over the causal half, or every pair).
+    Returns (ms, plain, lib, t_ops, t_bytes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_cost, flash_attention_plain)
     Hq, Hkv, hd = heads
     dt = torch.bfloat16
     q = _rand((1, S, Hq, hd), dt, gen)
@@ -4627,9 +4646,8 @@ def time_flash(arch, S, heads, gen, flush, card, causal=True, note=""):
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal), flush)
-    flops = 4 * hd * Hq * (S * (S + 1) / 2 if causal else S * S)
-    nbytes = (2 * S * Hq * hd + 2 * S * Hkv * hd) * q.element_size()
-    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
+    flops, nbytes, dname = flash_attention_cost(q, k, v, causal=causal)
+    t_ops = flops / PEAK_OPS[dname] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"times flash_attention bf16 {arch} {Hq}/{Hkv} heads hd {hd} S={S} "
         f"{'causal' if causal else 'bidirectional'}: kernel {ms:.4f} ms, "
@@ -4650,8 +4668,9 @@ def time_paged(label, q, kpool, vpool, tbl, kv_len, flush, card):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.ops import (
-        gather_kv, paged_flash_decode, paged_flash_decode_plain,
-        paged_flash_verify, paged_flash_verify_plain)
+        gather_kv, paged_attn_cost, paged_flash_decode,
+        paged_flash_decode_plain, paged_flash_verify,
+        paged_flash_verify_plain)
     kern, plain_fn = ((paged_flash_decode, paged_flash_decode_plain)
                       if q.dim() == 3 else
                       (paged_flash_verify, paged_flash_verify_plain))
@@ -4672,11 +4691,8 @@ def time_paged(label, q, kpool, vpool, tbl, kv_len, flush, card):
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kg, vg, attn_mask=mask), flush)
     live = int(frontier[:, -1].sum())            # keys of the last position
-    esz = q.element_size()
-    nbytes = (2 * live * Hkv * hd + 2 * B * W * Hq * hd) * esz + \
-        (tbl.numel() + kv_len.numel()) * 4
-    flops = 4 * Hq * hd * int(frontier.sum())
-    t_ops = flops / PEAK_OPS[str(q.dtype).split(".")[-1]] * 1e3
+    flops, nbytes, dname = paged_attn_cost(q, kpool, vpool, tbl, kv_len)
+    t_ops = flops / PEAK_OPS[dname] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"times {label} {str(q.dtype).split('.')[-1]} B={B} W={W} "
         f"max_seq {S} live keys {live}: kernel {ms:.4f} ms, plain "
@@ -4693,14 +4709,16 @@ def time_mla(label, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
     version and SDPA over the gathered latent view (one KV head broadcast
     to all H query heads: q = [q_lat | q_rope], k = [ckv | krope], v =
     ckv) with a per-position mask (rows whose frontier is 0 come out NaN
-    there; timing only), and the bound: the live latent of the last
-    position plus q and out once, FLOPs of every position's frontier.
-    Returns (ms, plain, lib, t_ops, t_bytes)."""
+    there; timing only), and the bound from the kernel's cost function
+    (``paged_mla_cost``: the live latent of the last position plus q and
+    out once, FLOPs of every position's frontier).  Returns (ms, plain,
+    lib, t_ops, t_bytes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.ops import (
         gather_kv, paged_flash_decode_mla, paged_flash_decode_mla_plain,
-        paged_flash_verify_mla, paged_flash_verify_mla_plain)
+        paged_flash_verify_mla, paged_flash_verify_mla_plain,
+        paged_mla_cost)
     decode = q_lat.dim() == 3
     kern, plain_fn = ((paged_flash_decode_mla, paged_flash_decode_mla_plain)
                       if decode else
@@ -4727,11 +4745,8 @@ def time_mla(label, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
         log(f"times {label}: SDPA refused the latent shapes (q/k width "
             f"{r + rh}, v width {r}): {e}")
         lib = None
-    dname = str(q_lat.dtype).split(".")[-1]
     live = int(frontier[:, -1].sum())            # keys of the last position
-    nbytes = (live * (r + rh) + B * W * H * (2 * r + rh)) * \
-        q_lat.element_size() + (tbl.numel() + kv_len.numel()) * 4
-    flops = int(frontier.sum()) * H * (2 * (r + rh) + 2 * r)
+    flops, nbytes, dname = paged_mla_cost(*args)
     t_ops = flops / PEAK_OPS[dname] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"times {label} {dname} B={B} W={W} H={H} r={r} rh={rh} max_seq {S} "
@@ -4782,8 +4797,11 @@ def phase_times(rows, errs, launches, card, ctx):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.ops import (
-        flash_decode, flash_decode_plain, gather_kv, mla_geometry)
-    from repro_torch.kernels.multi_lora.ops import multi_lora, multi_lora_plain
+        flash_decode, flash_decode_cost, flash_decode_plain, gather_kv,
+        mla_geometry)
+    from repro_torch.kernels.multi_lora.ops import (multi_lora,
+                                                    multi_lora_cost,
+                                                    multi_lora_plain)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     dt = torch.bfloat16
@@ -4891,9 +4909,7 @@ def phase_times(rows, errs, launches, card, ctx):
         # (encoder.py:151)
         lib = time_ms(lambda: torch.einsum("nd,tdr,tro,nt->no", x, a, b,
                                            onehot), flush)
-        xsz = x.element_size()
-        nbytes = (N * din + N * dout + T * r * (din + dout)) * xsz + N * 4
-        flops = 2 * N * r * (din + dout)
+        flops, nbytes, _ = multi_lora_cost(x, a, b, ids)
         t_ops = flops / PEAK_OPS[dname] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         per_req = launches.get("multi_lora", 0) / max(1, ctx.get(
@@ -4933,9 +4949,8 @@ def phase_times(rows, errs, launches, card, ctx):
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q4, kg, vg, attn_mask=mask), flush)
     live = int(kv_len.sum())
-    nbytes = (2 * live * 5 * 64 + 2 * BATCH * 15 * 64) * esz + \
-        kv_len.numel() * 4
-    t_ops = 4 * 15 * 64 * live / PEAK_OPS["bfloat16"] * 1e3
+    flops, nbytes, _ = flash_decode_cost(q, k, v, kv_len)
+    t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"times flash_decode (contiguous, kernel 1 with Sq = 1) bf16 "
         f"B={BATCH} live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} "
@@ -4958,8 +4973,8 @@ def phase_times(rows, errs, launches, card, ctx):
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask), flush)
         live = int(kv_len.sum())
-        nbytes = (2 * live * Hkv * hd + 2 * B * Hq * hd) * esz + B * 4
-        t_ops = 4 * Hq * hd * live / PEAK_OPS["bfloat16"] * 1e3
+        flops, nbytes, _ = flash_decode_cost(q, k, v, kv_len)
+        t_ops = flops / PEAK_OPS["bfloat16"] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"times flash_decode bf16 B={B} Skv={Skv} {Hq}/{Hkv} heads hd "
             f"{hd} live keys {live}: kernel {ms:.4f} ms, plain {plain:.4f} "
@@ -4968,6 +4983,284 @@ def phase_times(rows, errs, launches, card, ctx):
     # timing launches are not main-path launches
     for fn, n in zip(wrappers, saved):
         fn.launches = n
+
+
+# ---------------------------------------------------------------------------
+# phase 17: roofline — the main path's steps on the H100 roofline
+# ---------------------------------------------------------------------------
+
+ROOF_RUNS = 10            # timed runs of a step (median of CUDA events)
+ROOF_SHARE_MAX = 1.05     # bound / measured above this: the model overcounts
+ROOF_MATMUL_REL = 0.01    # matmul FLOPs against the profiler's
+ROOF_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+# the decode rows' depths: the fleet's longest prefill down to a short one
+ROOF_LENS = (PROMPT_CAP, 300, 200, 100, 37, 128, 250, 400)
+# dry-run cells traced on the meta device (CPU work, in subprocesses that
+# run beside the card's steps); the first two are members the model axis
+# of 16 refuses (query heads split, KV heads do not: NOT-SHARDABLE)
+ROOF_CELLS = (("qwen3-1.7b", "decode_32k"),
+              ("qwen3-moe-235b-a22b", "train_4k"),
+              ("smollm-360m", "decode_32k"),
+              ("deepseek-v2-236b", "train_4k"))
+
+
+def roof_meta(step_of, cfg, *state):
+    """The meta twin of ``step_of(cfg, params, *state)``: the parameters
+    as meta tensors, the state's small integers as host values."""
+    from repro_torch.models import model as MD
+    from repro_torch.roofline import steps as ST
+    values = {}
+    twin = [ST.meta_of(x, values) for x in state]
+    return step_of(cfg, MD.Model(cfg, "meta"), *twin), values
+
+
+def roof_step(label, step, meta, mf, card, banned=()):
+    """One step on the roofline: CUDA-event median over ROOF_RUNS runs,
+    the profiler's device-busy time and matmul FLOPs, ``CostMode`` on the
+    card (FLOPs by dtype, bytes, bound and its term, predicted peak) held
+    to the meta twin's count exactly and to the profiler's matmul FLOPs
+    within ROOF_MATMUL_REL, the share bound / measured at most
+    ROOF_SHARE_MAX, ``op_lint`` clean where ``banned`` is given, and no
+    kernel built or loaded while the warmed step is replayed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import RecompileGuard, build_counters, lint_fn
+    from repro_torch.roofline import steps as ST
+    for _ in range(2):
+        step.run()
+    torch.cuda.synchronize()
+    guard = RecompileGuard(build_counters())
+    times = []
+    for _ in range(ROOF_RUNS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step.run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        step.run()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3
+    prof_mm = sum(e.flops for e in avg if e.key in ROOF_MATMULS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cm = ST.trace(step, "cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tot = cm.totals()
+    mtot = ST.trace(meta[0], "meta", meta[1]).totals()
+    check(dict(tot.flops_by_dtype) == dict(mtot.flops_by_dtype)
+          and tot.bytes == mtot.bytes and tot.kernels == mtot.kernels,
+          f"{label}: card trace {dict(tot.flops_by_dtype)} FLOP, "
+          f"{tot.bytes} B, {tot.kernels} != meta trace "
+          f"{dict(mtot.flops_by_dtype)} FLOP, {mtot.bytes} B, "
+          f"{mtot.kernels}")
+    check(abs(tot.matmul_flops - prof_mm) <= ROOF_MATMUL_REL * prof_mm,
+          f"{label}: matmul FLOPs {tot.matmul_flops} vs the profiler's "
+          f"{prof_mm}")
+    share = tot.bound_s * 1e3 / ms
+    check(share <= ROOF_SHARE_MAX, f"{label}: roofline share {share:.4f} "
+          f"> {ROOF_SHARE_MAX}: the cost model overcounts")
+    findings = []
+    if banned:
+        findings = lint_fn(step.run, banned_leading_shapes=banned)
+        check(not findings, f"{label}: op_lint: "
+              f"{[str(f) for f in findings][:4]}")
+    for _ in range(3):
+        step.run()
+    torch.cuda.synchronize()
+    misses = guard.misses()
+    check(not any(v > 0 for v in misses.values()),
+          f"{label}: kernel builds or loads on replay: {misses}")
+    row = {"step": label, "ms": ms, "busy_ms": busy,
+           "flops_by_dtype": dict(tot.flops_by_dtype), "bytes": tot.bytes,
+           "t_compute_ms": tot.t_compute * 1e3,
+           "t_memory_ms": tot.t_memory * 1e3, "bound_ms": tot.bound_s * 1e3,
+           "bound_by": tot.bound_by, "share": share,
+           "model_flop_share": mf / (ms / 1e3) / PEAK_OPS["bfloat16"],
+           "matmul_flops": tot.matmul_flops, "profiler_matmul_flops": prof_mm,
+           "kernels": {k: v["count"] for k, v in tot.kernels.items()},
+           "ops": tot.ops, "predicted_peak_gib": cm.peak_bytes / 2**30,
+           "max_memory_allocated_gib": peak / 2**30,
+           "lint_findings": len(findings), "replay_builds": misses}
+    log(f"roofline {label}: step p50 {ms:.3f} ms (CUDA events, "
+        f"{ROOF_RUNS} runs), device busy {busy:.3f} ms under the profiler; "
+        f"FLOPs {dict(tot.flops_by_dtype)} ({tot.matmul_flops} in matmuls, "
+        f"profiler {prof_mm}), bytes {tot.bytes}, bound "
+        f"{tot.bound_s * 1e3:.6f} ms ({tot.bound_by}: compute "
+        f"{tot.t_compute * 1e3:.6f}, memory {tot.t_memory * 1e3:.6f} ms), "
+        f"roofline share {share:.5f}, model-FLOP share "
+        f"{row['model_flop_share']:.5f}; {tot.ops} ops, kernel regions "
+        f"{row['kernels']}; predicted peak {row['predicted_peak_gib']:.3f} "
+        f"GiB vs max_memory_allocated {row['max_memory_allocated_gib']:.3f} "
+        f"GiB; op_lint findings {len(findings)}; card trace == meta trace "
+        f"[{card}]")
+    return row
+
+
+def roof_cells(tmp):
+    """Start the dry-run cells, one single-threaded subprocess each, off
+    the card and at the lowest CPU priority (the card's steps beside them
+    are host-bound)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    return [subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m",
+         "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out-dir", tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+        for arch, shape in ROOF_CELLS]
+
+
+def roof_read_cells(procs, tmp):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import SpecMesh
+    from repro_torch.models import model as MD
+    for (arch, shape), proc in zip(ROOF_CELLS, procs):
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"roofline: dryrun {arch} x {shape} "
+              f"failed:\n{out[-3000:]}")
+        refusal = [ln for ln in out.splitlines()
+                   if ln.startswith("NOT-SHARDABLE")]
+        if refusal:
+            try:
+                MD.check_shardable(get_config(arch), SpecMesh.production())
+                refused = False
+            except NotImplementedError:
+                refused = True
+            check(refused, f"roofline: dryrun {arch} x {shape} printed "
+                  f"NOT-SHARDABLE for a member the model axis accepts")
+            log(f"roofline dryrun {refusal[0]}")
+            continue
+        with open(os.path.join(tmp, f"{arch}__{shape}__16x16.json")) as f:
+            rec = json.load(f)
+        log(f"roofline dryrun {arch} x {shape} 16x16 (rank 0 of 256 traced "
+            f"on the meta device in {rec['trace_s']:.1f} s; times projected "
+            f"from H100 data-sheet peaks, not measured): FLOPs/dev "
+            f"{rec['flops_per_device']:.6e} {rec['flops_by_dtype']}, bytes/dev "
+            f"{rec['bytes_per_device']:.6e}, collectives "
+            f"{rec['collective_counts']} "
+            f"{rec['collective_bytes_per_device']:.6e} B, model FLOPs "
+            f"{rec['model_flops_total']:.6e}, peak/dev "
+            f"{rec['peak_memory_per_device'] / 2**30:.3f} GiB; t_compute "
+            f"{rec['t_compute'] * 1e3:.3f} ms, t_memory "
+            f"{rec['t_memory'] * 1e3:.3f} ms, t_collective "
+            f"{rec['t_collective'] * 1e3:.3f} ms, dominant {rec['dominant']}")
+
+
+def phase_roofline(card, ctx):
+    """The main path's own steps at full width, each on the roofline
+    (``roof_step``): (a) smollm-360m's fresh paged prefill of the fleet's
+    longest prompt (479 tokens, kernel 1), (b) its batch-8 decode step
+    under ``flash_paged`` (kernel 2), (d) the ``train`` phase's step at
+    batch 8 x 512, then (c) the deepseek-v2 cut's batch-8 decode step (1
+    dense + 7 MoE layers, kernel 4).  Meanwhile two dry-run cells are
+    traced in subprocesses (``ROOF_CELLS``)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.models.config import model_flops
+    from repro_torch.roofline import steps as ST
+    from repro_torch.training.optimizer import AdamWConfig
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="roofline-")
+    procs = roof_cells(tmp)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        wrappers = kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        rows = []
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        B, S = BATCH, MAX_SEQ
+
+        def toks(cfg, shape):
+            return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+
+        # (a), (b), (d): smollm-360m at full width
+        cfg = get_config(ARCH).replace(attn_impl="pallas",
+                                       decode_impl="flash_paged")
+        params = MD.init_params(cfg, gen, "cuda")
+        pcache = ST.paged_cache(cfg, 1, S, BLOCK, "cuda")
+        ptoks = toks(cfg, (1, PROMPT_CAP))
+        rows.append(roof_step(
+            f"(a) {ARCH} paged prefill 1 x {PROMPT_CAP}",
+            ST.prefill(cfg, params, pcache, ptoks),
+            roof_meta(ST.prefill, cfg, pcache, ptoks),
+            model_flops(cfg, PROMPT_CAP, "serve"), card))
+        cache = ST.paged_cache(cfg, B, S, BLOCK, "cuda")
+        ST.fill(cfg, params, cache, list(ROOF_LENS), gen)
+        dtoks = toks(cfg, (B, 1))
+        rows.append(roof_step(
+            f"(b) {ARCH} decode B={B} flash_paged",
+            ST.decode(cfg, params, cache, dtoks),
+            roof_meta(ST.decode, cfg, cache, dtoks),
+            model_flops(cfg, B, "serve"), card,
+            banned=((B, S), (2 * B, S))))
+        del cache, pcache
+        tcfg = get_config(ARCH)
+        opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1)
+        ttoks, labels = toks(tcfg, (B, S)), toks(tcfg, (B, S))
+
+        def train_of(c, p, t, lab):
+            return ST.train(c, p, None, t, lab, opt_cfg=opt_cfg)
+        rows.append(roof_step(
+            f"(d) {ARCH} train step {B} x {S}",
+            train_of(tcfg, params, ttoks, labels),
+            roof_meta(train_of, tcfg, ttoks, labels),
+            model_flops(tcfg, B * S, "train"), card))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c): the deepseek-v2 cut
+        t0 = time.perf_counter()
+        mcfg = get_config(MLA_ARCH).replace(groups=mla_cut_groups(),
+                                            decode_impl="flash_paged")
+        mparams = MD.init_params(mcfg, gen, "cuda")
+        mcache = ST.paged_cache(mcfg, B, S, BLOCK, "cuda")
+        ST.fill(mcfg, mparams, mcache, list(ROOF_LENS), gen)
+        mtoks = toks(mcfg, (B, 1))
+        log(f"roofline: {MLA_ARCH} cut to {MLA_LAYERS} layers drawn and "
+            f"filled in {time.perf_counter() - t0:.1f} s")
+        # its latent rank r is 512 = max_seq: ban the gathered views
+        # (B, S, r) and (B, S, rh), not every (B, r) activation
+        r, rh = mcfg.kv_lora_rank, mcfg.rope_head_dim
+        rows.append(roof_step(
+            f"(c) {MLA_ARCH} cut decode B={B} flash_paged",
+            ST.decode(mcfg, mparams, mcache, mtoks),
+            roof_meta(ST.decode, mcfg, mcache, mtoks),
+            model_flops(mcfg, B, "serve"), card,
+            banned=((B, S, r), (B, S, rh), (2 * B, S, r))))
+        del mparams, mcache
+        gc.collect()
+        torch.cuda.empty_cache()
+        launched = {k: fn.launches for k, fn in wrappers.items()}
+        log(f"roofline: launches {launched}")
+        for name in ("flash_attention", "paged_flash_decode",
+                     "paged_flash_decode_mla"):
+            check(launched[name] > 0, f"roofline: {name} was not launched")
+        roof_read_cells(procs, tmp)
+        ctx["roofline rows"] = rows
+        log(f"roofline: {json.dumps(rows)}")
+        log(f"roofline: phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -5030,6 +5323,8 @@ def main(argv=None) -> int:
             phase_shard_train(card, ctx)
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
+        if "roofline" in phases:
+            phase_roofline(card, ctx)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,7 +9,8 @@ is never loaded.  ``build_all`` starts one ``nvcc`` per source, all at
 once, and waits for every one.
 
 Nothing here runs at import: the CPU tests import every module of the
-port on a machine with no ``nvcc`` and no card.
+port on a machine with no ``nvcc`` and no card.  ``COUNTERS`` counts the
+builds started and the libraries loaded.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc runs started and libraries loaded in this process: a warmed path
+# takes neither (``analysis.op_lint.build_counters`` guards them)
+COUNTERS = {"builds": 0, "loads": 0}
 
 
 def nvcc() -> str:
@@ -72,6 +76,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
+        COUNTERS["builds"] += 1
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -95,6 +100,7 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
+            COUNTERS["loads"] += 1
         return lib
 
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, host_values, observed, refuse_grad
 from repro_torch.models.layers import sdpa
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
@@ -98,6 +98,46 @@ def _check(q, k, v, lens, q_offset):
         raise ValueError("flash_attention: q_offset must be >= 0")
 
 
+def _key_range(B: int, Sq: int, Skv: int, *, causal: bool,
+               sliding_window: int, q_offset: int, lens):
+    """(lo, hi): (B, Sq) int64 bounds of the keys each query position sees
+    under the kernel's masks (causal at ``q_offset + i``, the sliding
+    window, ``lens`` per row, host values)."""
+    a = torch.arange(Sq, dtype=torch.int64) + int(q_offset)       # (Sq,)
+    hi = torch.full((B, Sq), Skv, dtype=torch.int64)
+    if causal:
+        hi = torch.minimum(hi, (a + 1)[None])
+    if lens is not None:
+        hi = torch.minimum(hi, lens.long()[:, None])
+    lo = torch.zeros((B, Sq), dtype=torch.int64)
+    if sliding_window > 0:
+        lo = (a - sliding_window + 1).clamp(min=0)[None].expand(B, Sq)
+    return lo, hi
+
+
+def flash_attention_cost(q, k, v, lens: Optional[torch.Tensor] = None, *,
+                         causal: bool = False, sliding_window: int = 0,
+                         q_offset: int = 0, values=None):
+    """``(flops, bytes, dtype)`` of a ``flash_attention`` call: q and out
+    once, K and V of each row's live keys (from the first key its first
+    query sees to the last its last query sees) once, ``lens`` once; QK^T
+    and PV over each query position's frontier, 4 hd FLOPs a (query head,
+    key) pair."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    lo, hi = _key_range(B, Sq, Skv, causal=causal,
+                        sliding_window=sliding_window, q_offset=q_offset,
+                        lens=None if lens is None else
+                        host_values(lens, values))
+    live = int((hi[:, -1] - lo[:, 0]).clamp(min=0).sum())
+    esz = q.element_size()
+    nbytes = (2 * B * Sq * Hq * hd + 2 * live * Hkv * hd) * esz + \
+        (0 if lens is None else B * 4)
+    flops = 4 * hd * Hq * int((hi - lo).clamp(min=0).sum())
+    return flops, nbytes, str(q.dtype).split(".")[-1]
+
+
+@observed("flash_attention", flash_attention_cost)
 def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None, *,
                     causal: bool = False, sliding_window: int = 0,
                     q_offset: int = 0):
@@ -106,16 +146,19 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None, *,
 
     CUDA tensors launch the hand-written kernel (``attn_impl="pallas"``
     selects this path in the model, after the reference's name for its TPU
-    kernel); CPU tensors take ``flash_attention_plain``.  Inputs that
-    require grad raise ``NotImplementedError`` under autograd."""
+    kernel); CPU tensors take ``flash_attention_plain``; meta tensors get
+    an empty output (a dry run's shapes).  Inputs that require grad raise
+    ``NotImplementedError`` under autograd."""
     refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lens, causal=causal,
                                      sliding_window=sliding_window,
                                      q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, lens, q_offset)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     geo = flash_geometry(hd, q.element_size())

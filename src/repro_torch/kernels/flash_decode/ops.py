@@ -25,6 +25,12 @@ of positions (``verify_chunks``), each exact by construction.  The MLA
 kernel splits each row's keys over a cluster the same way and cuts the
 row's W x H query rows into row tiles (``mla_geometry``), so any W is
 one launch.
+
+Each wrapper's cost (``kernels.observed``) counts q and out once, the
+K/V (or latent) of each row's live keys once — the keys of its last
+query position's frontier — and the table and lengths; FLOPs over every
+query position's frontier (``frontiers``).  Meta tensors get an empty
+output of the kernel's shape.
 """
 
 from __future__ import annotations
@@ -34,9 +40,10 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, host_values, observed, refuse_grad
 from repro_torch.kernels.flash_attention.ops import (SMEM_LIMIT,
                                                      flash_attention,
+                                                     flash_attention_cost,
                                                      flash_attention_plain)
 from repro_torch.models.layers import mla_latent_core, sdpa
 
@@ -100,6 +107,12 @@ def flash_decode_plain(q, k, v, kv_len):
     return flash_attention_plain(q[:, None], k, v, kv_len)[:, 0]
 
 
+def flash_decode_cost(q, k, v, kv_len, values=None):
+    """``flash_attention_cost`` of the one-position launch."""
+    return flash_attention_cost(q[:, None], k, v, kv_len, values=values)
+
+
+@observed("flash_decode", flash_decode_cost)
 def flash_decode(q, k, v, kv_len):
     """Single-token GQA decode over a contiguous cache.
 
@@ -111,7 +124,7 @@ def flash_decode(q, k, v, kv_len):
     refuse_grad("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     if q.dim() != 3:
         raise ValueError(f"flash_decode: q (B,Hq,hd) expected, got "
@@ -254,6 +267,26 @@ def verify_chunks(W: int, G: int, max_blocks: int, block_tokens: int,
     return [(t0, min(t0 + per, W)) for t0 in range(0, W, per)]
 
 
+def frontiers(kv_len, W: int, max_seq: int, values=None) -> torch.Tensor:
+    """(B, W) int64 on the host: the keys position t of a W-position row
+    sees, ``kv_len - W + t + 1`` clamped to [0, max_seq] (decode: W = 1)."""
+    kl = host_values(kv_len, values).long()
+    return (kl[:, None] - W + 1 + torch.arange(W)[None]).clamp(0, max_seq)
+
+
+def paged_attn_cost(q, kpool, vpool, tbl, kv_len, values=None):
+    """``(flops, bytes, dtype)`` of a paged GQA decode (q (B, Hq, hd)) or
+    verify (q (B, W, Hq, hd)) call."""
+    q4 = q[:, None] if q.dim() == 3 else q
+    B, W, Hq, hd = q4.shape
+    Hkv = kpool.shape[2]
+    fr = frontiers(kv_len, W, tbl.shape[1] * kpool.shape[1], values)
+    live = int(fr[:, -1].sum())
+    nbytes = (2 * live * Hkv * hd + 2 * B * W * Hq * hd) * \
+        q.element_size() + (tbl.numel() + kv_len.numel()) * 4
+    return 4 * Hq * hd * int(fr.sum()), nbytes, str(q.dtype).split(".")[-1]
+
+
 def _launch_attn(name, q, kpool, vpool, tbl, kv_len, geo, out):
     """Launch ``csrc/paged_decode.cu`` on the checked q (B, W, Hq, hd)
     with geometry ``geo``, writing the (B, W, Hq, hd) ``out``."""
@@ -270,6 +303,7 @@ def _launch_attn(name, q, kpool, vpool, tbl, kv_len, geo, out):
     return out
 
 
+@observed("paged_flash_decode", paged_attn_cost)
 def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
     """Block-table decode attention, no gather: stream each row's live
     physical blocks straight out of the pool.
@@ -282,13 +316,15 @@ def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
     refuse_grad("paged_flash_decode", q, kpool, vpool)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, kpool, vpool, tbl, kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     if q.dim() != 3:
         raise ValueError(f"paged_flash_decode: q (B,Hq,hd) expected, got "
                          f"{tuple(q.shape)}")
     q4 = q[:, None]
     geo = _check("paged_flash_decode", q4, kpool, vpool, tbl, kv_len)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     out = _launch_attn("paged_flash_decode", q4, kpool, vpool, tbl, kv_len,
                        geo, torch.empty_like(q4))[:, 0]
     paged_flash_decode.launches += 1
@@ -298,6 +334,7 @@ def paged_flash_decode(q, kpool, vpool, tbl, kv_len):
 paged_flash_decode.launches = 0
 
 
+@observed("paged_flash_verify", paged_attn_cost)
 def paged_flash_verify(q, kpool, vpool, tbl, kv_len):
     """Speculative-verify attention over the paged pool, no gather.
 
@@ -319,7 +356,7 @@ def paged_flash_verify(q, kpool, vpool, tbl, kv_len):
     refuse_grad("paged_flash_verify", q, kpool, vpool)
     if q.device.type == "cpu":
         return paged_flash_verify_plain(q, kpool, vpool, tbl, kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_flash_verify: unsupported device {q.device}")
     name = "paged_flash_verify"
     _validate(name, q, kpool, vpool, tbl, kv_len)
@@ -327,6 +364,8 @@ def paged_flash_verify(q, kpool, vpool, tbl, kv_len):
     blk, Hkv = kpool.shape[1], kpool.shape[2]
     G = Hq // Hkv
     chunks = verify_chunks(W, G, tbl.shape[1], blk, hd, q.element_size())
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     out = torch.empty_like(q)
     for t0, t1 in chunks:
         geo = paged_geometry(tbl.shape[1], blk, (t1 - t0) * G, hd,
@@ -482,6 +521,23 @@ def _check_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len):
     return geo
 
 
+def paged_mla_cost(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len, *,
+                   scale=None, values=None):
+    """``(flops, bytes, dtype)`` of a paged MLA decode (q (B, H, r)) or
+    verify (q (B, W, H, r)) call: the live latent ``ckv | krope`` once,
+    the queries and the (B, W, H, r) context once; per (query row, key)
+    2 (r + rh) FLOPs for the score and 2 r for the context."""
+    ql4 = q_lat[:, None] if q_lat.dim() == 3 else q_lat
+    B, W, H, r = ql4.shape
+    rh = q_rope.shape[-1]
+    fr = frontiers(kv_len, W, tbl.shape[1] * ckv_pool.shape[1], values)
+    live = int(fr[:, -1].sum())
+    nbytes = (live * (r + rh) + B * W * H * (2 * r + rh)) * \
+        q_lat.element_size() + (tbl.numel() + kv_len.numel()) * 4
+    return (int(fr.sum()) * H * (2 * (r + rh) + 2 * r), nbytes,
+            str(q_lat.dtype).split(".")[-1])
+
+
 def _launch_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
                 scale):
     """Check and launch ``csrc/paged_mla_decode.cu`` on (B, W, H, r|rh)
@@ -504,6 +560,7 @@ def _launch_mla(name, q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
     return out
 
 
+@observed("paged_flash_decode_mla", paged_mla_cost)
 def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
                            *, scale):
     """Absorbed-latent MLA decode over the paged compressed cache, no
@@ -523,13 +580,17 @@ def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
         return paged_flash_decode_mla_plain(q_lat, q_rope, ckv_pool,
                                             krope_pool, tbl, kv_len,
                                             scale=scale)
-    if q_lat.device.type != "cuda":
+    if q_lat.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_flash_decode_mla: unsupported device "
                          f"{q_lat.device}")
     if q_lat.dim() != 3 or q_rope.dim() != 3:
         raise ValueError(f"paged_flash_decode_mla: q_lat (B,H,r), q_rope "
                          f"(B,H,rh) expected, got {tuple(q_lat.shape)}, "
                          f"{tuple(q_rope.shape)}")
+    if q_lat.device.type == "meta":         # a dry run's shapes
+        _check_mla("paged_flash_decode_mla", q_lat[:, None], q_rope[:, None],
+                   ckv_pool, krope_pool, tbl, kv_len)
+        return torch.empty_like(q_lat)
     out = _launch_mla("paged_flash_decode_mla", q_lat[:, None],
                       q_rope[:, None], ckv_pool, krope_pool, tbl, kv_len,
                       scale)[:, 0]
@@ -540,6 +601,7 @@ def paged_flash_decode_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
 paged_flash_decode_mla.launches = 0
 
 
+@observed("paged_flash_verify_mla", paged_mla_cost)
 def paged_flash_verify_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
                            *, scale):
     """Absorbed-latent MLA speculative verify over the paged pool, no
@@ -558,9 +620,13 @@ def paged_flash_verify_mla(q_lat, q_rope, ckv_pool, krope_pool, tbl, kv_len,
         return paged_flash_verify_mla_plain(q_lat, q_rope, ckv_pool,
                                             krope_pool, tbl, kv_len,
                                             scale=scale)
-    if q_lat.device.type != "cuda":
+    if q_lat.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_flash_verify_mla: unsupported device "
                          f"{q_lat.device}")
+    if q_lat.device.type == "meta":         # a dry run's shapes
+        _check_mla("paged_flash_verify_mla", q_lat, q_rope, ckv_pool,
+                   krope_pool, tbl, kv_len)
+        return torch.empty_like(q_lat)
     out = _launch_mla("paged_flash_verify_mla", q_lat, q_rope, ckv_pool,
                       krope_pool, tbl, kv_len, scale)
     paged_flash_verify_mla.launches += 1

@@ -7,7 +7,10 @@ kernel ``multi_lora_pallas``) for CUDA tensors and runs
 no fallback: a CUDA tensor gets the kernel or an error.  The optional base
 product ``x @ w`` stays ``torch.matmul``, outside the kernel, as the
 reference computes it outside its ``pallas_call``.  ``lora_geometry``
-gives the launch's padded rank, ring stages and dynamic shared memory.
+gives the launch's padded rank, ring stages and dynamic shared memory,
+``multi_lora_cost`` the delta's FLOPs and bytes (``kernels.observed``:
+the delta is the region, the base product is counted as its own op);
+meta tensors get an empty delta.
 
 The launch count is exact when the signal engine's thread pool launches
 from several threads: a lock guards it.
@@ -21,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, observed, refuse_grad
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
              [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -118,17 +121,27 @@ def _check(x, a, b, task_ids):
             raise ValueError(f"multi_lora: {name} must be contiguous")
 
 
+def multi_lora_cost(x, a, b, task_ids, scale=None, values=None):
+    """``(flops, bytes, dtype)`` of the delta: x, every adapter and the
+    (N, dout) output once, the ids once; 2 r (din + dout) FLOPs a row."""
+    (N, din), (T, _, r), dout = x.shape, a.shape, b.shape[2]
+    nbytes = (N * din + N * dout + T * r * (din + dout)) * \
+        x.element_size() + N * 4
+    return 2 * N * r * (din + dout), nbytes, str(x.dtype).split(".")[-1]
+
+
+@observed("multi_lora", multi_lora_cost)
 def _delta(x, a, b, task_ids, scale):
     if x.device.type == "cpu":
         return multi_lora_plain(x, a, b, task_ids, scale=scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"multi_lora: unsupported device {x.device}")
     _check(x, a, b, task_ids)
     N, din = x.shape
     T, _, r = a.shape
     dout = b.shape[2]
     out = torch.empty((N, dout), dtype=x.dtype, device=x.device)
-    if N == 0 or dout == 0:
+    if N == 0 or dout == 0 or x.device.type == "meta":
         return out
     geo = lora_geometry(r, x.element_size())
     fn = _build.c_function("multi_lora", "multi_lora_fwd", _ARGTYPES)

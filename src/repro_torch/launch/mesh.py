@@ -7,6 +7,9 @@ written out (``RankMesh.all_reduce`` / ``all_gather``).
 
 * ``Mesh`` — a shape over named axes (``{"data": 16, "model": 16}``), all
   that ``sharding.rules`` needs; no process behind it.
+* ``SpecMesh`` — a ``Mesh`` standing as rank 0 with ``RankMesh``'s
+  collective surface and no ranks: its collectives return rank 0's shapes
+  and record their traffic (``roofline.collectives``), for the dry run.
 * ``RankMesh`` — a ``Mesh`` over the initialised world: rank
   ``r = data_index * model + model_index`` (row-major, as the reference's
   ``reshape(data, model)``), one process group per axis and one over the
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import kernels
 from repro_torch.device import resolve_device
 from repro_torch.sharding.rules import axis_index
 
@@ -98,83 +102,14 @@ class CollectiveStats:
         self.bytes = 0
 
 
-class RankMesh(Mesh):
-    """A ``Mesh`` whose positions are the ranks of the initialised world;
-    this process is ``rank`` at ``coords``.  Built by ``make_host_mesh`` /
-    ``make_production_mesh`` on every rank (group creation is collective)."""
-
-    def __init__(self, shape: Mapping[str, int]):
-        super().__init__(shape)
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.coords = self.coords_of(self.rank)
-        self.stats = CollectiveStats()
-        self._groups: Dict[tuple, object] = {}
-        if self.size > 1:
-            # every non-empty set of axes, in one order on every rank
-            for n in range(1, len(self.axis_names) + 1):
-                for axes in itertools.combinations(self.axis_names, n):
-                    self._groups[axes] = _new_groups(self, axes)
-
-    def _group(self, axis):
-        axes = tuple(axis) if isinstance(axis, tuple) else (axis,)
-        n = math.prod(self.shape[a] for a in axes)
-        if n == 1:
-            return None, 1
-        if axes not in self._groups:
-            raise ValueError(f"no process group over {axes}")
-        return self._groups[axes], n
+class _Collectives(Mesh):
+    """What a mesh builds on its three primitive collectives (``all_reduce``,
+    ``all_gather``, ``reduce_scatter``): this rank's index and block along
+    an axis, and the differentiable twins training takes."""
 
     def axis_size(self, axis) -> int:
         axes = tuple(axis) if isinstance(axis, tuple) else (axis,)
         return math.prod(self.shape[a] for a in axes)
-
-    def _stage(self, t: torch.Tensor) -> torch.Tensor:
-        host = t.detach().to("cpu", copy=True)
-        return host.float() if host.dtype in _WIDE else host
-
-    def all_reduce(self, t: torch.Tensor, axis="model",
-                   op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over ``axis`` (a name or a tuple of names): a new
-        tensor on ``t``'s device and dtype, identical on every rank."""
-        group, n = self._group(axis)
-        if n == 1:
-            return t
-        t0 = time.perf_counter()
-        host = self._stage(t)
-        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(host, op=rop, group=group)
-        out = host.to(t.device, t.dtype)
-        self._count(t0, host)
-        return out
-
-    def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
-        """The blocks of ``t`` of every rank along ``axis``, concatenated
-        on ``dim`` in the axis' order (``tiled`` all-gather)."""
-        group, n = self._group(axis)
-        if n == 1:
-            return t
-        t0 = time.perf_counter()
-        if t.dtype in _WIDE:    # no arithmetic: 16-bit floats move as bits
-            host = t.detach().to("cpu").contiguous().view(torch.uint8)
-        else:
-            host = self._stage(t).contiguous()
-        parts = [torch.empty_like(host) for _ in range(n)]
-        dist.all_gather(parts, host, group=group)
-        out = torch.cat(parts, dim=dim)
-        if t.dtype in _WIDE:
-            out = out.view(t.dtype)
-        out = out.to(t.device, t.dtype)
-        self._count(t0, host, n)
-        return out
-
-    def reduce_scatter(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
-        """``t`` summed over ``axis``, then this rank's block of ``dim``
-        (``gloo`` has no reduce-scatter: an all-reduce and a slice, its
-        bytes counted as the all-reduce's)."""
-        if self.axis_size(axis) == 1:
-            return t
-        return self.own_block(self.all_reduce(t, axis), axis,
-                              dim).contiguous()
 
     def own_block(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """This rank's block of ``t``'s ``dim`` split over ``axis``."""
@@ -227,6 +162,81 @@ class RankMesh(Mesh):
             return t
         return _First.apply(t, self, axis)
 
+
+class RankMesh(_Collectives):
+    """A ``Mesh`` whose positions are the ranks of the initialised world;
+    this process is ``rank`` at ``coords``.  Built by ``make_host_mesh`` /
+    ``make_production_mesh`` on every rank (group creation is collective)."""
+
+    def __init__(self, shape: Mapping[str, int]):
+        super().__init__(shape)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.coords = self.coords_of(self.rank)
+        self.stats = CollectiveStats()
+        self._groups: Dict[tuple, object] = {}
+        if self.size > 1:
+            # every non-empty set of axes, in one order on every rank
+            for n in range(1, len(self.axis_names) + 1):
+                for axes in itertools.combinations(self.axis_names, n):
+                    self._groups[axes] = _new_groups(self, axes)
+
+    def _group(self, axis):
+        axes = tuple(axis) if isinstance(axis, tuple) else (axis,)
+        n = math.prod(self.shape[a] for a in axes)
+        if n == 1:
+            return None, 1
+        if axes not in self._groups:
+            raise ValueError(f"no process group over {axes}")
+        return self._groups[axes], n
+
+    def _stage(self, t: torch.Tensor) -> torch.Tensor:
+        host = t.detach().to("cpu", copy=True)
+        return host.float() if host.dtype in _WIDE else host
+
+    def all_reduce(self, t: torch.Tensor, axis="model",
+                   op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over ``axis`` (a name or a tuple of names): a new
+        tensor on ``t``'s device and dtype, identical on every rank."""
+        group, n = self._group(axis)
+        if n == 1:
+            return t
+        t0 = time.perf_counter()
+        host = self._stage(t)
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(host, op=rop, group=group)
+        out = host.to(t.device, t.dtype)
+        self._count(t0, host)
+        return out
+
+    def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """The blocks of ``t`` of every rank along ``axis``, concatenated
+        on ``dim`` in the axis' order (``tiled`` all-gather)."""
+        group, n = self._group(axis)
+        if n == 1:
+            return t
+        t0 = time.perf_counter()
+        if t.dtype in _WIDE:    # no arithmetic: 16-bit floats move as bits
+            host = t.detach().to("cpu").contiguous().view(torch.uint8)
+        else:
+            host = self._stage(t).contiguous()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        out = torch.cat(parts, dim=dim)
+        if t.dtype in _WIDE:
+            out = out.view(t.dtype)
+        out = out.to(t.device, t.dtype)
+        self._count(t0, host, n)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """``t`` summed over ``axis``, then this rank's block of ``dim``
+        (``gloo`` has no reduce-scatter: an all-reduce and a slice, its
+        bytes counted as the all-reduce's)."""
+        if self.axis_size(axis) == 1:
+            return t
+        return self.own_block(self.all_reduce(t, axis), axis,
+                              dim).contiguous()
+
     def barrier(self) -> None:
         """Wait for every rank of the mesh."""
         if self.size > 1:
@@ -249,6 +259,59 @@ class RankMesh(Mesh):
         self.stats.calls += 1
         self.stats.seconds += time.perf_counter() - t0
         self.stats.bytes += host.numel() * host.element_size() * n
+
+
+class SpecMesh(_Collectives):
+    """A mesh of the given shape with no ranks behind it, standing as rank
+    0 (``coords`` all 0): what a dry run builds a production step on
+    (``SpecMesh.production()``: 16 x 16, or 2 x 16 x 16).  Parameters and
+    caches on it are rank 0's blocks (``init_params(..., mesh=)`` on the
+    meta device).  Each collective returns a tensor of rank 0's shape on
+    the input's device — an all-reduce its input, an all-gather rank 0's
+    block repeated, a reduce-scatter its block — and notes ``(kind,
+    operand bytes, group size)`` in ``recorder``
+    (``roofline.collectives.Recorder``).  The results are made out of
+    sight of the step's cost model (``kernels.unobserved``)."""
+
+    def __init__(self, shape: Mapping[str, int], recorder=None):
+        super().__init__(shape)
+        self.rank = 0
+        self.coords = self.coords_of(0)
+        self.recorder = recorder
+
+    @classmethod
+    def production(cls, *, multi_pod: bool = False, recorder=None):
+        """``make_production_mesh``'s shape without its ranks."""
+        shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod else
+                 {"data": 16, "model": 16})
+        return cls(shape, recorder)
+
+    def _note(self, kind: str, t: torch.Tensor, n: int) -> None:
+        if self.recorder is not None:
+            self.recorder.note(kind, t.numel() * t.element_size(), n)
+
+    def all_reduce(self, t: torch.Tensor, axis="model",
+                   op: str = "sum") -> torch.Tensor:
+        n = self.axis_size(axis)
+        if n > 1:
+            self._note("all-reduce", t, n)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        self._note("all-gather", t, n)
+        with kernels.unobserved():
+            return torch.cat([t.detach()] * n, dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        self._note("reduce-scatter", t, n)
+        with kernels.unobserved():
+            return self.own_block(t.detach(), axis, dim).contiguous()
 
 
 class _PSum(torch.autograd.Function):
@@ -353,8 +416,9 @@ def make_production_mesh(*, multi_pod: bool = False):
     if _world() < n:
         raise RuntimeError(
             f"mesh {shape} needs {n} ranks, have {_world()} — use "
-            "sharding.rules with a launch.mesh.Mesh of that shape to "
-            "compute its specs without ranks")
+            "launch.mesh.SpecMesh.production() (a spec-only mesh standing "
+            "as rank 0, what launch.dryrun builds on) to trace or size "
+            "its steps without ranks")
     if _world() > n:
         raise RuntimeError(f"mesh {shape} needs exactly {n} ranks, have "
                            f"{_world()}")

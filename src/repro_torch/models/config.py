@@ -12,6 +12,8 @@ and FFN kind (dense, MoE, none) and every decode path (``xla``,
 ``flash_paged``, ``shardmap``); ``models/model.py:check_supported``
 refuses only an unknown one, and ``check_shardable`` the members that do
 not shard over a model axis yet (SSM state, cross-attention).
+``param_count`` / ``model_flops`` are the reference's analytic counts
+(pure Python), the roofline's MODEL_FLOPS.
 """
 
 from __future__ import annotations
@@ -131,3 +133,124 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter / FLOP accounting (used by the roofline's MODEL_FLOPS).
+# ---------------------------------------------------------------------------
+
+def _attn_params(cfg: ModelConfig, cross: bool = False) -> int:
+    d = cfg.d_model
+    if cfg.is_mla and not cross:
+        qh = cfg.nope_head_dim + cfg.rope_head_dim
+        p = 0
+        if cfg.q_lora_rank:
+            p += d * cfg.q_lora_rank + cfg.q_lora_rank * cfg.n_heads * qh
+        else:
+            p += d * cfg.n_heads * qh
+        p += d * (cfg.kv_lora_rank + cfg.rope_head_dim)                       # down-proj + k_rope
+        p += cfg.kv_lora_rank * cfg.n_heads * (cfg.nope_head_dim + cfg.v_head_dim)  # up-proj k_nope,v
+        p += cfg.n_heads * cfg.v_head_dim * d                                  # out proj
+        return p
+    hd = cfg.head_dim
+    p = d * cfg.n_heads * hd          # q
+    p += 2 * d * cfg.n_kv_heads * hd  # k, v
+    p += cfg.n_heads * hd * d         # out
+    return p
+
+
+def _dense_ffn_params(cfg: ModelConfig) -> int:
+    return 3 * cfg.d_model * cfg.d_ff  # SwiGLU: gate, up, down
+
+
+def _moe_ffn_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    n_routed = cfg.moe_top_k if active_only else cfg.n_experts
+    p = n_routed * 3 * cfg.d_model * cfg.d_ff_expert
+    p += cfg.n_shared_experts * 3 * cfg.d_model * cfg.d_ff_expert
+    p += cfg.d_model * cfg.n_experts  # router
+    return p
+
+
+def _mamba_params(cfg: ModelConfig) -> int:
+    d, e, s, c = cfg.d_model, cfg.mamba_expand, cfg.mamba_d_state, cfg.mamba_d_conv
+    di = e * d
+    p = d * 2 * di              # in_proj (x, z)
+    p += di * c + di            # conv1d + bias
+    p += di * (s * 2 + 1)       # B, C, dt projections (x -> dt_rank folded: use di->(2s+dt))
+    dt_rank = max(1, d // 16)
+    p += di * dt_rank + dt_rank * di  # dt down/up
+    p += di * s                 # A_log
+    p += di                     # D
+    p += di * d                 # out_proj
+    return p
+
+
+def _mlstm_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    di = int(cfg.xlstm_proj_factor * d)
+    p = d * 2 * di              # up-proj (x, z)
+    p += di * cfg.xlstm_conv + di
+    p += 3 * di * di            # q, k, v
+    p += 2 * di                 # i, f gate biases-ish (per-head linear small) -> use di each
+    p += 2 * di                 # the reference's 2 * di * H // H (H >= 1)
+    p += di * d                 # down-proj
+    return p
+
+
+def _slstm_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    p = 4 * d * d               # i, f, z, o recurrent-input projections
+    p += 4 * d * d              # recurrent weights (block-diag per head; counted dense upper bound /heads)
+    ff = int(d * 4 / 3)
+    p += 2 * d * ff + ff * d    # post-block GeGLU FFN (per xLSTM paper)
+    return p
+
+
+def _stack_params(cfg: ModelConfig, groups, active_only: bool = False) -> int:
+    total = 0
+    for g in groups:
+        for spec in g.period:
+            p = 0
+            if spec.mixer in ("attn", "bidir_attn", "mla"):
+                p += _attn_params(cfg)
+            elif spec.mixer == "cross_attn":
+                p += _attn_params(cfg, cross=True)
+            elif spec.mixer == "mamba":
+                p += _mamba_params(cfg)
+            elif spec.mixer == "mlstm":
+                p += _mlstm_params(cfg)
+            elif spec.mixer == "slstm":
+                p += _slstm_params(cfg)
+            p += cfg.d_model
+            if spec.ffn == "dense":
+                p += _dense_ffn_params(cfg) + cfg.d_model
+            elif spec.ffn == "moe":
+                p += _moe_ffn_params(cfg, active_only=active_only) + cfg.d_model
+            total += p * g.repeats
+    return total
+
+
+def param_count(cfg: ModelConfig, include_embed: bool = True,
+                active_only: bool = False) -> int:
+    """Analytic parameter count.  ``active_only`` counts top-k routed experts
+    only (MoE active parameters, for 6*N_active*D roofline FLOPs)."""
+    total = _stack_params(cfg, cfg.groups, active_only)
+    total += _stack_params(cfg, cfg.encoder_groups, active_only)
+    total += cfg.d_model  # final norm
+    if include_embed:
+        total += cfg.vocab_size * cfg.d_model           # embedding
+        if not cfg.tie_embeddings:
+            total += cfg.vocab_size * cfg.d_model       # lm head
+    return total
+
+
+def model_flops(cfg: ModelConfig, n_tokens: int, mode: str = "train") -> float:
+    """MODEL_FLOPS: 6*N*D (train) / 2*N*D (forward) with
+    N = active non-embedding params, D = processed tokens.  Ignores the
+    quadratic attention term by convention (it is surfaced separately via the
+    HLO_FLOPs / MODEL_FLOPS ratio)."""
+    n_active = param_count(cfg, include_embed=False, active_only=True)
+    # lm head matmul is real compute even when "embedding" params are excluded
+    n_active += cfg.vocab_size * cfg.d_model
+    mult = 6.0 if mode == "train" else 2.0
+    return mult * n_active * float(n_tokens)

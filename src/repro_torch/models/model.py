@@ -529,7 +529,7 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
                                            paged=True) == "heads" else 1
     if max_seq % block_tokens:
         raise ValueError("max_seq must be a multiple of block_tokens")
-    dev = resolve_device(device)
+    dev = _device(device)
     dtype = torch_dtype(cfg.dtype)
     cache = {"pos": torch.zeros((slots,), dtype=torch.int32, device=dev),
              "tbl": torch.zeros((slots, max_seq // block_tokens),

@@ -67,7 +67,12 @@ def _route(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     # aux losses (Switch-style load balance + z-loss)
     E = cfg.n_experts
     me = probs.mean(dim=0)                                 # (E,)
-    ce = torch.bincount(topk_idx.reshape(-1), minlength=E).float()
+    # the count of each expert's (token, slot) pairs, with static shapes
+    # (integer counts are exact in float32; ``bincount`` has no meta kernel)
+    flat_idx = topk_idx.reshape(-1)
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
+        0, flat_idx, torch.ones(flat_idx.shape, dtype=torch.float32,
+                                device=x.device))
     ce = ce / torch.clamp(ce.sum(), min=1.0)
     lb_loss = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
@@ -85,10 +90,10 @@ def _shared_expert(p: Mapping[str, Tensor], x: Tensor) -> Tensor:
 
 def _one_hot(idx: Tensor, n: int) -> Tensor:
     """``jax.nn.one_hot``: float32, and an index outside [0, n) gives an
-    all-zero row (``F.one_hot`` would raise)."""
-    inside = (idx >= 0) & (idx < n)
-    return F.one_hot(torch.where(inside, idx, n).long(), n + 1)[..., :n] \
-        .float()
+    all-zero row.  An equality against ``arange(n)``: the same aten ops on
+    every device (``F.one_hot`` range-checks on the host on the CPU,
+    scatters on the card and compares on the meta device)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +179,8 @@ def _sort_core(w_gate, w_up, w_down, xf: Tensor, idx: Tensor, prob: Tensor,
     flat_tok = torch.arange(N, device=dev).repeat_interleave(k)
     flat_prob = torch.where(here, prob, 0.0).reshape(-1)
 
-    onehot = F.one_hot(flat_e, E_loc + 1)[:, :E_loc]            # (N*k, E_loc)
+    onehot = (flat_e[:, None] ==                                # (N*k, E_loc)
+              torch.arange(E_loc, device=dev)).long()
     pos = torch.cumsum(onehot, dim=0) - onehot
     pos_e = (pos * onehot).sum(-1)                              # (N*k,)
     keep = (pos_e < C) & (flat_e < E_loc)

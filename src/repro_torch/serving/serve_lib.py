@@ -287,7 +287,8 @@ def build_serve_steps(cfg: ModelConfig, mesh, batch: int, max_seq: int,
     cache[, cross])`` and ``decode(params, tokens, cache)``, each returning
     (greedy tokens, cache), and ``serve_shardings``.  Every rank of the
     mesh calls them (SPMD) on its blocks — ``init_params(...,
-    mesh=mesh)`` and ``init_cache(..., mesh=mesh)``; under
+    mesh=mesh)`` and ``init_cache(..., mesh=mesh)``; a
+    ``launch.mesh.SpecMesh`` stands as rank 0 of a dry run; under
     ``decode_impl="shardmap"`` the decode is ``smdec``'s split-KV over the
     sequence-sharded cache.  The cache is written in place (``donate`` is
     the reference's keyword and changes nothing here).  ``mesh`` None:

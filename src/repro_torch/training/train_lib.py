@@ -136,7 +136,8 @@ def build_train_step(cfg: ModelConfig, mesh,
                      batch: int = 0, moe_impl: str = "ep", remat: bool = True,
                      donate: bool = True):
     """Returns ``(step, shardings)`` for ``mesh`` (a rank mesh of
-    ``launch.mesh``; ``shardings`` as ``shardings_for`` gives them).
+    ``launch.mesh``, or a ``SpecMesh``: rank 0's step of a dry run;
+    ``shardings`` as ``shardings_for`` gives them).
 
     ``step(params, opt_state, tokens, labels, cross_ctx=None) -> (params,
     opt_state, metrics)`` runs on every rank of the mesh with the same
@@ -151,7 +152,7 @@ def build_train_step(cfg: ModelConfig, mesh,
     rank computes it whole and the gradient is scaled by one over the
     replicas before the data sums.  ``donate`` is accepted for the
     reference's signature and has no effect (the update is in place)."""
-    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.launch.mesh import RankMesh, SpecMesh
     opt_cfg = opt_cfg or AdamWConfig()
     with_cross = cfg.cross_ctx_len > 0
     sh = shardings_for(cfg, mesh, batch, 0, with_cross)
@@ -160,10 +161,11 @@ def build_train_step(cfg: ModelConfig, mesh,
 
     def train_step(params: nn.Module, opt_state: OptState, tokens, labels,
                    cross_ctx: Optional[torch.Tensor] = None):
-        if not isinstance(mesh, RankMesh):
+        if not isinstance(mesh, (RankMesh, SpecMesh)):
             raise TypeError("build_train_step's step runs over a rank mesh "
                             "(launch.mesh.make_host_mesh / "
-                            "make_production_mesh)")
+                            "make_production_mesh) or, as rank 0 of a dry "
+                            "run, a launch.mesh.SpecMesh")
         dev = params.embed.device
         tsp = sh["tokens_sharding"]
         tokens = _rows(tokens, tsp, mesh, dev)

@@ -1143,3 +1143,102 @@ def test_sharded_train_step_on_card_equals_cpu(cuda, arch, tmp_path):
     model.load_state_dict(params_from_jax(ptree))
     for k, v in model.state_dict().items():
         assert torch.equal(v, card[0][1][k]), k
+
+
+# ---------------------------------------------------------------------------
+# the roofline plane on the card: the cost model's exactness
+# ---------------------------------------------------------------------------
+
+def _roofline_state(arch, device, max_seq=64):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as MD
+    from repro_torch.roofline import steps as ST
+    cfg = get_reduced(arch).replace(dtype="float32",
+                                    decode_impl="flash_paged")
+    if not cfg.is_mla:
+        cfg = cfg.replace(attn_impl="pallas")
+    gen = torch.Generator().manual_seed(0)
+    params = MD.init_params(cfg, gen, "cpu")
+    cache = ST.paged_cache(cfg, 4, max_seq, 16, "cpu")
+    ST.fill(cfg, params, cache, [5, 17, 33, 9], gen)
+    params = params.to(device)
+    cache = {k: (v.to(device) if isinstance(v, torch.Tensor) else
+                 {b: {n: t.to(device) for n, t in lv.items()}
+                  for b, lv in v.items()}) for k, v in cache.items()}
+    toks = torch.randint(0, cfg.vocab_size, (1, 20), generator=gen,
+                         dtype=torch.int32).to(device)
+    dtoks = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                          dtype=torch.int32).to(device)
+    return cfg, params, cache, toks, dtoks
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-236b"])
+def test_cost_mode_on_card_equals_meta_and_cpu_kernel_notes(cuda, arch):
+    """The reduced member's paged prefill and ``flash_paged`` decode traced
+    on the card count exactly what their meta twins count (FLOPs by dtype,
+    bytes, ops, kernel regions), and the kernels' cost notes equal those
+    of the same steps on the CPU (plain versions)."""
+    from repro_torch.models import model as MD
+    from repro_torch.roofline import steps as ST
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, params, cache, toks, dtoks = _roofline_state(arch, dev)
+        runs[dev] = {"prefill": ST.trace(ST.prefill(cfg, params, cache, toks,
+                                                    row=3), dev),
+                     "decode": ST.trace(ST.decode(cfg, params, cache, dtoks),
+                                        dev)}
+        if dev == "cuda":
+            values = {}
+            mcache = ST.meta_of(cache, values)
+            meta = MD.Model(cfg, "meta")
+            runs["meta"] = {
+                "prefill": ST.trace(ST.prefill(cfg, meta, mcache,
+                                               ST.meta_of(toks, values),
+                                               row=3), "meta", values),
+                "decode": ST.trace(ST.decode(cfg, meta, mcache,
+                                             ST.meta_of(dtoks, values)),
+                                   "meta", values)}
+    for kind in ("prefill", "decode"):
+        card, meta, cpu = (runs[d][kind].totals()
+                           for d in ("cuda", "meta", "cpu"))
+        assert dict(card.flops_by_dtype) == dict(meta.flops_by_dtype), kind
+        assert card.bytes == meta.bytes and card.ops == meta.ops, kind
+        assert card.kernels == meta.kernels == cpu.kernels, kind
+    assert runs["cuda"]["decode"].totals().kernels
+
+
+def test_flash_paged_decode_step_lints_clean_on_card(cuda):
+    """On the card the whole ``flash_paged`` decode step (4 slots,
+    max_seq 112: no width of the reduced configs) shows no (B, S) / (2B,
+    S) shape and no host sync outside the kernel regions, and replaying
+    it builds or loads no kernel."""
+    from repro_torch.analysis import RecompileGuard, build_counters, lint_fn
+    from repro_torch.roofline import steps as ST
+    for arch in ("smollm-360m", "deepseek-v2-236b"):
+        cfg, params, cache, _, dtoks = _roofline_state(arch, "cuda", 112)
+        step = ST.decode(cfg, params, cache, dtoks)
+        step.run()
+        guard = RecompileGuard(build_counters())
+        findings = lint_fn(step.run, banned_leading_shapes=[(4, 112),
+                                                            (8, 112)])
+        assert findings == [], (arch, [str(f) for f in findings])
+        for _ in range(3):
+            step.run()
+        guard.assert_no_recompiles()
+
+
+def test_decide_batch_counts_one_host_transfer_on_card(cuda):
+    """``RouterProgram.decide_batch`` on the card: the gate lints clean,
+    and the whole call has exactly the one documented host transfer."""
+    from repro_torch.analysis import lint_fn
+    from repro_torch.core.program import compile_router_program
+    with open("examples/policies/cost.vsr") as f:
+        prog = compile_router_program(f.read(), device="cuda")
+    rng = np.random.default_rng(1)
+    match = (rng.random((4, len(prog.keys))) > 0.5).astype(np.float32)
+    conf = rng.random((4, len(prog.keys))).astype(np.float32)
+    findings = lint_fn(prog.decide_batch, match, conf)
+    assert [f.rule for f in findings] == ["host-sync"], [str(f) for f in
+                                                         findings]
+    assert lint_fn(prog._gate, torch.as_tensor(match, device="cuda"),
+                   torch.as_tensor(conf, device="cuda")) == []

@@ -191,7 +191,9 @@ def test_gather_kv_layout():
 
 def test_wrappers_take_plain_version_on_cpu():
     """A CPU tensor runs the plain version (bitwise) and launches nothing;
-    a tensor on another device raises instead of falling back."""
+    a meta tensor gets an empty output of the kernel's shape (a dry run's
+    shapes), after the card's checks: tensors on mixed devices raise
+    instead of falling back."""
     r = np.random.default_rng(0)
     q = _t(r.standard_normal((1, 8, 4, 16)), torch.float32)
     k = _t(r.standard_normal((1, 8, 2, 16)), torch.float32)
@@ -207,10 +209,15 @@ def test_wrappers_take_plain_version_on_cpu():
                        paged_flash_decode_plain(qd, pool, pool, tbl, kl))
     assert flash_attention.launches == before
     assert paged_flash_decode.launches == dbefore
-    with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
-    with pytest.raises(ValueError, match="unsupported device"):
+    out = flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    with pytest.raises(ValueError, match="kpool on cpu, q on meta"):
         paged_flash_decode(qd.to("meta"), pool, pool, tbl, kl)
+    out = paged_flash_decode(qd.to("meta"), pool.to("meta"),
+                             pool.to("meta"), tbl.to("meta"), kl.to("meta"))
+    assert out.device.type == "meta" and out.shape == qd.shape
+    assert flash_attention.launches == before
+    assert paged_flash_decode.launches == dbefore
 
 
 def test_mla_wrapper_takes_plain_version_on_cpu():
@@ -227,8 +234,12 @@ def test_mla_wrapper_takes_plain_version_on_cpu():
                                                          kl, scale=0.2))
     assert bool((out[1] == 0).all())
     assert paged_flash_decode_mla.launches == before
-    with pytest.raises(ValueError, match="unsupported device"):
+    with pytest.raises(ValueError, match="q_rope on cpu, q_lat on meta"):
         paged_flash_decode_mla(ql.to("meta"), qr, ckv, kr, tbl, kl, scale=0.2)
+    m = [t.to("meta") for t in (ql, qr, ckv, kr, tbl, kl)]
+    out = paged_flash_decode_mla(*m, scale=0.2)
+    assert out.device.type == "meta" and out.shape == ql.shape
+    assert paged_flash_decode_mla.launches == before
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -294,7 +305,8 @@ def test_paged_mla_verify_plain_vs_jax_decode_oracle(dt):
 
 def test_verify_wrappers_take_plain_version_on_cpu():
     """The verify wrappers run their plain versions on CPU tensors
-    (bitwise, no launch counted) and raise on any other device."""
+    (bitwise, no launch counted); meta tensors get the kernel's output
+    shape after its checks (mixed devices raise)."""
     r = np.random.default_rng(2)
     q = _t(r.standard_normal((2, 3, 4, 16)), torch.float32)
     pool = _t(r.standard_normal((3, 4, 2, 16)), torch.float32)
@@ -304,8 +316,12 @@ def test_verify_wrappers_take_plain_version_on_cpu():
     assert torch.equal(paged_flash_verify(q, pool, pool, tbl, kl),
                        paged_flash_verify_plain(q, pool, pool, tbl, kl))
     assert paged_flash_verify.launches == before
-    with pytest.raises(ValueError, match="unsupported device"):
+    with pytest.raises(ValueError, match="kpool on cpu, q on meta"):
         paged_flash_verify(q.to("meta"), pool, pool, tbl, kl)
+    out = paged_flash_verify(*(t.to("meta") for t in (q, pool, pool, tbl,
+                                                      kl)))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert paged_flash_verify.launches == before
     ql = _t(r.standard_normal((2, 3, 4, 16)), torch.float32)
     qr = _t(r.standard_normal((2, 3, 4, 8)), torch.float32)
     ckv = _t(r.standard_normal((3, 4, 16)), torch.float32)
@@ -315,9 +331,13 @@ def test_verify_wrappers_take_plain_version_on_cpu():
         paged_flash_verify_mla(ql, qr, ckv, kr, tbl, kl, scale=0.2),
         paged_flash_verify_mla_plain(ql, qr, ckv, kr, tbl, kl, scale=0.2))
     assert paged_flash_verify_mla.launches == mbefore
-    with pytest.raises(ValueError, match="unsupported device"):
+    with pytest.raises(ValueError, match="q_rope on cpu, q_lat on meta"):
         paged_flash_verify_mla(ql.to("meta"), qr, ckv, kr, tbl, kl,
                                scale=0.2)
+    out = paged_flash_verify_mla(*(t.to("meta") for t in (
+        ql, qr, ckv, kr, tbl, kl)), scale=0.2)
+    assert out.device.type == "meta" and out.shape == ql.shape
+    assert paged_flash_verify_mla.launches == mbefore
 
 
 # (max_blocks, block_tokens, cluster C, span P): C = 1, C = 3, the fleet's
@@ -789,12 +809,16 @@ def test_multi_lora_out_of_range_ids_give_zeros(jd):
 
 def test_multi_lora_wrapper_takes_plain_version_on_cpu():
     """A CPU tensor runs the plain version (bitwise) and launches nothing;
-    another device raises instead of falling back."""
+    a meta tensor gets the delta's shape after the card's checks (mixed
+    devices raise instead of falling back)."""
     x, a, b = (_t(v, torch.float32) for v in _lora_inputs(3, 10, 16, 8, 2, 4))
     ids = torch.tensor([0, 1] * 5, dtype=torch.int32)
     before = multi_lora.launches
     assert torch.equal(multi_lora(x, a, b, ids, scale=0.5),
                        multi_lora_plain(x, a, b, ids, scale=0.5))
     assert multi_lora.launches == before
-    with pytest.raises(ValueError, match="unsupported device"):
+    with pytest.raises(ValueError, match="a on cpu, x on meta"):
         multi_lora(x.to("meta"), a, b, ids)
+    out = multi_lora(*(t.to("meta") for t in (x, a, b, ids)))
+    assert out.device.type == "meta" and out.shape == (10, b.shape[2])
+    assert multi_lora.launches == before
