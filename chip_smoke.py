@@ -240,7 +240,28 @@ Phases, in order; any failure exits non-zero before the result line:
    ``build_train_step`` on 2 card ranks, on 2 CPU ranks, and
    ``make_step_fn`` unsharded on the CPU: losses and gradient norms
    within rel 1e-5.
-16. times: kernel, plain version and one PyTorch library call at the
+16. shard_gqa: query heads split over the model axis while the KV heads
+   do not, and speculation over ranks.  glm4-9b at published widths (hf
+   ``THUDM/glm-4-9b``: d 4096, 32/2 heads of 128, d_ff 13 696, vocab
+   151 552) cut to 4 of 40 layers, paged, kernels 1-3 on.  (a) The first
+   8 requests served alone in this process, then over 4 ranks on the
+   card (mesh data 1 x model 4: a rank's 8 query heads read one KV head,
+   which its pools alone hold): tokens equal or a near-tie (twice the
+   unsharded member's bf16 logit error), launches of kernels 1 and 2 on
+   every rank, per-rank peak memory and KV-pool bytes, TTFT / TPOT p50,
+   the collectives' share of a decode step; one request under the
+   profiler.  (b) The same sharded fleet with ``SpecConfig("glm4-9b",
+   k=4)``: the draft is the registry config at all 40 layers, sharded
+   over the same ranks; the first 2 requests, their tokens equal to
+   (a)'s sharded tokens or diverging at a near-tie of the sharded
+   target's logits (the same limit: one wide verify's GEMMs may round
+   otherwise than W decode steps'), kernel 3 launched on every rank,
+   acceptance, TPOT p50.  (c) Kernels
+   1-3 at a rank's local shape (8/1 heads of 128; kernel 3 at W = 5, 40
+   query rows) against their plain versions, kernel 3's positions ==
+   kernel 2 bitwise, timed beside their plain versions and SDPA: three
+   more rows of the JSON line (``"phase": "shard_gqa"``).
+17. times: kernel, plain version and one PyTorch library call at the
    paths' shapes (median of CUDA-event timings, L2 flushed before each
    run), beside each kernel's bound; kernel 1 at S = 16, 64 and 479 (and
    at the whisper encoder's bidirectional 1500 frames and jamba's 32/8
@@ -253,7 +274,7 @@ Phases, in order; any failure exits non-zero before the result line:
    and ``multi_lora.cu``; kernel 6 also in bf16 and with shuffled ids at
    the path's shape (log lines).  Each bound comes from the kernel's cost
    function (``kernels.observed``) and the peaks of ``roofline.analysis``.
-17. roofline: the main path's own steps at full width on the H100
+18. roofline: the main path's own steps at full width on the H100
    roofline, launch counts zeroed just before: (a) smollm-360m's fresh
    paged prefill of the fleet's longest prompt (479 tokens,
    ``attn_impl="pallas"``: kernel 1), (b) its batch-8 decode step under
@@ -270,10 +291,10 @@ Phases, in order; any failure exits non-zero before the result line:
    and (c) (no gathered (B, max_seq) KV view, no host sync); no kernel
    built or loaded while a warmed step is replayed.  Beside the card's
    work, ``launch.dryrun`` runs qwen3-1.7b x decode_32k, qwen3-moe-235b-a22b
-   x train_4k (both NOT-SHARDABLE over a model axis of 16: their query
-   heads split and their KV heads do not), smollm-360m x decode_32k and
-   deepseek-v2-236b x train_4k on the 16 x 16 mesh (rank 0, meta device,
-   subprocesses) and prints their counts.
+   x train_4k (their query heads split over a model axis of 16, their KV
+   heads stay whole), smollm-360m x decode_32k and deepseek-v2-236b x
+   train_4k on the 16 x 16 mesh (rank 0, meta device, subprocesses) and
+   prints their counts.
 
 The last two lines are one JSON object with a row per kernel, then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX and
@@ -320,7 +341,7 @@ WIDE_SEQ = 2048
 WIDE_BLOCKS = 1 + BATCH * (WIDE_SEQ // BLOCK)
 PHASES = ("kernels", "model", "fleet", "spec_fleet", "signals", "mla_model",
           "mla_fleet", "contig", "router", "qos", "audio", "train", "shard",
-          "shard_train", "times", "roofline")
+          "shard_train", "shard_gqa", "times", "roofline")
 # the encoder signal path: ModernBERT-base widths with max_len cut to 512
 # (the reference's dense (B, H, S, S) float32 logits need ~51.5 GB per row
 # at 32 768); 16 requests over 12 distinct texts, 5 fused sequence tasks
@@ -454,10 +475,10 @@ def mla_decode_case(dtype, gen, full=True):
             1.0 / math.sqrt(nope + rh))
 
 
-def verify_case(dtype, gen, full=True, mla=False):
-    """decode_case's / mla_decode_case's table and pools with W = 5 query
-    positions per row.  kv_len (the TOTAL length, the 5 new entries
-    included) covers dead positions (kv_len 1 and 3: the first positions'
+def verify_case(dtype, gen, full=True, mla=False, heads=(15, 5, 64)):
+    """decode_case's / mla_decode_case's table and pools (GQA: ``heads``
+    as decode_case's) with W = 5 query positions per row.  kv_len (the
+    TOTAL length, the 5 new entries included) covers dead positions (kv_len 1 and 3: the first positions'
     frontiers kv_len - 5 + t + 1 are <= 0; row 0's table is all trash),
     5 (first frontier 1), partial blocks and the full 512-token table.
     Returns (query tensors, rest of the arguments, kv_len, kwargs)."""
@@ -471,10 +492,10 @@ def verify_case(dtype, gen, full=True, mla=False):
         return ((_rand((BATCH, W_SPEC, H, r), dtype, gen),
                  _rand((BATCH, W_SPEC, H, rh), dtype, gen)),
                 (ckv, krope, tbl), kv_len, {"scale": scale})
-    _, kpool, vpool, tbl, _ = decode_case(dtype, gen)
+    _, kpool, vpool, tbl, _ = decode_case(dtype, gen, heads)
     tbl[0] = 0
-    return ((_rand((BATCH, W_SPEC, 15, 64), dtype, gen),), (kpool, vpool, tbl),
-            kv_len, {})
+    return ((_rand((BATCH, W_SPEC, heads[0], heads[2]), dtype, gen),),
+            (kpool, vpool, tbl), kv_len, {})
 
 
 def wide_case(dtype, gen, W):
@@ -3547,25 +3568,31 @@ def shard_param_bytes(shard):
     return sum(p.numel() * p.element_size() for p in shard.params.parameters())
 
 
-def shard_serve(label, fleet, card):
-    """The 12 requests through ``batch_call`` on ``fleet`` (sharded or
-    not), launch counts of every rank zeroed just before and read just
-    after; on a sharded fleet the decode steps' host-staged collective
-    time is read off rank 0's mesh.  Returns (tokens, prompt ids, report)."""
+def shard_serve(label, fleet, card, arch=SHARD_ARCH, kernels=SHARD_KERNELS,
+                n=12):
+    """The first ``n`` of the 12 requests through ``batch_call`` on
+    ``fleet`` (sharded or not), launch counts of every rank zeroed just
+    before and read just after; on a sharded fleet the decode steps'
+    host-staged collective time is read off rank 0's mesh.  A speculative
+    lane's verify rounds (the draft's proposal, then the wide verify)
+    count as its decode steps.  Returns (tokens, prompt ids, report)."""
     import torch
-    arch = SHARD_ARCH
     m = fleet.members[arch]
     sched = fleet.schedulers[arch]
     steps, prefills = [], []
     mesh = fleet.mesh
     names = ("decode_rows", "prefill_paged_fresh", "prefill_paged_suffix")
-    saved = {n: getattr(m, n) for n in names}
+    saved = {name: getattr(m, name) for name in names}
+    spec_saved = {}
+    if m.spec is not None:
+        spec_saved = {name: getattr(m.spec, name)
+                      for name in ("draft_propose", "verify")}
 
     def timed(fn, into):
-        def step(*a):
+        def step(*a, **kw):
             c0 = mesh.stats.seconds if mesh is not None else 0.0
             t0 = time.perf_counter()
-            out = fn(*a)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
             into.append((time.perf_counter() - t0,
                          (mesh.stats.seconds - c0) if mesh is not None
@@ -3576,8 +3603,12 @@ def shard_serve(label, fleet, card):
     m.decode_rows = timed(saved["decode_rows"], steps)
     m.prefill_paged_fresh = timed(saved["prefill_paged_fresh"], prefills)
     m.prefill_paged_suffix = timed(saved["prefill_paged_suffix"], prefills)
+    rounds = []
+    for name, fn in spec_saved.items():
+        # a round: the draft's proposal, then the verify
+        setattr(m.spec, name, timed(fn, rounds))
     call = fleet.call_fn({arch: arch})
-    reqs = payloads(arch)
+    reqs = payloads(arch)[:n]
     torch.cuda.synchronize()
     fleet.rank_stats(reset=True)
     t0 = time.perf_counter()
@@ -3585,17 +3616,23 @@ def shard_serve(label, fleet, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = fleet.rank_stats()
-    for n, fn in saved.items():
-        setattr(m, n, fn)
+    for name, fn in saved.items():
+        setattr(m, name, fn)
+    for name, fn in spec_saved.items():
+        setattr(m.spec, name, fn)
+    if rounds:
+        # (proposal, verify) pairs -> one step each
+        steps.extend((a[0] + b[0], a[1] + b[1])
+                     for a, b in zip(rounds[0::2], rounds[1::2]))
     seqs = [sched._finished[r] for r in sorted(sched._finished)][-len(reqs):]
     ntok = [a["usage"]["completion_tokens"] for a in answers]
     ttft = [a["usage"]["vsr_ttft_ms"] for a in answers]
     tpot = [(a["usage"]["vsr_service_ms"] - a["usage"]["vsr_ttft_ms"])
-            / max(1, n - 1) for a, n in zip(answers, ntok)]
-    check(len(answers) == 12 and all(n == GEN for n in ntok),
-          f"{label}: expected 12 answers of {GEN} tokens, got {ntok}")
+            / max(1, nt - 1) for a, nt in zip(answers, ntok)]
+    check(len(answers) == n and all(nt == GEN for nt in ntok),
+          f"{label}: expected {n} answers of {GEN} tokens, got {ntok}")
     check(sched.pool.live_refs() == 0, f"{label}: blocks leaked after drain")
-    launches = [{k: s["launches"][k] for k in SHARD_KERNELS} for s in stats]
+    launches = [{k: s["launches"][k] for k in kernels} for s in stats]
     step_ms = statistics.median(s for s, _ in steps) * 1e3
     coll_ms = statistics.median(c for _, c in steps) * 1e3
     pre_ms = statistics.median(s for s, _ in prefills) * 1e3
@@ -3607,7 +3644,7 @@ def shard_serve(label, fleet, card):
            "step_ms": step_ms, "coll_ms": coll_ms,
            "peaks": [s["max_memory_allocated"] for s in stats],
            "coll": [s["collectives"] for s in stats]}
-    log(f"{label}: 12 answers of {GEN} tokens in {wall * 1e3:.1f} ms, TTFT "
+    log(f"{label}: {n} answers of {GEN} tokens in {wall * 1e3:.1f} ms, TTFT "
         f"ms p50 {rep['ttft_p50']:.1f} max {max(ttft):.1f}, TPOT ms p50 "
         f"{rep['tpot_p50']:.2f} max {max(tpot):.2f}; {len(steps)} decode "
         f"steps, step ms p50 {step_ms:.2f}, of which host-staged "
@@ -3764,8 +3801,7 @@ def shard_near_tie(label, got, want, ids, logits_of, limit):
     ``limit`` of the top logit (twice the unsharded member's bf16 logit
     error, ``bf16_logit_error``)."""
     same = sum(a == b for a, b in zip(got, want))
-    log(f"{label}: tokens identical to the unsharded member's for {same}/"
-        f"{len(want)} requests")
+    log(f"{label}: tokens identical for {same}/{len(want)} requests")
     for i, (a, b) in enumerate(zip(want, got)):
         if a == b:
             continue
@@ -4574,9 +4610,293 @@ def st_check_sharded(label, ranks, un, n, nbytes, lim_loss, lim_gn):
         st_close(f"{label} step {i}", a["grad_norm"], b["grad_norm"], lim_gn,
                  "grad norm")
 
+# ---------------------------------------------------------------------------
+# phase 16: shard_gqa — query heads split over KV heads that do not, and
+# speculation over ranks
+# ---------------------------------------------------------------------------
+
+GQA_ARCH = "glm4-9b"
+GQA_LAYERS = 4                  # of the 40: 4 x 0.408 B + 2 x 0.621 B params
+GQA_RANKS = 4                   # mesh data 1 x model 4 on the one card
+GQA_REQUESTS = 8                # the first 8 of the 12: one batch of slots
+# (b)'s requests: the first 2 (the 40-layer draft's catch-up prefills
+# over 4 ranks cost seconds a row; the whole script keeps to its time)
+GQA_SPEC_REQUESTS = 2
+GQA_LOCAL = (8, 1, 128)         # a rank's query heads, KV heads, head_dim
+GQA_KERNELS = ("flash_attention", "paged_flash_decode", "paged_flash_verify")
+
+
+def gqa_fleet(model_axis, **kw):
+    """glm4-9b at published widths cut to ``GQA_LAYERS`` layers, paged,
+    kernels 1-3 on (``attn_impl="pallas"``, ``decode_impl="flash_paged"``),
+    over ``model_axis`` ranks."""
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    from repro_torch.serving.fleet import LocalFleet
+    ov = {"attn_impl": "pallas",
+          "groups": (LayerGroup((BlockSpec("attn", "dense"),), GQA_LAYERS),)}
+    return LocalFleet([GQA_ARCH], reduced=False, batch=BATCH,
+                      max_seq=MAX_SEQ, gen_tokens=GEN,
+                      decode_impl="flash_paged", model_axis=model_axis,
+                      arch_overrides={GQA_ARCH: ov}, **kw)
+
+
+def kv_pool_bytes(cache):
+    """One rank: the bytes of its KV block pools (every layer's k and v)."""
+    return sum(t.numel() * t.element_size() for key, group in cache.items()
+               if key.startswith("g") for leaves in group.values()
+               for t in leaves.values())
+
+
+def draft_param_bytes(shard):
+    return sum(p.numel() * p.element_size()
+               for p in shard.draft_params.parameters())
+
+
+def free_card():
+    """One rank: drop what it no longer references and return the
+    allocator's cached blocks to the card (the ranks share it)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def gqa_kernels(rows, launches, card):
+    """(c) Kernels 1-3 at a rank's local shape (8 query heads over 1 KV
+    head of 128): each against its plain version (bf16), kernel 3's
+    positions against kernel 2 bitwise, then timed with its plain version
+    and SDPA (``time_flash`` / ``time_paged``: CUDA events, L2 flushed);
+    the timing launches are taken back out of the counts."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_flash_decode, paged_flash_decode_plain, paged_flash_verify,
+        paged_flash_verify_plain)
+    wrappers = tuple(kernel_wrappers().values())
+    saved = [fn.launches for fn in wrappers]
+    dt, dname = torch.bfloat16, "bfloat16"
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    Hq, Hkv, hd = GQA_LOCAL
+    S = PROMPT_CAP
+    q, k, v = (_rand((1, S, h, hd), dt, gen) for h in (Hq, Hkv, Hkv))
+    err1, ok = _compare(flash_attention(q, k, v, causal=True),
+                        flash_attention_plain(q, k, v, causal=True), TOL[dname])
+    log(f"  shard_gqa flash_attention {dname} q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} causal: max_abs_err {err1:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"shard_gqa flash_attention at the rank's shape: {err1}")
+    dec = decode_case(dt, gen, GQA_LOCAL)
+    out = paged_flash_decode(*dec)
+    err2, ok = _compare(out, paged_flash_decode_plain(*dec), TOL[dname])
+    zeros = bool((out[dec[4] == 0] == 0).all().item())
+    log(f"  shard_gqa paged_flash_decode {dname} q {tuple(dec[0].shape)} "
+        f"pool {tuple(dec[1].shape)}: max_abs_err {err2:.3e}, kv_len==0 rows "
+        f"exact zeros: {zeros} {'ok' if ok and zeros else 'FAIL'}")
+    check(ok and zeros, f"shard_gqa paged_flash_decode: {err2} {zeros}")
+    ver = verify_case(dt, gen, heads=GQA_LOCAL)
+    err3 = hold_verify("shard_gqa paged_flash_verify", paged_flash_verify,
+                       paged_flash_verify_plain, paged_flash_decode, *ver,
+                       dname)
+    res = {"flash_attention": (err1, time_flash(
+        f"{GQA_ARCH} rank of {GQA_RANKS}", S, GQA_LOCAL, gen, flush, card)),
+        "paged_flash_decode": (err2, time_paged(
+            f"paged_flash_decode {GQA_ARCH} rank {Hq}/{Hkv} heads hd {hd}",
+            *dec, flush, card)),
+        "paged_flash_verify": (err3, time_paged(
+            f"paged_flash_verify {GQA_ARCH} rank {Hq}/{Hkv} heads hd {hd}",
+            *ver[0], *ver[1], ver[2], flush, card))}
+    for fn, n in zip(wrappers, saved):
+        fn.launches = n
+    source = {"flash_attention": "flash_attention.cu",
+              "paged_flash_decode": "paged_decode.cu",
+              "paged_flash_verify": "paged_decode.cu"}
+    replaces = {
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:144",
+        "paged_flash_decode": "src/repro/kernels/flash_decode/ops.py:193",
+        "paged_flash_verify": "src/repro/kernels/flash_decode/ops.py:306"}
+    for name, (err, (ms, plain, lib, t_ops, t_bytes)) in res.items():
+        rows.append({"name": name, "phase": "shard_gqa", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/" + source[name],
+                     "replaces": replaces[name],
+                     "launches": launches.get(name, 0), "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops > t_bytes
+                     else "bytes", "library_ms": lib})
+
+
+def phase_shard_gqa(rows, card, ctx):
+    """GQA query heads split over the model axis while the KV heads do
+    not, on one card: glm4-9b at published widths (32 query / 2 KV heads
+    of 128) cut to ``GQA_LAYERS`` layers, paged, kernels 1-3 on.  (a) The
+    first ``GQA_REQUESTS`` requests served alone in this process, then
+    over 4 ranks (mesh data 1 x model 4: each rank 8 query heads and the
+    one KV head they read, its pools holding that head): tokens equal or
+    a near-tie (twice the unsharded member's bf16 logit error, as the
+    ``shard`` phase), launches of kernels 1 and 2 on every rank, peak
+    memory and KV-pool bytes per rank, the collectives' share of a step;
+    one profiled request.  (b) The same sharded fleet with
+    ``SpecConfig("glm4-9b", k=4)``: the draft is the registry config at
+    all 40 layers, sharded over the same ranks; the first
+    ``GQA_SPEC_REQUESTS`` requests, their tokens equal to (a)'s sharded
+    ones or a near-tie of the sharded target's logits, kernel 3 launched
+    on every rank, acceptance.  (c)
+    Kernels 1-3 at the rank's local shape (``gqa_kernels``).  Returns the
+    phase's launches (summed over its ranks)."""
+    import torch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.serving.scheduler import SpecConfig
+    label = "shard_gqa"
+    t_phase = time.perf_counter()
+    marks = {}
+    free_card()
+    # (a) unsharded, in this process
+    t0 = time.perf_counter()
+    fleet = gqa_fleet(1)
+    m = fleet.members[GQA_ARCH]
+    nparams = sum(p.numel() for p in m.params.parameters())
+    log(f"{label}: unsharded {GQA_ARCH} ({GQA_LAYERS} of 40 layers, "
+        f"{nparams / 1e9:.3f} B params) built + warmed up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want, ids, rep_u = shard_serve(f"{label} unsharded", fleet, card,
+                                   GQA_ARCH, GQA_KERNELS[:2], GQA_REQUESTS)
+    probe = list(ids[0])
+    ref_logits = last_logits(m.cfg, m.params, None, probe)
+    peak_u = torch.cuda.max_memory_allocated()
+    e32 = bf16_logit_error(m.cfg, m.params,
+                           [list(i) + list(w[:-1]) for i, w in zip(ids, want)],
+                           [len(i) - 1 for i in ids])
+    tie = 2 * e32
+    log(f"{label}: unsharded bf16 vs float32 logits over the served "
+        f"sequences' decision positions: max abs diff {e32:.4e}; near-tie "
+        f"limit 2 x that = {tie:.4e}")
+    del fleet, m
+    free_card()
+    marks["unsharded"] = time.perf_counter()
+    counts = {k: 0 for k in GQA_KERNELS}
+    with LM.host_ranks(GQA_RANKS, device="cuda") as ctl:
+        t0 = time.perf_counter()
+        fleet = gqa_fleet(GQA_RANKS)
+        m = fleet.members[GQA_ARCH]
+        shard = m.shard
+        attn = m.params.blocks[0].attn
+        cfg = m.cfg
+        layout = MD.kv_layout(cfg, fleet.mesh, MAX_SEQ, paged=True)
+        pool = fleet.schedulers[GQA_ARCH].cache["g0"]["b0"]["k"]
+        log(f"{label}: {GQA_ARCH} over mesh {fleet.mesh.shape} built + warmed "
+            f"up in {time.perf_counter() - t0:.1f} s; a rank's wq "
+            f"{tuple(attn['wq'].shape)} {attn['wq']._spec}, wk "
+            f"{tuple(attn['wk'].shape)} {attn['wk']._spec}, paged layout "
+            f"{layout!r}, pool {tuple(pool.shape)}")
+        check(fleet.mesh.shape == {"data": 1, "model": GQA_RANKS}
+              and tuple(attn["wq"].shape) == (cfg.d_model,
+                                               GQA_LOCAL[0] * cfg.head_dim)
+              and tuple(attn["wk"].shape) == (cfg.d_model, cfg.n_kv_heads
+                                               * cfg.head_dim)
+              and layout == "group" and pool.shape[-2:] == GQA_LOCAL[1:],
+              f"{label}: the rank's blocks are not the GQA group layout")
+        ctl.gather(free_card)
+        got, ids_a, rep_a = shard_serve(f"{label} sharded", fleet, card,
+                                        GQA_ARCH, GQA_KERNELS[:2],
+                                        GQA_REQUESTS)
+        check([list(i) for i in ids_a] == [list(i) for i in ids],
+              f"{label}: prompts differ between the runs")
+        la = rep_a["launches"]
+        check(all(v > 0 for r in la for v in r.values()) and
+              all(r == la[0] for r in la),
+              f"{label}: launches per rank {la} (expected equal, non-zero)")
+        for r in la:
+            for k_, v in r.items():
+                counts[k_] += v
+        pools = ctl.run(None, kv_pool_bytes, fleet.schedulers[GQA_ARCH].cache,
+                        gather=True)
+        shard_logits = ctl.run(shard, "apply", shard_last_logits, probe)
+        err = float((shard_logits - ref_logits).abs().max())
+        log(f"{label}: last-position logits sharded vs unsharded, max abs "
+            f"diff {err:.4e} (limit {tie:.4e})")
+        check(err <= tie, f"{label}: sharded logits off the unsharded by "
+              f"{err:.4e}, above {tie:.4e}")
+        shard_near_tie(f"{label} sharded vs unsharded", got, want, ids,
+                       lambda seq: ctl.run(shard, "apply",
+                                           shard_last_logits, seq), tie)
+        log(f"{label}: per rank max_memory_allocated "
+            f"{[round(p / 2**30, 3) for p in rep_a['peaks']]} GiB (unsharded "
+            f"{peak_u / 2**30:.3f} GiB), KV-pool bytes {pools} (unsharded "
+            f"{pools[0] * cfg.n_kv_heads}); TTFT p50 ms sharded "
+            f"{rep_a['ttft_p50']:.1f} vs unsharded {rep_u['ttft_p50']:.1f}; "
+            f"TPOT p50 ms {rep_a['tpot_p50']:.2f} vs {rep_u['tpot_p50']:.2f}; "
+            f"decode step p50 {rep_a['step_ms']:.2f} ms, host-staged "
+            f"collectives {rep_a['coll_ms']:.2f} ms "
+            f"({100 * rep_a['coll_ms'] / rep_a['step_ms']:.1f}%) [{card}]")
+        profile_run(f"{label} profile (rank 0): one sharded request, its "
+                    f"prefill and one decode step",
+                    lambda: fleet.generate(GQA_ARCH, prompts_of(GQA_ARCH)[:1],
+                                           max_new=2))
+        del fleet, m, shard, attn, pool
+        ctl.gather(free_card)
+        marks["sharded"] = time.perf_counter()
+        # (b) speculative over the same ranks, the 40-layer draft sharded
+        t0 = time.perf_counter()
+        fleet = gqa_fleet(GQA_RANKS, warmup=False,
+                          speculative=SpecConfig(GQA_ARCH, k=W_SPEC - 1))
+        m = fleet.members[GQA_ARCH]
+        sched = fleet.schedulers[GQA_ARCH]
+        dcfg = m.spec.cfg
+        held = ctl.run(m.shard, "apply", draft_param_bytes, gather=True)
+        log(f"{label}: speculative fleet, draft {dcfg.name} "
+            f"({len(m.spec.params.blocks)} layers, {dcfg.dtype}, "
+            f"decode_impl {dcfg.decode_impl}) over the same ranks: draft "
+            f"bytes per rank {[round(b / 1e9, 3) for b in held]} GB, built "
+            f"+ warmed up in {time.perf_counter() - t0:.1f} s")
+        ctl.gather(free_card)
+        toks_b, _, rep_b = shard_serve(f"{label} speculative", fleet, card,
+                                       GQA_ARCH, GQA_KERNELS,
+                                       GQA_SPEC_REQUESTS)
+        lb = rep_b["launches"]
+        for r in lb:
+            for k_, v in r.items():
+                counts[k_] += v
+        acc = sched.spec_accepted / max(1, sched.spec_offered)
+        plain = got[:GQA_SPEC_REQUESTS]
+        same = shard_near_tie(
+            f"{label} speculative vs sharded plain", toks_b, plain, ids,
+            lambda seq: ctl.run(m.shard, "apply", shard_last_logits, seq),
+            tie)
+        log(f"{label}: speculative k = {W_SPEC - 1}: {sched.spec_rounds} "
+            f"rounds, offered {sched.spec_offered}, accepted "
+            f"{sched.spec_accepted} (acceptance {acc:.3f}), "
+            f"spec_tokens_per_round {sched.spec_tokens_per_round:.2f}; TPOT "
+            f"p50 ms {rep_b['tpot_p50']:.2f} vs plain sharded "
+            f"{rep_a['tpot_p50']:.2f}; kernel 3 launches per rank "
+            f"{[r['paged_flash_verify'] for r in lb]}; tokens equal to the "
+            f"sharded plain fleet's for {same}/{len(plain)} requests; "
+            f"per rank max_memory_allocated "
+            f"{[round(p / 2**30, 3) for p in rep_b['peaks']]} GiB [{card}]")
+        check(sched.spec_rounds > 0 and
+              all(r["paged_flash_verify"] > 0 for r in lb),
+              f"{label}: kernel 3 did not launch on every rank: {lb}")
+        del fleet, m, sched
+        ctl.gather(free_card)
+        marks["speculative"] = time.perf_counter()
+    # (c) the kernels at a rank's local shape
+    gqa_kernels(rows, counts, card)
+    marks["kernels"] = time.perf_counter()
+    prev, secs = t_phase, {}
+    for k_, t in marks.items():
+        secs[k_] = round(t - prev, 1)
+        prev = t
+    log(f"{label}: phase {time.perf_counter() - t_phase:.1f} s, seconds per "
+        f"part {json.dumps(secs)}; launches over its ranks "
+        f"{json.dumps(counts)}")
+    ctx["shard_gqa launches"] = counts
+
 
 # ---------------------------------------------------------------------------
-# phase 16: times
+# phase 17: times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush, reps=25, warm=3):
@@ -4986,7 +5306,7 @@ def phase_times(rows, errs, launches, card, ctx):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: roofline — the main path's steps on the H100 roofline
+# phase 18: roofline — the main path's steps on the H100 roofline
 # ---------------------------------------------------------------------------
 
 ROOF_RUNS = 10            # timed runs of a step (median of CUDA events)
@@ -4996,8 +5316,8 @@ ROOF_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 # the decode rows' depths: the fleet's longest prefill down to a short one
 ROOF_LENS = (PROMPT_CAP, 300, 200, 100, 37, 128, 250, 400)
 # dry-run cells traced on the meta device (CPU work, in subprocesses that
-# run beside the card's steps); the first two are members the model axis
-# of 16 refuses (query heads split, KV heads do not: NOT-SHARDABLE)
+# run beside the card's steps); in the first two the query heads split
+# over the model axis of 16 while the KV heads stay whole
 ROOF_CELLS = (("qwen3-1.7b", "decode_32k"),
               ("qwen3-moe-235b-a22b", "train_4k"),
               ("smollm-360m", "decode_32k"),
@@ -5321,6 +5641,10 @@ def main(argv=None) -> int:
                 launches[k] = launches.get(k, 0) + v
         if "shard_train" in phases:
             phase_shard_train(card, ctx)
+        if "shard_gqa" in phases:
+            phase_shard_gqa(rows, card, ctx)
+            for k, v in ctx["shard_gqa launches"].items():
+                launches[k] = launches.get(k, 0) + v
         if "times" in phases:
             phase_times(rows, errs, launches, card, ctx)
         if "roofline" in phases:

@@ -212,7 +212,8 @@ def build_router(reduced: bool = True, gen_tokens: int = 8,
     ``adapter_cache`` checkpoint directory) before the router observes the
     backend.  ``lanes`` selects the backend lanes ("text", "image",
     "audio"); ``fleet_kw`` go to ``LocalFleet`` (``batch``, ``max_seq``,
-    ...)."""
+    ``model_axis``, ...): a DSL with a GLOBAL ``speculative`` block on a
+    model axis shards every member's draft over the same ranks."""
     cfg, diags = compile_source(build_dsl(lanes))
     for d in diags:
         print(d)
@@ -418,10 +419,15 @@ def _serve(args):
               f"(sizes {fe.stats.batch_sizes})")
     for arch, m in fleet.members.items():
         lane = fleet.lanes[arch]
+        spec = ""
+        if getattr(m, "spec", None) is not None:
+            sched = fleet.schedulers[arch]
+            spec = (f" spec_rounds={sched.spec_rounds} "
+                    f"accepted={sched.spec_accepted}/{sched.spec_offered}")
         print(f"  backend {arch:22s} lane={lane.modality:5s} "
               f"calls={m.calls:3d} "
               f"tokens={m.tokens_out} prompts/drain={m.slots_per_call:.2f} "
-              f"occupancy={lane.occupancy:.2f}")
+              f"occupancy={lane.occupancy:.2f}{spec}")
     if fleet.mesh is not None:
         stats = fleet.rank_stats()
         print(f"  mesh {fleet.mesh.shape}: host-staged collectives "

@@ -11,7 +11,9 @@ config means the same thing in both packages.  The port serves every mixer
 and FFN kind (dense, MoE, none) and every decode path (``xla``,
 ``flash_paged``, ``shardmap``); ``models/model.py:check_supported``
 refuses only an unknown one, and ``check_shardable`` the members that do
-not shard over a model axis yet (SSM state, cross-attention).
+not shard over a model axis yet (SSM state, cross-attention, and GQA
+members whose query heads split while their KV heads neither divide the
+axis nor are a divisor of it).
 ``param_count`` / ``model_flops`` are the reference's analytic counts
 (pure Python), the roofline's MODEL_FLOPS.
 """

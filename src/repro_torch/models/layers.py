@@ -270,17 +270,22 @@ def attn_qkv(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
              kv_x: Tensor, rope: Optional[Tuple[Tensor, Tensor]],
              kv_rope: Optional[Tuple[Tensor, Tensor]]):
     """q/k/v projections (the rank's heads of a column-parallel
-    projection)."""
+    projection).  Where the query heads split over ``"model"`` and the KV
+    heads do not, ``wk``/``wv`` are whole on every rank and k/v hold every
+    KV head (``model._rank_kv`` keeps the one the rank's query heads
+    read); the weights enter the split branch, so a train step sums their
+    ranks' partial gradients."""
     B, Sq, d = x.shape
     Skv = kv_x.shape[1]
     hd = cfg.head_dim
     # the rank's heads: x, and the replicated q/k norm scales, enter
     split = split_over(p["wq"], dim=1)
+    kv_whole = split and not split_over(p["wk"], dim=1)
     xe = enter(x, split)
     kv_xe = xe if kv_x is x else enter(kv_x, split)
     q = (xe @ W(p["wq"])).reshape(B, Sq, -1, hd)
-    k = (kv_xe @ W(p["wk"])).reshape(B, Skv, -1, hd)
-    v = (kv_xe @ W(p["wv"])).reshape(B, Skv, -1, hd)
+    k = (kv_xe @ enter(W(p["wk"]), kv_whole)).reshape(B, Skv, -1, hd)
+    v = (kv_xe @ enter(W(p["wv"]), kv_whole)).reshape(B, Skv, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, enter(p["q_norm"], split), cfg.norm_eps)
         k = rms_norm(k, enter(p["k_norm"], split), cfg.norm_eps)

@@ -50,8 +50,12 @@ vocab-parallel (the logits come back as the rank's vocab shard;
 ``serve_lib.greedy`` reduces them).  Cache tensors are the rank's block
 over ``"model"``: KV heads when they divide it, else a sequence shard,
 which ``decode_impl="shardmap"`` always takes (``smdec``); paged pools
-split heads or stay whole; the batch stays whole on every rank.  Members
-with SSM state, cross-attention or an encoder take no model axis yet.
+split heads, hold the one KV head of the rank's query heads (query heads
+that split over KV heads that do not: ``kv_layout``), or stay whole; the
+batch stays whole on every rank.  Members with SSM state,
+cross-attention or an encoder take no model axis yet, nor GQA members
+whose KV heads neither divide the axis nor are a divisor of it
+(``check_shardable``).
 
 Training over ranks (``training.train_lib.build_train_step``): the batch
 is split over ``"data"`` (``sharding.ctx.row_axes``), the collectives are
@@ -221,8 +225,11 @@ def model_split(mesh) -> int:
 def check_shardable(cfg: ModelConfig, mesh) -> None:
     """Raise ``NotImplementedError`` for a member the port cannot shard
     over ``mesh``'s ``"model"`` ranks yet: SSM mixers, cross-attention,
-    an encoder, or query heads that divide the axis while KV heads do not
-    (the rank's query heads would need a slice of the KV heads)."""
+    an encoder, or query heads that divide the axis while the KV heads
+    neither divide it nor are a divisor of it (a rank's query heads would
+    straddle two KV heads).  Query heads that split while the KV heads
+    stay whole and divide the axis are served: each rank's query heads
+    lie under one KV head (``_rank_kv``)."""
     M_ = model_split(mesh)
     if M_ == 1:
         return
@@ -239,10 +246,11 @@ def check_shardable(cfg: ModelConfig, mesh) -> None:
             f"{cfg.name}: MLA heads and wo's rows split differently over "
             f"model axis {M_}")
     if "attn" in mixers and cfg.n_heads % M_ == 0 \
-            and cfg.n_kv_heads % M_ != 0:
+            and cfg.n_kv_heads % M_ != 0 and M_ % cfg.n_kv_heads != 0:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} query heads split over model axis "
-            f"{M_} but {cfg.n_kv_heads} KV heads do not")
+            f"{M_} but {cfg.n_kv_heads} KV heads neither divide it nor "
+            f"are a divisor of it")
 
 
 class Model(nn.Module):
@@ -364,20 +372,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def kv_layout(cfg: ModelConfig, mesh, max_seq: int, paged: bool) -> str:
     """How a sharded member's KV leaves split over ``"model"``: "heads"
-    (the rank's KV heads), "seq" (a sequence shard of every head, decoded
-    by ``smdec``) or "full" (whole on every rank).  The contiguous cache
-    follows ``sharding.rules.cache_specs`` — heads when they divide the
-    axis, else the sequence — except that ``decode_impl="shardmap"``
-    always takes the sequence (the layout the reference's ``shard_map``
-    reshards its cache into each step); MLA latents have no heads.  A
-    paged pool splits heads or stays whole (block tables index the whole
-    sequence)."""
+    (the rank's KV heads), "group" (the one KV head the rank's query heads
+    read, where the query heads split and the KV heads, fewer than the
+    ranks, do not: ``model // n_kv_heads`` ranks hold each head), "seq" (a
+    sequence shard of every head, decoded by ``smdec``) or "full" (whole
+    on every rank).  The contiguous cache follows
+    ``sharding.rules.cache_specs`` — heads when they divide the axis, else
+    the sequence — except that ``decode_impl="shardmap"`` always takes the
+    sequence (the layout the reference's ``shard_map`` reshards its cache
+    into each step); MLA latents have no heads.  A paged pool splits
+    heads, holds the rank's group's head, or stays whole (block tables
+    index the whole sequence)."""
     M_ = model_split(mesh)
     if M_ == 1:
         return "full"
     heads = not cfg.is_mla and cfg.n_kv_heads % M_ == 0
     if paged:
-        return "heads" if heads else "full"
+        if heads:
+            return "heads"
+        group = not cfg.is_mla and cfg.n_heads % M_ == 0
+        return "group" if group else "full"
     if cfg.decode_impl == "shardmap" and max_seq % M_ == 0:
         return "seq"
     if heads:
@@ -482,6 +496,20 @@ def _own_heads(t: Tensor, local: int) -> Tensor:
     return mesh.enter(t, "model")[:, :, j * local:(j + 1) * local]
 
 
+def _rank_kv(cfg: ModelConfig, t: Tensor, hq: int) -> Tensor:
+    """The KV heads (dim 2) of ``t`` that the rank's ``hq`` query heads
+    read: ``t`` itself unless the query heads split over ``"model"`` while
+    ``t`` holds every KV head; then rank j's query heads ``j * hq ..`` all
+    lie under KV head ``j * hq // G`` (G query heads a KV head;
+    ``check_shardable`` lets through only ``model % n_kv_heads == 0``),
+    which is cut out."""
+    if hq == cfg.n_heads or t.shape[2] != cfg.n_kv_heads:
+        return t
+    h = current_mesh().coords["model"] * hq // (cfg.n_heads //
+                                                cfg.n_kv_heads)
+    return t[:, :, h:h + 1]
+
+
 # ===========================================================================
 # paged (block) KV cache
 # ===========================================================================
@@ -497,7 +525,7 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 def _block_paged_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int,
                        num_blocks: int, block_tokens: int, dtype, dev,
-                       heads: int = 1):
+                       kv_heads: int):
     lead = (repeats, num_blocks, block_tokens)
     if spec.mixer not in ("attn", "mla"):
         raise ValueError(f"paged cache unsupported for mixer {spec.mixer!r}")
@@ -506,7 +534,7 @@ def _block_paged_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int,
                                    device=dev),
                 "krope": torch.zeros(lead + (cfg.rope_head_dim,),
                                      dtype=dtype, device=dev)}
-    kv = lead + (cfg.n_kv_heads // heads, cfg.head_dim)
+    kv = lead + (kv_heads, cfg.head_dim)
     return {"k": torch.zeros(kv, dtype=dtype, device=dev),
             "v": torch.zeros(kv, dtype=dtype, device=dev)}
 
@@ -522,11 +550,14 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
     slot's logical blocks to physical ones (0 = the reserved trash
     block); ``cache["pos"]`` (slots,) int32 holds each slot's depth.
     With ``mesh``: GQA pools hold the rank's KV heads when they divide
-    the ``"model"`` axis (``kv_layout``), MLA pools the whole latent."""
+    the ``"model"`` axis, the one KV head its query heads read when the
+    query heads split and the KV heads do not (``kv_layout`` "group"),
+    else every head; MLA pools the whole latent."""
     check_supported(cfg)
     check_shardable(cfg, mesh)
-    heads = model_split(mesh) if kv_layout(cfg, mesh, max_seq,
-                                           paged=True) == "heads" else 1
+    layout = kv_layout(cfg, mesh, max_seq, paged=True)
+    kv_heads = {"heads": cfg.n_kv_heads // model_split(mesh),
+                "group": 1}.get(layout, cfg.n_kv_heads)
     if max_seq % block_tokens:
         raise ValueError("max_seq must be a multiple of block_tokens")
     dev = _device(device)
@@ -537,7 +568,7 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_seq: int,
     for i, g in enumerate(cfg.groups):
         cache[f"g{i}"] = {
             f"b{j}": _block_paged_cache(cfg, spec, g.repeats, num_blocks,
-                                        block_tokens, dtype, dev, heads)
+                                        block_tokens, dtype, dev, kv_heads)
             for j, spec in enumerate(g.period)}
     return cache
 
@@ -607,12 +638,19 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
     start offsets) attends over the gathered view so cached prefix blocks
     are read, never recomputed.  Contiguous: prefill attends on the local
     K/V and writes them at ``pos``; decode writes each row's K/V at its own
-    position and attends over the row up to it."""
+    position and attends over the row up to it.
+
+    A sharded member whose query heads split over ``"model"`` while its
+    KV heads stay whole attends with the one KV head its query heads read
+    (``_rank_kv``) in every mode; its paged pools hold that head alone
+    (``kv_layout`` "group"), its contiguous cache every head."""
     x = L.rms_norm(h, p.norm1, cfg.norm_eps)
     q, k, v = L.attn_qkv(p.attn, cfg, x, x, rope, rope)
+    hq = q.shape[2]
+    kr, vr = _rank_kv(cfg, k, hq), _rank_kv(cfg, v, hq)
     causal = not bidir
     if mode == "full" or bcache is None:
-        out = _sdpa_impl(cfg, q, k, v, causal=causal,
+        out = _sdpa_impl(cfg, q, kr, vr, causal=causal,
                          sliding_window=cfg.sliding_window)
         return h + L.attn_out(p.attn, out)
     if tbl is None and bcache.get("seq_split"):
@@ -623,7 +661,7 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
         Hkv = cfg.n_kv_heads
         kf, vf = _all_heads(k, Hkv), _all_heads(v, Hkv)
         if mode == "prefill":
-            out = _sdpa_impl(cfg, q, k, v, causal=causal,
+            out = _sdpa_impl(cfg, q, kr, vr, causal=causal,
                              sliding_window=cfg.sliding_window)
             _seq_write(bcache["k"], kf, int(pos))
             _seq_write(bcache["v"], vf, int(pos))
@@ -631,26 +669,25 @@ def _self_attn(cfg, p: Block, h, rope, mode, bcache, pos, tbl,
             out, _, _ = smdec.gqa_decode_sm(
                 cfg, _all_heads(q, cfg.n_heads), kf, vf, bcache["k"],
                 bcache["v"], pos)
-            out = _own_heads(out, q.shape[2])
+            out = _own_heads(out, hq)
         return h + L.attn_out(p.attn, out)
     if tbl is None:
+        _cache_write(bcache["k"], k, pos)
+        _cache_write(bcache["v"], v, pos)
         if mode == "prefill":
-            out = _sdpa_impl(cfg, q, k, v, causal=causal,
+            out = _sdpa_impl(cfg, q, kr, vr, causal=causal,
                              sliding_window=cfg.sliding_window)
-            _cache_write(bcache["k"], k, pos)
-            _cache_write(bcache["v"], v, pos)
         else:  # decode: pos (B,) per-row positions, or a scalar
-            _cache_write(bcache["k"], k, pos)
-            _cache_write(bcache["v"], v, pos)
-            out = L.sdpa(q, bcache["k"], bcache["v"], causal=False,
+            out = L.sdpa(q, _rank_kv(cfg, bcache["k"], hq),
+                         _rank_kv(cfg, bcache["v"], hq), causal=False,
                          q_offset=pos, kv_len=pos + 1, sliding_window=0)
         return h + L.attn_out(p.attn, out)
     kpool, vpool = bcache["k"], bcache["v"]
-    _paged_write(kpool, k, tbl, pos)
-    _paged_write(vpool, v, tbl, pos)
+    _paged_write(kpool, kr, tbl, pos)
+    _paged_write(vpool, vr, tbl, pos)
     if mode == "prefill":
         if paged_fresh:
-            out = _sdpa_impl(cfg, q, k, v, causal=True,
+            out = _sdpa_impl(cfg, q, kr, vr, causal=True,
                              sliding_window=cfg.sliding_window)
         else:
             out = L.sdpa(q, _paged_view(kpool, tbl), _paged_view(vpool, tbl),

@@ -245,11 +245,14 @@ class MemberShard:
     serving steps over the mesh (``serve_lib``'s builders with ``mesh``).
     Rank 0 makes one through the controller, which mirrors it on every
     rank; the fleet's step callables then run on all of them.  The steps
-    take no ``params`` (each rank's are its own)."""
+    take no ``params`` (each rank's are its own).  ``draft_cfg``: the
+    blocks of the speculative lane's draft too (drawn from the same seed),
+    with the speculative steps over the mesh (``serve_lib.build_spec_steps``)
+    and the draft's paged cache."""
 
     def __init__(self, cfg, *, model_axis: int, device: str, reduced: bool,
                  seed: int, moe_impl: str, paged: bool, max_seq: int,
-                 num_blocks: int, block_tokens: int):
+                 num_blocks: int, block_tokens: int, draft_cfg=None):
         self.cfg = cfg
         self.moe_impl = moe_impl
         self.device = resolve_device(device)
@@ -263,6 +266,12 @@ class MemberShard:
             (self._prefill_fresh, self._prefill_suffix, self._decode,
              self._copy_block) = serve_lib.build_paged_serve_steps(
                 cfg, moe_impl=moe_impl, mesh=self.mesh)
+        self.draft_cfg = draft_cfg
+        if draft_cfg is not None:
+            self.draft_params = _draw_params(draft_cfg, seed, reduced,
+                                             self.device, self.mesh)
+            self._spec = serve_lib.build_spec_steps(
+                cfg, draft_cfg, moe_impl=moe_impl, mesh=self.mesh)
 
     def init_cache(self, slots: int) -> dict:
         if self.paged:
@@ -271,6 +280,11 @@ class MemberShard:
                                        self.device, mesh=self.mesh)
         return MD.init_cache(self.cfg, slots, self.max_seq, self.device,
                              mesh=self.mesh)
+
+    def init_draft_cache(self, slots: int) -> dict:
+        return MD.init_paged_cache(self.draft_cfg, slots, self.max_seq,
+                                   self.num_blocks, self.block_tokens,
+                                   self.device, mesh=self.mesh)
 
     def prefill_row(self, *a):
         return self._prefill_row(self.params, *a)
@@ -290,15 +304,33 @@ class MemberShard:
     def merge_row(self, *a):
         return serve_lib.merge_row(*a)
 
+    def verify(self, *a):
+        return self._spec["verify"](self.params, *a)
+
+    def draft_propose(self, *a, **kw):
+        return self._spec["draft_propose"](self.draft_params, *a, **kw)
+
+    def draft_prefill_fresh(self, *a):
+        return self._spec["draft_prefill_fresh"](self.draft_params, *a)
+
+    def draft_prefill_suffix(self, *a):
+        return self._spec["draft_prefill_suffix"](self.draft_params, *a)
+
     def apply(self, fn, *args):
         """``fn(self, *args)`` on this rank's share (``fn`` importable by
         name): a measurement or check that needs the member's blocks."""
         return fn(self, *args)
 
-    def load(self, named: dict) -> None:
-        """Load whole weights (``Model.state_dict()`` keys): the rank keeps
-        its blocks."""
-        self.params.load_state_dict(shard_params(named, self.cfg, self.mesh))
+    def load(self, named: Optional[dict], draft: Optional[dict] = None
+             ) -> None:
+        """Load whole weights (``Model.state_dict()`` keys) of the member
+        and, ``draft``, of its draft: the rank keeps its blocks."""
+        if named is not None:
+            self.params.load_state_dict(shard_params(named, self.cfg,
+                                                     self.mesh))
+        if draft is not None:
+            self.draft_params.load_state_dict(shard_params(
+                draft, self.draft_cfg, self.mesh))
 
 
 def rank_stats(reset: bool = False) -> dict:
@@ -736,7 +768,8 @@ class LocalFleet:
         (``DecodeScheduler._decode_spec``).
         ``moe_impl`` selects the MoE FFN of MoE members: on one device
         "ep", "ep_serve" and "sort" all run the reference's single-device
-        sort/gather path; "gshard" is not ported.  Weights are drawn from a
+        sort/gather path, "gshard" the capacity-bucketed dispatch
+        (``moe.moe_gshard``).  Weights are drawn from a
         ``torch.Generator`` seeded with ``seed`` — not the reference's
         ``jax.random`` draws.  Reduced members draw on the CPU, so one seed
         gives the same weights on every device; full-width members
@@ -750,8 +783,12 @@ class LocalFleet:
         ``launch.mesh.host_ranks``; raises ``RuntimeError`` ("model axis")
         when fewer ranks are up.  ``decode_impl="shardmap"`` decodes a
         sharded member's contiguous cache by ``smdec`` (unsharded: the
-        plain path).  Not ported on a model axis: speculative decoding,
-        and members with SSM state or cross-attention."""
+        plain path).  ``speculative`` on a model axis shards the draft
+        over the same ranks (the member's ``MemberShard`` holds it), and
+        the draft's and the verify's steps run on every rank.  Not ported
+        on a model axis: members with SSM state or cross-attention, and
+        GQA members whose KV heads neither divide the axis nor are a
+        divisor of it (``models.model.check_shardable``)."""
         _validate_decode_impl(decode_impl)
         _validate_speculative(speculative, paged=paged)
         _validate_arch_overrides(arch_overrides, list(archs))
@@ -765,9 +802,6 @@ class LocalFleet:
                     f"model axis {model_axis}: the fleet serves from rank 0 "
                     f"of launch.mesh.host_ranks (the other ranks run its "
                     f"worker loop)")
-            if speculative is not None:
-                raise NotImplementedError("speculative decoding on a model "
-                                          "axis is not ported")
         self.gen_tokens = gen_tokens
         self.seed = seed
         self.members: Dict[str, FleetMember] = {}
@@ -833,19 +867,20 @@ class LocalFleet:
             # 1 trash + a full table per slot + retained-prefix headroom
             # (~4 rows) for the cross-request hit rate
             nblk = kv_blocks or (1 + (batch + 4) * bpr)
-        spec_rt = None
-        if b["speculative"] is not None and use_paged \
-                and cfg.family != "audio":
-            spec_rt = self._build_spec_runtime(b["speculative"], cfg, nblk)
+        spec = b["speculative"] if use_paged and cfg.family != "audio" \
+            else None
+        draft_cfg = None if spec is None else self._draft_config(spec, cfg)
         shard = None
         if self.mesh is not None:
             MD.check_shardable(cfg, self.mesh)
+            if draft_cfg is not None:
+                MD.check_shardable(draft_cfg, self.mesh)
             shard = LM.controller().run(
                 None, MemberShard, cfg, model_axis=self.model_axis,
                 device=str(self.device), reduced=b["reduced"],
                 seed=self.seed, moe_impl=b["moe_impl"], paged=use_paged,
                 max_seq=max_seq, num_blocks=nblk, block_tokens=block_tokens,
-                keep=True)
+                draft_cfg=draft_cfg, keep=True)
             params = shard.params
             pre_row, dec, merge, pf, ps, cpb = (
                 self._remote(shard, n) for n in (
@@ -853,6 +888,8 @@ class LocalFleet:
                     "prefill_suffix", "copy_block"))
         else:
             params = self._init_params(cfg)
+        spec_rt = None if spec is None else self._build_spec_runtime(
+            spec, cfg, draft_cfg, nblk, shard)
         member = FleetMember(arch, cfg, params, pre_row, dec, merge, batch,
                              max_seq,
                              prompt_cap=max_seq - self.gen_tokens - 1,
@@ -870,12 +907,12 @@ class LocalFleet:
     @staticmethod
     def _remote(shard: MemberShard, name: str):
         """A step of the member's ranks: rank 0's scheduler calls it with
-        its ``params`` first (as an unsharded member's), every rank runs
-        ``MemberShard.<name>`` on its own blocks."""
-        def step(*args):
+        its ``params`` first (as an unsharded member's, or the draft's),
+        every rank runs ``MemberShard.<name>`` on its own blocks."""
+        def step(*args, **kw):
             if name not in ("merge_row", "copy_block"):
                 args = args[1:]             # the params: each rank its own
-            return LM.controller().run(shard, name, *args)
+            return LM.controller().run(shard, name, *args, **kw)
         step.__name__ = name
         return step
 
@@ -884,15 +921,22 @@ class LocalFleet:
         return _draw_params(cfg, self.seed, self._build["reduced"],
                             self.device)
 
-    def load_params(self, arch: str, named: dict) -> None:
+    def load_params(self, arch: str, named: Optional[dict] = None,
+                    draft: Optional[dict] = None) -> None:
         """Load whole weights (``Model.state_dict()`` keys, e.g.
-        ``bridge.params_from_jax``) into member ``arch``: a sharded member
-        sends them to every rank, which keeps its blocks."""
+        ``bridge.params_from_jax``) into member ``arch`` and, ``draft``,
+        into the draft of its speculative lane: a sharded member sends
+        them to every rank, which keeps its blocks."""
         m = self.members[arch]
-        if m.shard is None:
+        if draft is not None and m.spec is None:
+            raise ValueError(f"{arch}: no speculative draft to load")
+        if m.shard is not None:
+            LM.controller().run(m.shard, "load", named, draft, sync=True)
+            return
+        if named is not None:
             m.params.load_state_dict(named)
-        else:
-            LM.controller().run(m.shard, "load", named, sync=True)
+        if draft is not None:
+            m.spec.params.load_state_dict(draft)
 
     def rank_stats(self, reset: bool = False) -> List[dict]:
         """``rank_stats`` of every rank of the fleet's mesh (rank order;
@@ -901,22 +945,12 @@ class LocalFleet:
             return [rank_stats(reset)]
         return LM.controller().gather(rank_stats, reset)
 
-    def _build_spec_runtime(self, spec: SpecConfig, target_cfg,
-                            num_blocks: int) -> SpecRuntime:
-        """Draft model + speculative steps for one lane.
-
-        The draft draws its weights from the fleet's OWN seed on the same
-        generator device as every member, so a ``draft_arch`` that names a
-        fleet member proposes with identical weights to that member.  Its
-        config is the registry config (reduced or full, as the fleet's),
-        dropless, with no ``arch_overrides``.  Its paged cache reuses the
-        TARGET pool's geometry (same slots, table and blocks), so the
-        scheduler's one block table indexes both pools and speculation adds
-        no BlockPool state.  The draft decodes through the plain (``xla``)
-        path — its tokens only seed proposals — while the target's verify
-        follows the target's ``decode_impl``."""
-        b = self._build
-        draft_cfg = (get_reduced(spec.draft_arch) if b["reduced"]
+    def _draft_config(self, spec: SpecConfig, target_cfg):
+        """The draft's config: the registry config of ``spec.draft_arch``
+        (reduced or full, as the fleet's), dropless, with no
+        ``arch_overrides``, decoding through the plain (``xla``) path —
+        its tokens only seed proposals."""
+        draft_cfg = (get_reduced(spec.draft_arch) if self._build["reduced"]
                      else get_config(spec.draft_arch))
         draft_cfg = _dropless(draft_cfg.replace(decode_impl="xla"))
         if draft_cfg.vocab_size != target_cfg.vocab_size:
@@ -924,6 +958,34 @@ class LocalFleet:
                 f"speculative draft_arch {spec.draft_arch!r} vocab "
                 f"({draft_cfg.vocab_size}) != target vocab "
                 f"({target_cfg.vocab_size})")
+        return draft_cfg
+
+    def _build_spec_runtime(self, spec: SpecConfig, target_cfg, draft_cfg,
+                            num_blocks: int,
+                            shard: Optional[MemberShard] = None
+                            ) -> SpecRuntime:
+        """Draft model + speculative steps for one lane.
+
+        The draft draws its weights from the fleet's OWN seed on the same
+        generator device as every member, so a ``draft_arch`` that names a
+        fleet member proposes with identical weights to that member.  Its
+        paged cache reuses the TARGET pool's geometry (same slots, table
+        and blocks), so the scheduler's one block table indexes both pools
+        and speculation adds no BlockPool state.  The target's verify
+        follows the target's ``decode_impl``.  A sharded member's
+        ``shard`` holds the draft's blocks on every rank: the steps and the
+        draft cache are the ranks' (``_remote``), as the member's own."""
+        b = self._build
+        if shard is not None:
+            return SpecRuntime(
+                cfg=draft_cfg, params=shard.draft_params,
+                verify=self._remote(shard, "verify"),
+                draft_propose=self._remote(shard, "draft_propose"),
+                prefill_fresh=self._remote(shard, "draft_prefill_fresh"),
+                prefill_suffix=self._remote(shard, "draft_prefill_suffix"),
+                init_cache_fn=lambda slots: LM.controller().run(
+                    shard, "init_draft_cache", slots, keep=True),
+                spec=spec)
         steps = serve_lib.build_spec_steps(target_cfg, draft_cfg,
                                            moe_impl=b["moe_impl"])
         init_cache = lambda slots, c=draft_cfg: MD.init_paged_cache(

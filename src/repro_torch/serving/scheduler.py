@@ -390,7 +390,11 @@ class DraftWorker:
     Acceptance is tracked per SLOT (EWMA), deliberately persisting across
     the requests that flow through it: a lane under a homogeneous
     adversarial workload stays backed off to plain decode and only the
-    periodic probe rounds re-test the draft."""
+    periodic probe rounds re-test the draft.
+
+    On a sharded member the runtime's steps and its cache are the ranks'
+    (``LocalFleet._remote``, as the member's own steps): each call, the
+    draft params first, runs on every rank over its blocks."""
 
     def __init__(self, sched: "DecodeScheduler", rt: SpecRuntime):
         self.sched = sched

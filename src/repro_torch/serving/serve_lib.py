@@ -142,20 +142,23 @@ def make_draft_propose_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
 
 
 def build_spec_steps(target_cfg: ModelConfig, draft_cfg: ModelConfig, *,
-                     moe_impl: str = "ep"):
+                     moe_impl: str = "ep", mesh=None):
     """Speculative-decoding step bundle for one text lane: the target-side
     ``verify`` (W-wide paged forward, greedy tokens at all W positions),
     the draft-side ``draft_propose`` (k chained draft decode steps) and the
     draft's own paged admission prefills (``draft_prefill_fresh`` /
     ``draft_prefill_suffix``) for lazy draft-KV catch-up after admission,
-    parks and backed-off rounds.  Every cache is updated in place."""
-    return {"verify": make_verify_fn(target_cfg, moe_impl=moe_impl),
-            "draft_propose": make_draft_propose_fn(draft_cfg,
-                                                   moe_impl=moe_impl),
-            "draft_prefill_fresh": make_prefill_paged_fn(
-                draft_cfg, fresh=True, moe_impl=moe_impl),
-            "draft_prefill_suffix": make_prefill_paged_fn(
-                draft_cfg, fresh=False, moe_impl=moe_impl)}
+    parks and backed-off rounds.  Every cache is updated in place.
+    ``mesh``: the steps of a target and draft sharded over its ranks (each
+    rank calls them on its blocks)."""
+    steps = {"verify": make_verify_fn(target_cfg, moe_impl=moe_impl),
+             "draft_propose": make_draft_propose_fn(draft_cfg,
+                                                    moe_impl=moe_impl),
+             "draft_prefill_fresh": make_prefill_paged_fn(
+                 draft_cfg, fresh=True, moe_impl=moe_impl),
+             "draft_prefill_suffix": make_prefill_paged_fn(
+                 draft_cfg, fresh=False, moe_impl=moe_impl)}
+    return {k: _on_mesh(fn, mesh) for k, fn in steps.items()}
 
 
 @torch.no_grad()

@@ -1061,6 +1061,169 @@ def test_reduced_sharded_fleet_on_card_equals_cpu(cuda):
             assert stats[0]["launches"] == stats[1]["launches"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["prefill_479", "decode", "verify"])
+def test_kernels_at_gqa_group_shapes(cuda, dtype, kernel):
+    """glm4-9b over 4 ranks: each rank's 8 of 32 query heads over the one
+    of 2 KV heads they read, hd 128 (kernel 1 at the fleet's longest
+    prefill, kernel 2 over its 32-block table, kernel 3 at W = 5: 40 query
+    rows), each against its plain version; kernel 3's positions against
+    kernel 2 bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    Hq, Hkv, hd = 8, 1, 128
+    if kernel == "prefill_479":
+        q = torch.randn((1, 479, Hq, hd), generator=g, device=cuda).to(dtype)
+        k = torch.randn((1, 479, Hkv, hd), generator=g, device=cuda).to(dtype)
+        v = torch.randn((1, 479, Hkv, hd), generator=g, device=cuda).to(dtype)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, None, causal=True)
+        ref = flash_attention_plain(q, k, v, None, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        _close(out, ref, dtype)
+        return
+    blk, max_blocks, B, W = 16, 32, 8, 5
+    nb = 1 + (B + 4) * max_blocks
+    rnd = random.Random(26)
+    tbl = torch.tensor([[rnd.randrange(1, nb) for _ in range(max_blocks)]
+                        for _ in range(B)], dtype=torch.int32, device=cuda)
+    kp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((nb, blk, Hkv, hd), generator=g, device=cuda).to(dtype)
+    if kernel == "decode":
+        q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dtype)
+        kl = torch.tensor([0, 1, 15, 16, 17, 255, 479, max_blocks * blk],
+                          dtype=torch.int32, device=cuda)
+        before = paged_flash_decode.launches
+        out = paged_flash_decode(q, kp, vp, tbl, kl)
+        ref = paged_flash_decode_plain(q, kp, vp, tbl, kl)
+        torch.cuda.synchronize()
+        assert paged_flash_decode.launches == before + 1
+        _close(out, ref, dtype)
+        return
+    kl = torch.tensor(_verify_lens(B, max_blocks * blk, W, 26),
+                      dtype=torch.int32, device=cuda)
+    q = torch.randn((B, W, Hq, hd), generator=g, device=cuda).to(dtype)
+    before = paged_flash_verify.launches
+    out = paged_flash_verify(q, kp, vp, tbl, kl)
+    ref = paged_flash_verify_plain(q, kp, vp, tbl, kl)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches == before + 1
+    _close(out, ref, dtype)
+    for t in range(W):
+        step = paged_flash_decode(q[:, t].contiguous(), kp, vp, tbl,
+                                  kl - (W - 1 - t))
+        assert torch.equal(out[:, t], step), t
+
+
+VERIFY_TOL = {"float32": 1e-3, "bfloat16": 0.25}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch,heads", [
+    ("glm4-9b", dict(n_heads=8, n_kv_heads=1, d_ff=3424)),
+    ("smollm-360m", {}), ("qwen3-1.7b", {})])
+def test_verify_matches_decode_steps_at_rank_widths(cuda, arch, heads,
+                                                    dtype):
+    """``model.verify`` (W = 5, one wide pass) against 5 ``decode_step``s
+    on the same paged cache on the card, one layer at published widths
+    with a 4096-token vocabulary: glm4-9b at a rank's widths over 4 ranks
+    (d 4096, 8/1 heads of 128, d_ff 3424), smollm-360m (d 960) and
+    qwen3-1.7b (q/k norms).  The card's BLAS may round a (B * W)-row
+    product otherwise than a B-row one, so the logits agree within the
+    ``model`` phase's limits (``VERIFY_TOL``) and a greedy divergence is a
+    near-tie (the top-2 gap below the logit difference there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.models.config import BlockSpec, LayerGroup
+    cfg = get_config(arch).replace(
+        vocab_size=4096, attn_impl="pallas", decode_impl="flash_paged",
+        dtype=dtype, groups=(LayerGroup((BlockSpec("attn", "dense"),), 1),),
+        **heads)
+    params = MD.init_params(cfg, torch.Generator(device=cuda).manual_seed(5),
+                            cuda)
+    B, W, blk, max_seq = 8, 5, 16, 128
+    nb = 1 + B * max_seq // blk
+    cache = MD.init_paged_cache(cfg, B, max_seq, nb, blk, device=cuda)
+    cache["tbl"] = (1 + torch.arange(B * max_seq // blk, dtype=torch.int32,
+                                     device=cuda)).reshape(B, -1)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for b in range(B):
+        n = 17 + 9 * b
+        toks = torch.randint(4, 4096, (1, n), generator=g, device=cuda,
+                             dtype=torch.int32)
+        MD.prefill(cfg, params, toks, cache, tbl=cache["tbl"][b:b + 1],
+                   paged_fresh=True)
+        cache["pos"][b] = n
+    toks = torch.randint(4, 4096, (B, W), generator=g, device=cuda,
+                         dtype=torch.int32)
+    pos0 = cache["pos"].clone()
+    before = paged_flash_verify.launches
+    wide, _ = MD.verify(cfg, params, toks, cache)
+    assert paged_flash_verify.launches == before + 1
+    steps = []
+    for t in range(W):
+        lg, cache = MD.decode_step(cfg, params, toks[:, t:t + 1], cache)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    assert torch.equal(cache["pos"], pos0 + W)
+    wide, step = wide.float(), torch.stack(steps, dim=1).float()
+    assert bool(torch.isfinite(wide).all())
+    diff = (wide - step).abs()
+    assert diff.max().item() <= VERIFY_TOL[dtype]
+    for r, t in (wide.argmax(-1) != step.argmax(-1)).nonzero().tolist():
+        top2 = torch.topk(step[r, t], 2).values
+        assert (top2[0] - top2[1]).item() < diff[r, t].max().item(), (r, t)
+
+
+def test_reduced_sharded_spec_fleet_on_card_equals_cpu(cuda, monkeypatch):
+    """Reduced glm4-9b (4 query / 2 KV heads) over 4 ranks with an aligned
+    speculative draft (k = 2), kernels 1-3 on, target and draft both at
+    float32 (the reduced registry read at float32, as the CPU tests do):
+    the tokens on the card ranks equal those on 4 CPU ranks and of the
+    unsharded CPU plain fleet; every proposal is accepted on the card
+    ranks (the draft has the target's weights), and the spec counters
+    (rounds, offered, accepted, emitted) on the card ranks equal those on
+    the CPU ranks; every card rank launched the verify kernel."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.serving import fleet as tfleet
+    from repro_torch.serving.fleet import LocalFleet
+    from repro_torch.serving.scheduler import SpecConfig
+    arch = "glm4-9b"
+    orig = tfleet.get_reduced
+    monkeypatch.setattr(tfleet, "get_reduced",
+                        lambda a: orig(a).replace(dtype="float32"))
+    kw = dict(batch=2, max_seq=64, gen_tokens=6, warmup=False,
+              decode_impl="flash_paged",
+              arch_overrides={arch: {"attn_impl": "pallas"}})
+    prompts = ["shard the draft across ranks", "tiny",
+               " ".join(f"w{i}" for i in range(30))]
+    want = [o["tokens"] for o in LocalFleet([arch], device="cpu", **kw)
+            .generate(arch, prompts)]
+    counters = {}
+    for dev in ("cuda", "cpu"):
+        with LM.host_ranks(4, device=dev):
+            f = LocalFleet([arch], model_axis=4, device=dev,
+                           speculative=SpecConfig(arch, k=2), **kw)
+            assert f.members[arch].spec.cfg.dtype == "float32"
+            f.rank_stats(reset=True)
+            got = [o["tokens"] for o in f.generate(arch, prompts)]
+            stats = f.rank_stats()
+            s = f.schedulers[arch]
+            counters[dev] = [s.spec_rounds, s.spec_offered, s.spec_accepted,
+                             s.spec_emitted]
+            assert s.pool.live_refs() == 0
+        assert got == want, dev
+        if dev == "cuda":
+            assert s.spec_rounds > 0
+            assert s.spec_accepted == s.spec_offered > 0
+            for st in stats:
+                assert st["launches"]["flash_attention"] > 0
+                assert st["launches"]["paged_flash_verify"] > 0
+            assert all(st["launches"] == stats[0]["launches"]
+                       for st in stats)
+    assert counters["cuda"] == counters["cpu"], counters
+
+
 # ---------------------------------------------------------------------------
 # the model axis, training half: build_train_step over ranks on the card
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ subprocess of the port's CLI for ``whisper-tiny x decode_32k`` (a member
 for a dense train cell ends with the reference's last line; the
 ``NOT-SHARDABLE`` set over every arch's ``decode_32k`` cell equals the
 archs ``check_shardable`` refuses on the 16 x 16 mesh — the SSM and
-cross-attention members, and the GQA members whose query heads split
-over 16 while their KV heads do not — and the other cells are records;
+cross-attention members — and the other cells are records, the GQA
+members whose query heads split over 16 while their KV heads (a divisor
+of 16) do not among them;
 an MoE cell's ``model_flops_total`` equals the reference's
 ``model_flops``.
 """
@@ -28,8 +29,9 @@ from repro_torch.models import model as MD
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFUSED = {"llama-3.2-vision-90b", "whisper-tiny", "jamba-v0.1-52b",
-           "xlstm-350m", "qwen3-1.7b", "llama3.2-1b", "glm4-9b",
-           "qwen3-moe-235b-a22b"}
+           "xlstm-350m"}
+# query heads split over 16, KV heads (8, 8, 2, 4) whole on every rank
+KV_WHOLE = {"qwen3-1.7b", "llama3.2-1b", "glm4-9b", "qwen3-moe-235b-a22b"}
 
 
 def _cli(*args, out_dir):
@@ -84,6 +86,7 @@ def test_not_shardable_set_equals_the_refused_archs(decode_cells):
             want.add(arch)
     assert set(refused) == want == REFUSED
     assert set(recs) == set(list_archs()) - REFUSED
+    assert KV_WHOLE <= set(recs)
     for rec in recs.values():
         assert rec["chips"] == 256 and rec["shape"] == "decode_32k"
         assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0

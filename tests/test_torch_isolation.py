@@ -5,7 +5,8 @@ extracting a batch's signals and deciding on them, routing a batch through
 ``SemanticRouter.route_batch`` into a reduced fleet, serving a text and
 an image request through ``AsyncFrontend``, taking two train steps and a
 checkpoint round trip (with ``msgpack`` blocked) loads none of them; nor
-does serving a request through a sharded fleet on two CPU ranks, or
+does serving a request through a sharded fleet on two CPU ranks, plain
+and speculative (the draft sharded over the same ranks), or
 training over two CPU ranks through the launcher with sharded checkpoints
 written and restored, in any rank (the worker ranks run
 ``launch.mesh.worker_loop``)."""
@@ -186,6 +187,13 @@ def test_sharded_fleet_loads_no_jax_in_any_rank():
         "decode_impl='flash_paged', device='cpu')\n"
         "        out = f.generate('qwen3-moe-235b-a22b', ['hello ranks'])\n"
         "        assert len(out[0]['tokens']) == 3, out\n"
+        "        from repro_torch.serving.scheduler import SpecConfig\n"
+        "        g = LocalFleet(['glm4-9b'], batch=2, gen_tokens=4, "
+        "warmup=False, model_axis=2, decode_impl='flash_paged', "
+        "speculative=SpecConfig('glm4-9b', k=2), device='cpu')\n"
+        "        out = g.generate('glm4-9b', ['hello draft ranks'])\n"
+        "        assert len(out[0]['tokens']) == 4, out\n"
+        "        assert g.schedulers['glm4-9b'].spec_rounds > 0\n"
         "        bad = ctl.gather(eval, \"sorted(m for m in "
         "__import__('sys').modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'repro', 'msgpack') and __import__('sys').modules[m] is not "

@@ -166,6 +166,12 @@ def test_kv_layouts():
     assert MD.kv_layout(qwen, None, 512, paged=False) == "full"
     with pytest.raises(NotImplementedError, match="not for"):
         MD.check_shardable(get_config("jamba-v0.1-52b"), m2)
-    with pytest.raises(NotImplementedError, match="KV heads do not"):
-        MD.check_shardable(get_config("glm4-9b"),
-                           LM.Mesh({"data": 1, "model": 4}))
+    # glm4-9b's 32 query heads split over 4 ranks, its 2 KV heads do not:
+    # each paged pool holds the KV head of the rank's query heads, the
+    # contiguous cache a sequence shard of every head
+    glm, m4 = get_config("glm4-9b"), LM.Mesh({"data": 1, "model": 4})
+    MD.check_shardable(glm, m4)
+    assert MD.kv_layout(glm, m4, 512, paged=True) == "group"
+    assert MD.kv_layout(glm, m4, 512, paged=False) == "seq"
+    with pytest.raises(NotImplementedError, match="neither divide"):
+        MD.check_shardable(glm.replace(n_heads=12, n_kv_heads=3), m4)

@@ -3,13 +3,15 @@
 launcher, run once in a subprocess with 4 fake CPU devices, and the same
 runs on the port's ``gloo`` CPU ranks.
 
-The reference side: ``build_train_step`` on the host mesh ``data 2 x
-model 2`` for the reduced arch at float32, from ``init_params(cfg,
-PRNGKey(0))``, ``STEPS`` steps on the batches of ``batches``; then
-``repro.launch.train.main`` on ``make_host_mesh()`` = ``data 4 x model
-1`` (the reduced arch at its bf16, ``STEPS`` steps of batch 4).  It hands
-back every step's metrics, the launcher's losses, the initial weights of
-both runs and the weights after the sharded steps (``.npz``).
+The reference side: ``build_train_step`` on the host mesh
+``make_host_mesh(model)`` (``data 2 x model 2`` by default, ``data 1 x
+model 4`` with ``model=4``) for the reduced arch at float32, from
+``init_params(cfg, PRNGKey(0))``, ``STEPS`` steps on the batches of
+``batches``; then, unless ``launch=False``, ``repro.launch.train.main``
+on ``make_host_mesh()`` = ``data 4 x model 1`` (the reduced arch at its
+bf16, ``STEPS`` steps of batch 4).  It hands back every step's metrics,
+the launcher's losses, the initial weights of both runs and the weights
+after the sharded steps (``.npz``).
 
 The port side runs on every rank (``launch.mesh.host_ranks``'
 ``Controller.gather``): the same step on ``make_host_mesh(2)`` from the
@@ -47,10 +49,11 @@ from repro.sharding import rules as R
 from repro.sharding.ctx import sharding_rules
 from repro.training import train_lib
 from repro.training.optimizer import AdamWConfig, init_opt_state
-arch, out = sys.argv[1], sys.argv[2]
+arch, out, model, launch = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    sys.argv[4] == "1"
 cfg = get_reduced(arch).replace(dtype="float32")
-mesh = make_host_mesh(2)
-assert dict(mesh.shape) == {"data": 2, "model": 2}
+mesh = make_host_mesh(model)
+assert dict(mesh.shape) == {"data": 4 // model, "model": model}
 step, sh = train_lib.build_train_step(cfg, mesh, AdamWConfig(warmup_steps=1),
                                       batch=B, moe_impl="ep")
 p0 = MD.init_params(cfg, jax.random.PRNGKey(0))
@@ -64,7 +67,8 @@ with sharding_rules(mesh, R.act_rules(mesh, B)):
         params, opt, m = step(params, opt, toks, labels)
         metrics.append({k: float(v) for k, v in m.items()})
 losses = JT.main(["--arch", arch, "--reduced", "--steps", str(STEPS),
-                  "--batch", str(B), "--seq", "16", "--log-every", "100"])
+                  "--batch", str(B), "--seq", "16", "--log-every", "100"]) \
+    if launch else []
 flat = lambda tree: {
     "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(
         v, np.float32)
@@ -100,16 +104,19 @@ def nest(flat: dict) -> dict:
     return tree
 
 
-def reference(arch: str, out_dir) -> dict:
-    """Run the reference's sharded step and launcher for ``arch``; returns
-    ``{"metrics", "losses", "init", "after", "launch0"}`` (the trees as
-    nested dicts of float32 numpy arrays)."""
+def reference(arch: str, out_dir, model: int = 2,
+              launch: bool = True) -> dict:
+    """Run the reference's sharded step over ``data 4 // model x model``
+    and, ``launch``, its launcher for ``arch``; returns ``{"metrics",
+    "losses", "init", "after", "launch0"}`` (the trees as nested dicts of
+    float32 numpy arrays; ``losses`` empty without ``launch``)."""
     out = os.path.join(str(out_dir), "ref.npz")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
     script = _JAX % {"tests": os.path.join(ROOT, "tests")}
-    proc = subprocess.run([sys.executable, "-c", script, arch, out],
+    proc = subprocess.run([sys.executable, "-c", script, arch, out,
+                           str(model), "1" if launch else "0"],
                           capture_output=True, text=True, timeout=600,
                           env=env, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
