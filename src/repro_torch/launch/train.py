@@ -26,6 +26,7 @@ rank exits with 17.  The weights start from ``init_params`` on a
 to the rank's block, so any mesh starts from the same weights), or from a
 reference tree handed to ``main(init=...)``; the cross-attention context
 of an encoder-decoder or vision config is drawn from the same generator.
+``--layers N`` keeps the first N layers (a smoke run's depth cut).
 Checkpoints are the reference's layout and keys (``checkpoint/ckpt.py``),
 so a run resumes from a checkpoint of either package.
 """
@@ -33,6 +34,7 @@ so a run resumes from a checkpoint of either package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -74,6 +76,22 @@ class StragglerMonitor:
         return slow
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its decoder cut to its first ``layers`` layers, in
+    whole periods of its groups (every width kept)."""
+    groups, left = [], layers
+    for g in cfg.groups:
+        reps = min(g.repeats, left // len(g.period))
+        if reps == 0:
+            break
+        groups.append(dataclasses.replace(g, repeats=reps))
+        left -= reps * len(g.period)
+    if left:
+        raise ValueError(f"{cfg.name}: {layers} layers are not whole "
+                         f"periods of its groups")
+    return cfg.replace(groups=tuple(groups))
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -98,6 +116,10 @@ def main(argv=None, *, init=None, stats=None):
     ap.add_argument("--moe-impl", default="ep")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers, in whole "
+                         "periods of its groups, every width kept (a "
+                         "smoke run's depth cut; 0: all of them)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the card; raises without one) or 'cpu'")
     args = ap.parse_args(argv)
@@ -114,6 +136,8 @@ def main(argv=None, *, init=None, stats=None):
 def _train(args, init, stats):
     stats.update(step_s=[], save_s=[], restore_s=None)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = cut_depth(cfg, args.layers)
     dev = resolve_device(args.device)
     mesh = (make_production_mesh() if args.production_mesh
             else make_host_mesh())

@@ -52,10 +52,15 @@ over ``"model"``: KV heads when they divide it, else a sequence shard,
 which ``decode_impl="shardmap"`` always takes (``smdec``); paged pools
 split heads, hold the one KV head of the rank's query heads (query heads
 that split over KV heads that do not: ``kv_layout``), or stay whole; the
-batch stays whole on every rank.  Members with SSM state,
-cross-attention or an encoder take no model axis yet, nor GQA members
-whose KV heads neither divide the axis nor are a divisor of it
-(``check_shardable``).
+batch stays whole on every rank.  Mamba is channel-parallel (``ssm``:
+the rank's channels of its leaves and of its state), the mLSTM and sLSTM
+run whole on every rank (their state too), cross-attention splits heads
+as self-attention does and keeps ``ck``/``cv`` whole (the rules' cache
+spec: the rank's heads are all-gathered once, at prefill), and the
+whisper encoder runs on every rank over the same frames.  Refused
+(``check_shardable``): GQA members whose KV heads neither divide the
+axis nor are a divisor of it, and MLA members whose heads and ``wo``
+rows split differently; no registry member on the repo's meshes.
 
 Training over ranks (``training.train_lib.build_train_step``): the batch
 is split over ``"data"`` (``sharding.ctx.row_axes``), the collectives are
@@ -224,28 +229,25 @@ def model_split(mesh) -> int:
 
 def check_shardable(cfg: ModelConfig, mesh) -> None:
     """Raise ``NotImplementedError`` for a member the port cannot shard
-    over ``mesh``'s ``"model"`` ranks yet: SSM mixers, cross-attention,
-    an encoder, or query heads that divide the axis while the KV heads
-    neither divide it nor are a divisor of it (a rank's query heads would
-    straddle two KV heads).  Query heads that split while the KV heads
-    stay whole and divide the axis are served: each rank's query heads
-    lie under one KV head (``_rank_kv``)."""
+    over ``mesh``'s ``"model"`` ranks: query heads that divide the axis
+    while the KV heads neither divide it nor are a divisor of it (a
+    rank's query heads would straddle two KV heads), or MLA heads and
+    ``wo``'s rows that split differently.  Every other member is served,
+    SSM, cross-attention and encoder members included: query heads that
+    split while the KV heads stay whole and divide the axis lie under one
+    KV head a rank (``_rank_kv``)."""
     M_ = model_split(mesh)
     if M_ == 1:
         return
     mixers = {s.mixer for g in cfg.groups + cfg.encoder_groups
               for s in g.period}
-    if mixers - {"attn", "mla"} or cfg.cross_ctx_len:
-        raise NotImplementedError(
-            f"{cfg.name}: sharding over a model axis is ported for "
-            f"attention and MLA stacks; not for {sorted(mixers)} or "
-            f"cross-attention context")
     if "mla" in mixers and (cfg.n_heads % M_ == 0) != \
             (cfg.n_heads * cfg.v_head_dim % M_ == 0):
         raise NotImplementedError(
             f"{cfg.name}: MLA heads and wo's rows split differently over "
             f"model axis {M_}")
-    if "attn" in mixers and cfg.n_heads % M_ == 0 \
+    if mixers & {"attn", "bidir_attn", "cross_attn"} \
+            and cfg.n_heads % M_ == 0 \
             and cfg.n_kv_heads % M_ != 0 and M_ % cfg.n_kv_heads != 0:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} query heads split over model axis "
@@ -324,7 +326,8 @@ def _ssm_init(cfg: ModelConfig, pd: nn.ParameterDict, leaves: dict,
         elif isinstance(rule, tuple):
             _dense_init(p, gen, scale=rule[1])
         else:
-            p.copy_(rule(cfg).to(p.dtype))
+            w, block = rule(cfg), getattr(p, "_block", None)
+            p.copy_((w if block is None else w[block]).to(p.dtype))
 
 
 @torch.no_grad()
@@ -406,9 +409,9 @@ def _block_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int, batch: int,
     M_ = model_split(mesh)
     S_ = max_seq // M_ if layout == "seq" else max_seq
 
-    def z(shape, dt=dtype):
+    def z(shape, dt=dtype, seq=layout == "seq"):
         t = torch.zeros(lead + shape, dtype=dt, device=dev)
-        t._seq_split = layout == "seq"
+        t._seq_split = seq
         return t
 
     if spec.mixer in ("attn", "bidir_attn"):
@@ -417,11 +420,17 @@ def _block_cache(cfg: ModelConfig, spec: BlockSpec, repeats: int, batch: int,
         return {"k": z(kv), "v": z(kv)}
     if spec.mixer == "cross_attn":
         kv = (cfg.cross_ctx_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"ck": z(kv), "cv": z(kv)}
+        return {"ck": z(kv, seq=False), "cv": z(kv, seq=False)}
     if spec.mixer == "mla":
         return {"ckv": z((S_, cfg.kv_lora_rank)),
                 "krope": z((S_, cfg.rope_head_dim))}
-    st = S.zero_state(cfg, spec.mixer, batch, dtype, dev)
+    # mamba: the rank's channels, as its leaves split (the rules'
+    # ``conv`` / ``h`` specs); the mLSTM's conv state stays whole, though
+    # the rules' ``conv`` spec would split it: its mixer runs whole on
+    # every rank and reads all of it
+    split = M_ if spec.mixer == "mamba" and \
+        S.mamba_dims(cfg)[0] % M_ == 0 else 1
+    st = S.zero_state(cfg, spec.mixer, batch, dtype, dev, model=split)
     return {k: v[None].repeat((repeats,) + (1,) * v.dim())
             for k, v in st.items()}
 
@@ -436,7 +445,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``cache["pos"]`` is the current length (a scalar int32; the scheduler
     replaces it with a (batch,) vector of per-row positions).  With
     ``mesh``: the rank's block of each KV leaf (``kv_layout``; a sequence
-    shard carries ``_seq_split``)."""
+    shard carries ``_seq_split``) and of a mamba state (its channels);
+    ``ck``/``cv`` and the xLSTM states whole."""
     check_supported(cfg)
     check_shardable(cfg, mesh)
     dev = _device(device)
@@ -499,15 +509,17 @@ def _own_heads(t: Tensor, local: int) -> Tensor:
 def _rank_kv(cfg: ModelConfig, t: Tensor, hq: int) -> Tensor:
     """The KV heads (dim 2) of ``t`` that the rank's ``hq`` query heads
     read: ``t`` itself unless the query heads split over ``"model"`` while
-    ``t`` holds every KV head; then rank j's query heads ``j * hq ..`` all
-    lie under KV head ``j * hq // G`` (G query heads a KV head;
-    ``check_shardable`` lets through only ``model % n_kv_heads == 0``),
-    which is cut out."""
+    ``t`` holds every KV head; then rank j's query heads ``j * hq ..`` lie
+    under KV heads ``j * hq // G ..`` (G query heads a KV head), which are
+    cut out: the rank's ``n_kv_heads / model`` heads when they divide the
+    axis (a whole cross-attention cache), else the one head of the rank's
+    group (``check_shardable`` lets through only ``model % n_kv_heads ==
+    0``)."""
     if hq == cfg.n_heads or t.shape[2] != cfg.n_kv_heads:
         return t
-    h = current_mesh().coords["model"] * hq // (cfg.n_heads //
-                                                cfg.n_kv_heads)
-    return t[:, :, h:h + 1]
+    G = cfg.n_heads // cfg.n_kv_heads
+    h = current_mesh().coords["model"] * hq // G
+    return t[:, :, h:h + max(1, hq // G)]
 
 
 # ===========================================================================
@@ -723,20 +735,32 @@ def _cross_attn(cfg, p: Block, h, cross_ctx, mode, bcache):
     a vision member's patch embeddings): prefill projects ``cross_ctx``
     (B, T, d) to K/V, attends, and stores them in the layer's ``ck``/``cv``
     (in place); decode attends to the stored K/V.  Plain ``layers.sdpa``
-    in both modes, as the reference's (no kernel)."""
+    in both modes, as the reference's (no kernel).
+
+    A sharded member attends with the rank's query heads and the KV heads
+    they read (``_rank_kv``: its own where ``wk`` splits, the one of its
+    group where only ``wq`` does); ``ck``/``cv`` hold every KV head (the
+    rules keep them whole), so a prefill whose ``wk`` splits all-gathers
+    the rank's heads once before it stores them."""
     x = L.rms_norm(h, p.norm1, cfg.norm_eps)
     if mode == "decode":
         B, Sq, _ = x.shape
-        q = (x @ p.attn["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+        split = L.split_over(p.attn["wq"], dim=1)
+        q = (L.enter(x, split) @ L.W(p.attn["wq"])).reshape(
+            B, Sq, -1, cfg.head_dim)
         if cfg.qk_norm:
-            q = L.rms_norm(q, p.attn["q_norm"], cfg.norm_eps)
-        out = L.sdpa(q, bcache["ck"], bcache["cv"], causal=False)
+            q = L.rms_norm(q, L.enter(p.attn["q_norm"], split),
+                           cfg.norm_eps)
+        hq = q.shape[2]
+        out = L.sdpa(q, _rank_kv(cfg, bcache["ck"], hq),
+                     _rank_kv(cfg, bcache["cv"], hq), causal=False)
         return h + L.attn_out(p.attn, out)
     q, k, v = L.attn_qkv(p.attn, cfg, x, cross_ctx, None, None)
-    out = L.sdpa(q, k, v, causal=False)
+    hq = q.shape[2]
+    out = L.sdpa(q, _rank_kv(cfg, k, hq), _rank_kv(cfg, v, hq), causal=False)
     if mode == "prefill" and bcache is not None:
-        bcache["ck"].copy_(k)
-        bcache["cv"].copy_(v)
+        bcache["ck"].copy_(_all_heads(k, cfg.n_kv_heads))
+        bcache["cv"].copy_(_all_heads(v, cfg.n_kv_heads))
     return h + L.attn_out(p.attn, out)
 
 
@@ -865,7 +889,7 @@ def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
     else:   # SSM: a recurrent state per row, copied into the cache in place
         x = L.rms_norm(h, p.norm1, cfg.norm_eps)
         forward, step = S.FORWARD[mixer]
-        sp = _whole(getattr(p, mixer))
+        sp = getattr(p, mixer)
         if mode == "decode":
             y, state = step(sp, cfg, x, bcache)
         else:
@@ -882,16 +906,6 @@ def _apply_block(cfg: ModelConfig, p: Block, h: Tensor, *, rope, cross_ctx,
         y, aux = M.moe_apply(p.moe, cfg, x, moe_impl, aux=mode == "full")
         return h + y, None if aux is None else (aux["moe_lb"], aux["moe_z"])
     return h + L.ffn_apply(p.ffn, x), None
-
-
-def _whole(pd):
-    """An SSM mixer's leaves gathered whole where a mesh shards them
-    (over ``"data"``: SSM members take no model axis); ``pd`` itself when
-    none carries a spec."""
-    if not any(hasattr(t, "_spec") for t in pd.parameters()):
-        return pd
-    return {k: _whole(v) if isinstance(v, nn.ParameterDict)
-            else L.W(v, model=True) for k, v in pd.items()}
 
 
 def _period(cfg: ModelConfig, blocks, h: Tensor, lb, z, **kw):

@@ -17,6 +17,23 @@ There is no Pallas kernel here (the reference uses ``lax.scan`` and
 scans run as PyTorch ops.  Parameters come in as mappings keyed like the
 reference's pytree (``ssm_leaves`` gives their shapes, dtypes and init
 rules).
+
+Sharded members (the leaves are a rank's blocks, carrying their spec from
+``sharding.rules``): each leaf is gathered over ``"data"`` before use
+(``layers.W``, FSDP).  Over ``"model"`` the mLSTM and sLSTM run whole on
+every rank (the rules keep their leaves whole there; an sLSTM FFN that
+the rules split is tensor-parallel through ``layers.ffn_apply``).  Mamba
+is channel-parallel: rank j holds channels ``[j*di/M, (j+1)*di/M)`` of
+``conv_w``, ``dt_w``, ``x_proj``, ``A_log`` and ``out_proj`` and of its
+state, but its block of ``in_proj``'s columns is a block of the fused
+``[x | z]`` output, not of channels (at M = 2 rank 0 holds all of x).  So
+the rank's in_proj product is all-gathered over ``"model"`` and the rank
+cuts its channels of x and of z out of it (``_mamba_local``).  ``x_proj``'s
+rows are the rank's channels: its product is summed over ``"model"``
+before it is split into dt / B / C; ``out_proj``'s product too
+(``row_parallel_sum``).  The 1-D leaves (``conv_b``, ``dt_b``, ``D``) are
+whole on every rank; each rank cuts its channels, after ``layers.enter``
+so that a train step sums the ranks' partial gradients.
 """
 
 from __future__ import annotations
@@ -28,7 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ffn_apply, rms_norm
+from repro_torch.models.layers import (W, enter, ffn_apply, rms_norm,
+                                       row_parallel_sum, split_over)
+from repro_torch.sharding.ctx import current_mesh
 
 Tensor = torch.Tensor
 CHUNK = 256
@@ -179,12 +198,14 @@ def ssm_leaves(cfg: ModelConfig, mixer: str, dtype) -> dict:
 
 
 def zero_state(cfg: ModelConfig, mixer: str, batch: int, dtype,
-               device) -> dict:
-    """The reference's ``{mamba,mlstm,slstm}_zero_state``."""
+               device, model: int = 1) -> dict:
+    """The reference's ``{mamba,mlstm,slstm}_zero_state``; ``model``: the
+    ranks a mamba state's channels split over (``di / model`` a rank)."""
     f32 = torch.float32
     kw = dict(device=device)
     if mixer == "mamba":
         di, _, N = mamba_dims(cfg)
+        di //= model
         return {"conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di),
                                     dtype=dtype, **kw),
                 "h": torch.zeros((batch, di, N), dtype=f32, **kw)}
@@ -209,23 +230,52 @@ def zero_state(cfg: ModelConfig, mixer: str, batch: int, dtype,
 # Mamba-1 (selective SSM)
 # ===========================================================================
 
-def _mamba_scan_inputs(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
-                       conv_state):
-    """Shared pre-scan compute.  Returns (dA, dBx, Cc, xs_conv, z,
-    conv_state')."""
+def _mamba_local(p: Mapping[str, Tensor], cfg: ModelConfig):
+    """A mamba block's leaves as this rank uses them: each gathered over
+    ``"data"``; the 1-D leaves cut to the rank's channels.  Returns
+    (leaves, loc): loc is ((lo, hi) the rank's channels, whether
+    ``in_proj``'s columns are split over ``"model"``, whether the
+    channels are)."""
+    di = mamba_dims(cfg)[0]
+    w = {k: W(v) for k, v in p.items()}
+    split = split_over(p["conv_w"], dim=1)
+    lo, hi = 0, di
+    if split:
+        n = w["conv_w"].shape[1]
+        lo = current_mesh().coords["model"] * n
+        hi = lo + n
+    for k in ("conv_b", "dt_b", "D"):
+        w[k] = enter(w[k], split)[lo:hi]
+    return w, ((lo, hi), split_over(p["in_proj"], dim=1), split)
+
+
+def _mamba_scan_inputs(w: Mapping[str, Tensor], loc, cfg: ModelConfig,
+                       x: Tensor, conv_state):
+    """Shared pre-scan compute on ``_mamba_local``'s leaves and channels
+    ``loc``.  Returns (dA, dBx, Cc, xs_conv, z, conv_state')."""
     di, dt_rank, N = mamba_dims(cfg)
-    xz = x @ p["in_proj"]
-    xs, z = torch.chunk(xz, 2, dim=-1)
-    xs_conv, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"],
+    (lo, hi), in_split, split = loc
+    xz = x @ w["in_proj"]
+    if in_split:
+        # the rank's columns of the fused [x | z]: every rank's, then
+        # its own channels of each half
+        xz = current_mesh().gather(xz, "model", xz.dim() - 1)
+    xs, z = xz[..., lo:hi], xz[..., di + lo:di + hi]
+    xs_conv, conv_state = _causal_conv(xs, w["conv_w"], w["conv_b"],
                                        conv_state)
     xs_conv = F.silu(xs_conv)
 
-    dbc = xs_conv @ p["x_proj"]
+    dbc = xs_conv @ w["x_proj"]
+    if split:
+        # a partial sum over the rank's channels, whole after the sum;
+        # it then feeds the rank's channels again
+        mesh = current_mesh()
+        dbc = mesh.enter(mesh.psum(dbc, "model"), "model")
     dt = dbc[..., :dt_rank]
     Bc = dbc[..., dt_rank:dt_rank + N].float()
     Cc = dbc[..., dt_rank + N:].float()
-    dt = _softplus((dt @ p["dt_w"]).float() + p["dt_b"])
-    A = -torch.exp(p["A_log"])                                   # (di, N)
+    dt = _softplus((dt @ w["dt_w"]).float() + w["dt_b"])
+    A = -torch.exp(w["A_log"])                                   # (di, N)
 
     xcf = xs_conv.float()
     dA = torch.exp(dt[..., None] * A)                            # (B,S,di,N)
@@ -243,28 +293,33 @@ def mamba_forward(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
                   state: Optional[dict] = None, return_state: bool = False):
     """x: (B,S,d) -> (y (B,S,d), new_state|None).  Chunked selective scan:
     the pre-scan compute runs per chunk, so the (B,ck,di,N) tensors never
-    exist for more than one chunk at a time."""
+    exist for more than one chunk at a time.  A sharded member's state
+    holds the rank's channels."""
     B, S, d = x.shape
-    di, _, N = mamba_dims(cfg)
+    _, _, N = mamba_dims(cfg)
+    w, loc = _mamba_local(p, cfg)
+    (lo, hi), in_split, _ = loc
+    x = enter(x, in_split)
     if state is None:
-        h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
-        conv_s = torch.zeros((B, cfg.mamba_d_conv - 1, di), dtype=x.dtype,
-                             device=x.device)
+        h = torch.zeros((B, hi - lo, N), dtype=torch.float32,
+                        device=x.device)
+        conv_s = torch.zeros((B, cfg.mamba_d_conv - 1, hi - lo),
+                             dtype=x.dtype, device=x.device)
     else:
         h, conv_s = state["h"], state["conv"]
     ck = _pick_chunk(S)
     ys = []
     for c in range(S // ck):
         x_c = x[:, c * ck:(c + 1) * ck]
-        dA, dBx, Cc, xs_conv, z, conv_s = _mamba_scan_inputs(p, cfg, x_c,
-                                                             conv_s)
+        dA, dBx, Cc, xs_conv, z, conv_s = _mamba_scan_inputs(w, loc, cfg,
+                                                             x_c, conv_s)
         ca, cb = _associative_scan(_mamba_combine, [dA, dBx])
         states = ca * h[:, None] + cb                            # (B,ck,di,N)
         y = torch.einsum("bkdn,bkn->bkd", states, Cc)
-        y = y + p["D"] * xs_conv.float()
-        ys.append((y.to(x.dtype) * F.silu(z)) @ p["out_proj"])
+        y = y + w["D"] * xs_conv.float()
+        ys.append((y.to(x.dtype) * F.silu(z)) @ w["out_proj"])
         h = states[:, -1]
-    y = torch.cat(ys, dim=1)
+    y = row_parallel_sum(torch.cat(ys, dim=1), p["out_proj"])
     new_state = {"conv": conv_s, "h": h} if return_state else None
     return y, new_state
 
@@ -272,13 +327,21 @@ def mamba_forward(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
 def mamba_step(p: Mapping[str, Tensor], cfg: ModelConfig, x1: Tensor,
                state: dict):
     """Single-token decode.  x1: (B,1,d)."""
+    w, loc = _mamba_local(p, cfg)
     dA, dBx, Cc, xs_conv, z, conv_state = _mamba_scan_inputs(
-        p, cfg, x1, state["conv"])
+        w, loc, cfg, enter(x1, loc[1]), state["conv"])
     h = dA[:, 0] * state["h"] + dBx[:, 0]                        # (B,di,N)
     y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])
-    y = y + p["D"] * xs_conv[:, 0].float()
-    y = (y.to(x1.dtype) * F.silu(z[:, 0])) @ p["out_proj"]
+    y = y + w["D"] * xs_conv[:, 0].float()
+    y = (y.to(x1.dtype) * F.silu(z[:, 0])) @ w["out_proj"]
+    y = row_parallel_sum(y, p["out_proj"])
     return y[:, None, :], {"conv": conv_state, "h": h}
+
+
+def _gathered(p: Mapping[str, Tensor]) -> dict:
+    """An xLSTM block's leaves gathered over ``"data"`` (FSDP); a nested
+    mapping (the sLSTM's FFN) stays as it is, for ``ffn_apply``."""
+    return {k: W(v) if isinstance(v, Tensor) else v for k, v in p.items()}
 
 
 # ===========================================================================
@@ -320,6 +383,7 @@ def mlstm_forward(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     di, dh = mlstm_dims(cfg)
     H = cfg.n_heads
     ck = _pick_chunk(S)
+    p = _gathered(p)
     if state is None:
         state = zero_state(cfg, "mlstm", B, x.dtype, x.device)
     q, k, v, i_pre, f_pre, z, conv_last = _mlstm_qkv_gates(
@@ -375,6 +439,7 @@ def mlstm_forward(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
 def mlstm_step(p: Mapping[str, Tensor], cfg: ModelConfig, x1: Tensor,
                state: dict):
     """Single-token decode.  x1: (B,1,d)."""
+    p = _gathered(p)
     q, k, v, i_pre, f_pre, z, conv_state = _mlstm_qkv_gates(
         p, cfg, x1, state["conv"])
     qf, kf, vf = (t[:, 0].float() for t in (q, k, v))
@@ -426,6 +491,7 @@ def slstm_forward(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
     B, S, d = x.shape
     if state is None:
         state = zero_state(cfg, "slstm", B, x.dtype, x.device)
+    p = _gathered(p)
     pre = x @ p["w_in"]                                          # (B,S,4d)
     hs = []
     for t in range(S):
@@ -439,6 +505,7 @@ def slstm_forward(p: Mapping[str, Tensor], cfg: ModelConfig, x: Tensor,
 
 def slstm_step(p: Mapping[str, Tensor], cfg: ModelConfig, x1: Tensor,
                state: dict):
+    p = _gathered(p)
     pre = x1[:, 0] @ p["w_in"]
     st1 = _slstm_cell(p, cfg, pre, state)
     h = rms_norm(st1["h"].to(x1.dtype), p["out_norm"], 1e-6)

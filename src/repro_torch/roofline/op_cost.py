@@ -37,6 +37,15 @@ derived from them alongside, on the host.
 ``track_memory`` adds a live-bytes tracker: every device storage alive at
 once (``held`` counts what existed before, such as parameters, optimizer
 state and cache), its peak standing in for ``memory_analysis()``.
+
+On the meta device most of a trace's time is the meta kernels (Python
+shape rules), and a recurrent cell traced token by token (the sLSTM)
+repeats the same few ops tens of thousands of times.  So an op that
+writes none of its arguments and returns fresh tensors runs once per
+argument layout (shape, stride, offset, dtype, scalars); later calls get
+fresh meta tensors of the layout it returned.  Every op is still
+dispatched, counted and tracked as before, so the signatures, totals
+and live bytes are those of the plain trace.
 """
 
 from __future__ import annotations
@@ -70,6 +79,8 @@ SHADOW_LIMIT = 1 << 16         # elements of a meta integer tensor traced
 _UNCOUNTED = (torch.ops.aten.lift_fresh.default,)
 _READS = (torch.ops.aten._local_scalar_dense.default,
           torch.ops.aten.is_nonzero.default)
+_SCALARS = (type(None), bool, int, float, str, torch.dtype, torch.device,
+            torch.layout, torch.memory_format)
 
 
 def _dtype_name(dt) -> str:
@@ -110,6 +121,67 @@ def _info(func) -> tuple:
 # ---------------------------------------------------------------------------
 # signatures and their cost
 # ---------------------------------------------------------------------------
+
+_FRESH: Dict[object, bool] = {}
+
+
+def _fresh(func) -> bool:
+    """Whether ``func`` writes none of its arguments and returns tensors
+    that alias none of them, cached."""
+    got = _FRESH.get(func)
+    if got is None:
+        sch = func._schema
+        got = _FRESH[func] = not sch.is_mutable and all(
+            r.alias_info is None for r in sch.returns)
+    return got
+
+
+class _NoKey(Exception):
+    pass
+
+
+def _layout_key(x):
+    """A meta op's argument as the layout its output depends on (tensors
+    as shape, stride, offset and dtype); ``_NoKey`` for anything else."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            raise _NoKey
+        return (T, tuple(x.shape), x.stride(), x.storage_offset(), x.dtype)
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_layout_key(v) for v in x))
+    if isinstance(x, dict):
+        return tuple((k, _layout_key(v)) for k, v in sorted(x.items()))
+    if isinstance(x, _SCALARS):
+        return (type(x), x)
+    raise _NoKey
+
+
+def _flat_tensors(x) -> Iterable:
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _flat_tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _flat_tensors(v)
+
+
+def _fresh_layout(out, inputs):
+    """(shape, stride, dtype) of a fresh meta output that ``empty_strided``
+    makes as the meta kernel did (a storage of its own, not one of
+    ``inputs``' (``_unsafe_view`` shares its input's without saying so),
+    offset 0, the same bytes), or None."""
+    if not isinstance(out, torch.Tensor) or out.device.type != "meta" or \
+            out.storage_offset() or out.untyped_storage()._cdata in inputs:
+        return None
+    shape, stride = tuple(out.shape), out.stride()
+    span = 0 if 0 in shape else 1 + sum((n - 1) * st
+                                        for n, st in zip(shape, stride))
+    if out.untyped_storage().nbytes() != span * out.element_size():
+        return None
+    return shape, stride, out.dtype
+
 
 def _is_t(x) -> bool:
     return isinstance(x, (tuple, list)) and len(x) == 5 and x[0] == T
@@ -286,11 +358,16 @@ class CostMode(TorchDispatchMode):
 
     ``values``: tensor -> its host values, for meta tensors whose values a
     kernel's cost reads.  ``track_memory``: the live-bytes tracker, with
-    ``held`` the tensors alive before the step; ``peak_bytes`` after."""
+    ``held`` the tensors alive before the step; ``peak_bytes`` after.
+    ``reuse_layouts``: a fresh meta op's output layouts reused (see the
+    module docstring; False runs every meta kernel)."""
 
     def __init__(self, device, *, values: Optional[dict] = None,
-                 track_memory: bool = False, held: Iterable = ()):
+                 track_memory: bool = False, held: Iterable = (),
+                 reuse_layouts: bool = True):
         super().__init__()
+        # meta ops: argument layout -> output layouts (None: run it)
+        self._layouts: Optional[dict] = {} if reuse_layouts else None
         self.device = torch.device(device).type
         self.sigs: Counter = Counter()
         self.kernel_notes: Counter = Counter()
@@ -400,7 +477,7 @@ class CostMode(TorchDispatchMode):
             # trace holds: the step's control flow reads them
             out = func(self._shadow[args[0]])
         else:
-            out = func(*args, **kwargs)
+            out = self._run(func, args, kwargs)
         if self.opaque or func in _UNCOUNTED:
             return out
         name, kind, written = _info(func)
@@ -414,6 +491,33 @@ class CostMode(TorchDispatchMode):
         if self.track_memory:
             for o in (out if isinstance(out, (tuple, list)) else (out,)):
                 self._hold(o)
+        return out
+
+    def _run(self, func, args, kwargs):
+        """``func(*args, **kwargs)``, or for a fresh op on meta arguments
+        whose layout ran before, fresh meta tensors of its output
+        layouts."""
+        if self._layouts is None or self.device != "meta" or \
+                not _fresh(func):
+            return func(*args, **kwargs)
+        try:
+            key = (func, _layout_key(args), _layout_key(kwargs))
+        except _NoKey:
+            return func(*args, **kwargs)
+        if key in self._layouts:
+            outs = self._layouts[key]
+            if outs is not None:
+                made = [torch.empty_strided(sh, st, dtype=dt, device="meta")
+                        for sh, st, dt in outs[1]]
+                return made[0] if outs[0] is None else outs[0](made)
+        out = func(*args, **kwargs)
+        seq = isinstance(out, (tuple, list))
+        inputs = {t.untyped_storage()._cdata for t in _flat_tensors(
+            (args, kwargs))}
+        layouts = [_fresh_layout(o, inputs)
+                   for o in (out if seq else (out,))]
+        self._layouts[key] = None if None in layouts else (
+            type(out) if seq else None, layouts)
         return out
 
     # -- results -------------------------------------------------------------

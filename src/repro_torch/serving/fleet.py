@@ -40,7 +40,12 @@ rank holds its blocks of every parameter and cache tensor
 sends the step and its small inputs (tokens, positions, block tables,
 lengths) to the other ranks (``launch.mesh.Controller``), and every rank
 runs its share of the same forward, collectives included.  The batch is
-whole on every rank.
+whole on every rank.  A request's cross-attention context travels the
+same way: the audio lane draws a request's frames on rank 0 and the
+controller broadcasts them with the prefill (every rank encodes the same
+bits); a vision member's text prompt, which brings no context, attends
+to zero patches that the row prefill makes on each rank
+(``serve_lib.make_prefill_row_fn``).
 
 Concurrency: the fleet lock covers ONLY submission and bookkeeping.
 Draining happens outside it — per-lane step locks serialize the steps
@@ -785,10 +790,13 @@ class LocalFleet:
         sharded member's contiguous cache by ``smdec`` (unsharded: the
         plain path).  ``speculative`` on a model axis shards the draft
         over the same ranks (the member's ``MemberShard`` holds it), and
-        the draft's and the verify's steps run on every rank.  Not ported
-        on a model axis: members with SSM state or cross-attention, and
-        GQA members whose KV heads neither divide the axis nor are a
-        divisor of it (``models.model.check_shardable``)."""
+        the draft's and the verify's steps run on every rank.  SSM,
+        cross-attention and encoder members serve from the contiguous
+        cache over the ranks as the others do (a request's context is
+        broadcast with its prefill; see the module docstring).  Not
+        ported on a model axis: GQA members whose KV heads neither divide
+        the axis nor are a divisor of it
+        (``models.model.check_shardable``)."""
         _validate_decode_impl(decode_impl)
         _validate_speculative(speculative, paged=paged)
         _validate_arch_overrides(arch_overrides, list(archs))
@@ -1035,13 +1043,6 @@ class LocalFleet:
         return self.lanes[arch].modality
 
     def _make_scheduler(self, m: FleetMember) -> DecodeScheduler:
-        make_cross = None
-        if m.cfg.cross_ctx_len:
-            # a request that brings no context (a vision member's text
-            # prompt) attends to zero patches
-            make_cross = lambda b, cfg=m.cfg: torch.zeros(
-                (b, cfg.cross_ctx_len, cfg.d_model),
-                dtype=torch_dtype(cfg.dtype), device=self.device)
         if m.shard is not None:
             # the ranks make their blocks of the cache; rank 0's carries
             # the handle its steps are sent with
@@ -1056,7 +1057,7 @@ class LocalFleet:
                 cfg, b, m.max_seq, device=self.device)
         return DecodeScheduler(m, gen_tokens=self.gen_tokens,
                                init_cache_fn=init_cache,
-                               make_cross_fn=make_cross, spec=m.spec,
+                               spec=m.spec,
                                **self._sched_opts)
 
     # -- generation ---------------------------------------------------------

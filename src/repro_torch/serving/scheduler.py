@@ -317,9 +317,9 @@ class PrefillWorker:
             toks = np.zeros((1, width), np.int32)
             toks[0, :n] = seq.ids
             args = [m.params, s._dev(toks), s._dev([n]), s._init_cache(1)]
-            if s._make_cross is not None:
-                args.append(seq.cross if seq.cross is not None
-                            else s._make_cross(1))
+            if m.cfg.cross_ctx_len:
+                # None: the row prefill attends to zero patches
+                args.append(seq.cross)
             nxt, job.row_cache = m.prefill_row(*args)
             job.first = int(nxt[0])
             seq.prefill_tokens = n
@@ -522,14 +522,12 @@ class DecodeScheduler:
     ``member`` supplies the model and the serving steps (``member.paged``
     picks the cache layout); the scheduler owns the persistent decode
     cache, the slot bookkeeping, the admission queue, and the prefill
-    worker.  ``make_cross_fn(b)`` gives a default cross-attention context
-    for members that attend to one (zero patches for a vision member's
-    requests that bring none).  Not thread-safe by itself —
+    worker.  Not thread-safe by itself —
     :class:`LocalFleet` serializes access.
     """
 
     def __init__(self, member, *, gen_tokens: int, init_cache_fn,
-                 make_cross_fn=None, prefill_chunk: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = 1,
                  prefill_lookahead: int = 0,
                  spec: Optional[SpecRuntime] = None):
@@ -538,7 +536,6 @@ class DecodeScheduler:
         self.slots = member.batch
         self.max_seq = member.max_seq
         self._init_cache = init_cache_fn
-        self._make_cross = make_cross_fn
         self.cache = init_cache_fn(self.slots)
         self.device = self.cache["pos"].device
         self.cache["pos"] = self._dev(np.zeros((self.slots,)))

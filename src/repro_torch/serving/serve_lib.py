@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from repro_torch.device import torch_dtype
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import rules as R
@@ -75,11 +76,27 @@ def make_prefill_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     return prefill_step
 
 
+def context_or_zeros(cfg: ModelConfig, cross_ctx, batch: int, device):
+    """The context a request attends to on a cross-attention member:
+    ``cross_ctx``, or zero patches (batch, cross_ctx_len, d) where the
+    request brings none (a vision member's text prompt).  None on a
+    member without cross-attention."""
+    if cross_ctx is not None or not cfg.cross_ctx_len:
+        return cross_ctx
+    return torch.zeros((batch, cfg.cross_ctx_len, cfg.d_model),
+                       dtype=torch_dtype(cfg.dtype), device=device)
+
+
 def make_prefill_row_fn(cfg: ModelConfig, *, moe_impl: str = "ep"):
     """Length-aware prefill: ``lens`` (B,) marks each row's real prompt
     length; the sampled token comes from each row's last real position,
-    not the right-pad tail."""
+    not the right-pad tail.  On a cross-attention member a ``cross_ctx``
+    of None is a request that brings no context (a vision member's text
+    prompt): it attends to zero patches (``context_or_zeros``), made
+    here on every rank."""
     def prefill_row(params, tokens, lens, cache, cross_ctx=None):
+        cross_ctx = context_or_zeros(cfg, cross_ctx, tokens.shape[0],
+                                     tokens.device)
         logits, cache = MD.prefill(cfg, params, tokens, cache, cross_ctx,
                                    moe_impl=moe_impl, lens=lens)
         return greedy(logits, cfg), cache

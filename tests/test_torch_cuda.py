@@ -1061,6 +1061,40 @@ def test_reduced_sharded_fleet_on_card_equals_cpu(cuda):
             assert stats[0]["launches"] == stats[1]["launches"]
 
 
+def test_reduced_sharded_mixers_on_card_equal_cpu(cuda):
+    """An SSM member (jamba: channel-parallel mamba, an attention layer)
+    and a cross-attention member (whisper: the encoder over audio frames
+    broadcast to the ranks, through the audio lane), reduced, float32,
+    over 2 ranks on the card (kernel 1 on) give the tokens of the same
+    fleet over 2 CPU ranks and of the unsharded CPU fleet; each rank
+    launched kernel 1, as many times as the other."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.serving.fleet import LocalFleet
+    archs = ["jamba-v0.1-52b", "whisper-tiny"]
+    kw = dict(batch=2, max_seq=64, gen_tokens=6, warmup=False,
+              arch_overrides={a: {"dtype": "float32", "attn_impl": "pallas"}
+                              for a in archs})
+    prompts = ["shard me across ranks", "tiny",
+               " ".join(f"w{i}" for i in range(30))]
+
+    def serve(f):
+        return {a: [o["tokens"] for o in f.generate(a, prompts)]
+                for a in archs}
+
+    want = serve(LocalFleet(archs, device="cpu", **kw))
+    for dev in ("cuda", "cpu"):
+        with LM.host_ranks(2, device=dev):
+            f = LocalFleet(archs, model_axis=2, device=dev, **kw)
+            f.rank_stats(reset=True)
+            got = serve(f)
+            stats = f.rank_stats()
+        assert got == want, dev
+        if dev == "cuda":
+            for s in stats:
+                assert s["launches"]["flash_attention"] > 0
+            assert stats[0]["launches"] == stats[1]["launches"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["prefill_479", "decode", "verify"])
 def test_kernels_at_gqa_group_shapes(cuda, dtype, kernel):

@@ -2,16 +2,17 @@
 
 The reference compiles every cell for 512 fake devices (up to ~560 s);
 that run is not repeated here.  Its record fields and last line are: a
-subprocess of the port's CLI for ``whisper-tiny x decode_32k`` (a member
-``check_shardable`` refuses over the model axis: ``NOT-SHARDABLE``) and
-for a dense train cell ends with the reference's last line; the
-``NOT-SHARDABLE`` set over every arch's ``decode_32k`` cell equals the
-archs ``check_shardable`` refuses on the 16 x 16 mesh — the SSM and
-cross-attention members — and the other cells are records, the GQA
-members whose query heads split over 16 while their KV heads (a divisor
-of 16) do not among them;
-an MoE cell's ``model_flops_total`` equals the reference's
-``model_flops``.
+subprocess of the port's CLI for ``whisper-tiny x decode_32k`` (an
+encoder-decoder member with cross-attention, a record since the model
+axis takes SSM and cross-attention members) and for a dense train cell
+ends with the reference's last line; every arch's ``decode_32k`` cell is
+a record — none prints ``NOT-SHARDABLE``, as ``check_shardable`` refuses
+no registry member on the 16 x 16 mesh — the SSM, cross-attention and
+encoder members and the GQA members whose query heads split over 16
+while their KV heads (a divisor of 16) do not among them; the one case
+still refused (query heads that straddle two KV heads) raises on a
+synthetic config; an MoE cell's ``model_flops_total`` equals the
+reference's ``model_flops``.
 """
 
 import os
@@ -28,8 +29,9 @@ from repro_torch.launch.mesh import SpecMesh
 from repro_torch.models import model as MD
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REFUSED = {"llama-3.2-vision-90b", "whisper-tiny", "jamba-v0.1-52b",
-           "xlstm-350m"}
+# members the model axis took in last: SSM, cross-attention, an encoder
+MIXERS = {"llama-3.2-vision-90b", "whisper-tiny", "jamba-v0.1-52b",
+          "xlstm-350m"}
 # query heads split over 16, KV heads (8, 8, 2, 4) whole on every rank
 KV_WHOLE = {"qwen3-1.7b", "llama3.2-1b", "glm4-9b", "qwen3-moe-235b-a22b"}
 
@@ -47,10 +49,11 @@ def test_cli_refused_member_and_dense_train_cell(tmp_path):
              out_dir=tmp_path)
     assert p.returncode == 0, p.stderr
     lines = p.stdout.strip().splitlines()
-    assert lines[0].startswith("NOT-SHARDABLE whisper-tiny__decode_32k__"
-                               "16x16: ")
-    assert lines[-1] == ("all dry-run cells passed (0 recorded, 1 not "
+    assert lines[0].startswith("OK   whisper-tiny")
+    assert lines[-1] == ("all dry-run cells passed (1 recorded, 0 not "
                          "shardable)")
+    tag = "whisper-tiny__decode_32k__16x16"
+    assert {tag + ".json", tag + ".ops.json.gz"} <= set(os.listdir(tmp_path))
     p = _cli("--arch", "smollm-360m", "--shape", "train_4k",
              out_dir=tmp_path)
     assert p.returncode == 0, p.stderr
@@ -84,9 +87,9 @@ def test_not_shardable_set_equals_the_refused_archs(decode_cells):
             MD.check_shardable(get_config(arch), mesh)
         except NotImplementedError:
             want.add(arch)
-    assert set(refused) == want == REFUSED
-    assert set(recs) == set(list_archs()) - REFUSED
-    assert KV_WHOLE <= set(recs)
+    assert not refused and not want
+    assert set(recs) == set(list_archs())
+    assert KV_WHOLE | MIXERS <= set(recs)
     for rec in recs.values():
         assert rec["chips"] == 256 and rec["shape"] == "decode_32k"
         assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
@@ -102,3 +105,19 @@ def test_moe_cell_model_flops_match_reference(decode_cells):
     # expert-parallel: the rank's collectives include the experts'
     # all-reduce over "model"
     assert recs[arch]["collective_counts"]["all-reduce"] > 0
+
+
+def test_straddling_query_heads_stay_refused():
+    """The one member the model axis refuses, on a synthetic config: 12
+    query heads that split over a model axis of 4 while 3 KV heads
+    neither divide 4 nor are a divisor of it — a rank's query heads would
+    straddle two KV heads (the dry run prints such a cell as
+    ``NOT-SHARDABLE``), in self-attention and in an encoder-decoder's
+    cross- and bidirectional attention.  The SSM and cross-attention
+    members pass."""
+    for arch in ("glm4-9b", "whisper-tiny"):   # self-, cross-, bidir attn
+        odd = get_config(arch).replace(n_heads=12, n_kv_heads=3)
+        with pytest.raises(NotImplementedError, match="neither divide"):
+            MD.check_shardable(odd, SpecMesh({"data": 64, "model": 4}))
+    for arch in MIXERS:
+        MD.check_shardable(get_config(arch), SpecMesh.production())

@@ -6,7 +6,8 @@ extracting a batch's signals and deciding on them, routing a batch through
 an image request through ``AsyncFrontend``, taking two train steps and a
 checkpoint round trip (with ``msgpack`` blocked) loads none of them; nor
 does serving a request through a sharded fleet on two CPU ranks, plain
-and speculative (the draft sharded over the same ranks), or
+and speculative (the draft sharded over the same ranks), an audio request
+and a jamba request among them, or
 training over two CPU ranks through the launcher with sharded checkpoints
 written and restored, in any rank (the worker ranks run
 ``launch.mesh.worker_loop``)."""
@@ -194,6 +195,11 @@ def test_sharded_fleet_loads_no_jax_in_any_rank():
         "        out = g.generate('glm4-9b', ['hello draft ranks'])\n"
         "        assert len(out[0]['tokens']) == 4, out\n"
         "        assert g.schedulers['glm4-9b'].spec_rounds > 0\n"
+        "        h = LocalFleet(['whisper-tiny', 'jamba-v0.1-52b'], batch=2, "
+        "gen_tokens=3, warmup=False, model_axis=2, device='cpu')\n"
+        "        out = h.generate('whisper-tiny', ['transcribe this'])\n"
+        "        out += h.generate('jamba-v0.1-52b', ['hello mamba ranks'])\n"
+        "        assert [len(o['tokens']) for o in out] == [3, 3], out\n"
         "        bad = ctl.gather(eval, \"sorted(m for m in "
         "__import__('sys').modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'repro', 'msgpack') and __import__('sys').modules[m] is not "

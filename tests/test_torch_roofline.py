@@ -16,8 +16,12 @@ reanalyze round trip.
   plain version's ops are not counted.
 * ``SpecMesh``'s collectives on a 2 x 2 mesh against a hand count.
 * ``dryrun.run_cell`` -> ``reanalyze`` -> ``report``.
+* Reusing a fresh meta op's output layouts leaves a dry-run cell's
+  trace and record as they were (xlstm-350m's sLSTM, token by token).
 """
 
+import functools
+import gzip
 import json
 import os
 
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_cost)
 from repro_torch.kernels.flash_decode.ops import (flash_decode_cost,
@@ -271,3 +276,28 @@ def test_dryrun_record_reanalyze_and_report_round_trip(tmp_path):
     assert "baseline" in report.fmt_variants(recs, "smollm-360m",
                                              "decode_32k")
     assert "| smollm-360m | decode_32k | " in report.fmt_meshes(recs)
+
+
+@pytest.mark.parametrize("kind,S,B", [("prefill", 16, 32), ("train", 8, 256)])
+def test_layout_reuse_keeps_the_meta_trace(kind, S, B, monkeypatch,
+                                           tmp_path):
+    """``CostMode``'s reuse of a fresh meta op's output layouts (the
+    default) against every meta kernel run: xlstm-350m at full width, its
+    sLSTM traced token by token, over the 16 x 16 mesh; the archived
+    trace (every signature, its count, the peak live bytes) and the
+    record are the same."""
+    name = f"{kind}_{S}"
+    monkeypatch.setitem(dryrun.SHAPES, name, ShapeCell(name, S, B, kind))
+    tag = dryrun.cell_tag("xlstm-350m", name, False)
+    got = []
+    for reuse in (False, True):
+        monkeypatch.setattr(dryrun, "CostMode", functools.partial(
+            CostMode, reuse_layouts=reuse))
+        out = str(tmp_path / str(reuse))
+        rec, _ = dryrun.run_cell("xlstm-350m", name, False, out_dir=out)
+        rec.pop("trace_s")
+        with gzip.open(os.path.join(out, tag + ".ops.json.gz"), "rt") as f:
+            got.append((rec, json.load(f)))
+    assert got[0][0] == got[1][0]
+    assert got[0][1] == got[1][1]
+    assert got[0][0]["flops_per_device"] > 0

@@ -164,8 +164,13 @@ def test_kv_layouts():
     assert MD.kv_layout(get_config("deepseek-v2-236b"), m2, 512,
                         paged=False) == "seq"
     assert MD.kv_layout(qwen, None, 512, paged=False) == "full"
-    with pytest.raises(NotImplementedError, match="not for"):
-        MD.check_shardable(get_config("jamba-v0.1-52b"), m2)
+    # SSM and cross-attention members take the model axis: jamba's mamba
+    # state is the rank's channels, its attention cache the rank's heads
+    MD.check_shardable(get_config("jamba-v0.1-52b"), m2)
+    jamba = MD.init_cache(get_reduced("jamba-v0.1-52b"), 2, 16, "meta",
+                          mesh=m2)
+    assert jamba["g0"]["b0"]["h"].shape[-2] == 64      # di 128 over 2
+    assert jamba["g0"]["b2"]["k"].shape[-2] == 1       # 2 KV heads over 2
     # glm4-9b's 32 query heads split over 4 ranks, its 2 KV heads do not:
     # each paged pool holds the KV head of the rank's query heads, the
     # contiguous cache a sequence shard of every head

@@ -21,9 +21,10 @@ gradients in float32 where XLA sums in bf16).
 
 Then the port against itself, sharded (``data 2 x model 2``) against
 ``make_step_fn`` on one process, 2 steps, for every dense arch of the
-registry that ``check_shardable`` accepts on that mesh (the MoE archs are
-in ``test_torch_train_shard_moe.py``), and for the SSM members on ``data
-4 x model 1``; ``shardings_for`` on the spec-only production mesh against
+registry (the MoE archs are in ``test_torch_train_shard_moe.py``; the
+cross-attention members take their seeded context,
+``torch_shard_train_ref.cross_batch``), and for the SSM members on
+``data 4 x model 1``; ``shardings_for`` on the spec-only production mesh against
 the reference's specs; ``--production-mesh`` refused below 256 ranks; the
 remat recompute in a backward on another thread (as on the card).
 """
@@ -174,9 +175,10 @@ def test_batch_the_data_ranks_do_not_divide(model, batch, ranks):
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
 def test_data_parallel_ssm_step_equals_unsharded(arch, ranks):
-    """The SSM members take no model axis, but train over data ranks: on
-    ``data 4 x model 1`` their mixers' leaves are gathered whole (FSDP)
-    and each rank runs its row of the batch."""
+    """The SSM members over data ranks alone: on ``data 4 x model 1``
+    their mixers' leaves are gathered whole (FSDP) and each rank runs its
+    row of the batch (over a model axis: ``test_torch_train_shard_ssm``
+    and the ``data 2 x model 2`` cases above)."""
     named = MD.init_params(get_reduced(arch).replace(dtype="float32"),
                            torch.Generator().manual_seed(1),
                            "cpu").state_dict()

@@ -7,7 +7,8 @@ The reference side: ``build_train_step`` on the host mesh
 ``make_host_mesh(model)`` (``data 2 x model 2`` by default, ``data 1 x
 model 4`` with ``model=4``) for the reduced arch at float32, from
 ``init_params(cfg, PRNGKey(0))``, ``STEPS`` steps on the batches of
-``batches``; then, unless ``launch=False``, ``repro.launch.train.main``
+``batches`` (and, for a cross-attention config, the context of
+``cross_batch``: the compiled step then takes five arguments); then, unless ``launch=False``, ``repro.launch.train.main``
 on ``make_host_mesh()`` = ``data 4 x model 1`` (the reduced arch at its
 bf16, ``STEPS`` steps of batch 4).  It hands back every step's metrics,
 the launcher's losses, the initial weights of both runs and the weights
@@ -40,7 +41,7 @@ import jax
 import jax.numpy as jnp
 assert jax.device_count() == 4, jax.device_count()
 sys.path.insert(0, %(tests)r)
-from torch_shard_train_ref import batches, B, STEPS
+from torch_shard_train_ref import batches, cross_batch, B, STEPS
 from repro.configs import get_reduced
 from repro.launch import train as JT
 from repro.launch.mesh import make_host_mesh
@@ -64,7 +65,9 @@ with sharding_rules(mesh, R.act_rules(mesh, B)):
     opt = jax.device_put(init_opt_state(p0), sh["opt_sharding"])
     for i in range(STEPS):
         toks, labels = batches(cfg.vocab_size, i)
-        params, opt, m = step(params, opt, toks, labels)
+        cross = cross_batch(cfg, i)
+        extra = () if cross is None else (jnp.asarray(cross),)
+        params, opt, m = step(params, opt, toks, labels, *extra)
         metrics.append({k: float(v) for k, v in m.items()})
 losses = JT.main(["--arch", arch, "--reduced", "--steps", str(STEPS),
                   "--batch", str(B), "--seq", "16", "--log-every", "100"]) \
@@ -91,6 +94,17 @@ def batches(vocab: int, step: int, batch: int = B):
     labels[0, :3] = -100
     labels[min(3, batch - 1), -2:] = -100
     return toks, labels
+
+
+def cross_batch(cfg, step: int, batch: int = B):
+    """The global (batch, cross_ctx_len, d_model) float32 cross-attention
+    context of ``step`` (numpy, seeded: whisper's stub frames, a vision
+    member's patches); None for a config without cross-attention."""
+    if not cfg.cross_ctx_len:
+        return None
+    r = np.random.default_rng(200 + step)
+    return r.standard_normal((batch, cfg.cross_ctx_len, cfg.d_model)
+                             ).astype(np.float32)
 
 
 def nest(flat: dict) -> dict:
@@ -131,7 +145,7 @@ def reference(arch: str, out_dir, model: int = 2,
 
 def shardable(moe: bool):
     """The registry archs the port shards on ``data 2 x model 2`` (its
-    ``check_shardable``), with or without experts."""
+    ``check_shardable``: every one), with or without experts."""
     from repro_torch.configs import get_reduced, list_archs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import check_shardable
@@ -177,8 +191,10 @@ def port_steps(arch: str, model: int, named: dict, steps: int = STEPS,
     metrics = []
     for i in range(steps):
         toks, labels = batches(cfg.vocab_size, i, batch)
+        cross = cross_batch(cfg, i, batch)
+        extra = () if cross is None else (torch.from_numpy(cross),)
         params, opt, m = step(params, opt, torch.from_numpy(toks),
-                              torch.from_numpy(labels))
+                              torch.from_numpy(labels), *extra)
         metrics.append({k: float(m[k]) for k in KEYS})
     if not whole:
         return metrics, None
@@ -218,3 +234,92 @@ def assert_params_close(got: dict, want: dict, steps: int = STEPS,
         far += int((d > 1e-5 * scale).sum())
         total += d.numel()
     assert far <= 1e-3 * total, (far, total)
+
+
+def rank_steps(arch, model, named, ckdir):
+    """One rank: ``STEPS`` sharded steps of the reduced float32 ``arch`` on
+    ``make_host_mesh(model)`` from the whole weights ``named``, then
+    its copy of every leaf the rules keep whole over "model", the leaves'
+    specs, and a checkpoint of its train state over the mesh."""
+    import repro_torch.bridge as BR
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.training import train_lib
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    cfg = get_reduced(arch).replace(dtype="float32")
+    mesh = LM.make_host_mesh(model)
+    params = MD.Model(cfg, "cpu", mesh=mesh)
+    params.load_state_dict(BR.shard_params(named, cfg, mesh))
+    step, _ = train_lib.build_train_step(cfg, mesh,
+                                         AdamWConfig(lr=LR, warmup_steps=1),
+                                         batch=B)
+    opt = init_opt_state(params)
+    metrics = []
+    for i in range(STEPS):
+        toks, labels = batches(cfg.vocab_size, i)
+        cross = cross_batch(cfg, i)
+        extra = () if cross is None else (torch.from_numpy(cross),)
+        params, opt, m = step(params, opt, torch.from_numpy(toks),
+                              torch.from_numpy(labels), *extra)
+        metrics.append({k: float(m[k]) for k in ("loss", "ce", "moe_lb",
+                                                 "moe_z", "grad_norm")})
+    save_checkpoint(ckdir, STEPS, BR.train_state_tree(params, opt, cfg),
+                    {"next_step": STEPS}, mesh=mesh)
+    specs = {n: tuple(p._spec) for n, p in params.named_parameters()}
+    whole = {n: p.detach().clone() for n, p in params.named_parameters()
+             if "model" not in specs[n]}
+    return (metrics, BR.whole_params(params, params, mesh), whole, specs,
+            mesh.coords)
+
+
+def check_sharded_step(arch, ref, tmp_path, model=2, want_split=()):
+    """The port's sharded steps of ``arch`` on 4 ``gloo`` CPU ranks over
+    ``data 4 // model x model`` against the reference's ``ref``
+    (``reference(arch, ..., model=model)``): the metrics and the weights
+    after the steps (``assert_metrics_close`` / ``assert_params_close``);
+    one copy — every leaf the rules keep whole over "model" bitwise equal
+    on the model ranks of each data row; the 4 ranks' checkpoint restored
+    in one process without a mesh equal to the gathered weights, bit for
+    bit.  ``want_split``: leaf-name suffixes that must be split over
+    "model"."""
+    from repro_torch.bridge import (opt_state_to_jax, params_from_jax,
+                                    ref_tree)
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as MD
+    from repro_torch.training import optimizer as O
+    named = params_from_jax(ref["init"])
+    ckdir = str(tmp_path / "ck")
+    with LM.host_ranks(4, device="cpu") as ctl:
+        out = ctl.gather(rank_steps, arch, model, named, ckdir)
+    metrics, whole, _, specs, _ = out[0]
+    for suffix in want_split:
+        assert any(n.endswith(suffix) and "model" in s
+                   for n, s in specs.items()), suffix
+    assert_metrics_close(metrics, ref["metrics"])
+    assert all(o[0] == metrics for o in out)
+    assert_params_close(whole, params_from_jax(ref["after"]))
+    # one copy: a leaf whole over "model" is bitwise equal on the model
+    # ranks of its data row
+    rows = {}
+    for o in out:
+        rows.setdefault(o[4]["data"], []).append(o[2])
+    assert len(rows) == 4 // model
+    for copies in rows.values():
+        assert copies[0]
+        for name, t in copies[0].items():
+            assert all(torch.equal(c[name], t) for c in copies[1:]), name
+    # the 4 ranks' checkpoint restores in one process, no mesh
+    cfg = get_reduced(arch).replace(dtype="float32")
+    solo = MD.Model(cfg, "cpu")
+    opt = O.init_opt_state(solo)
+    (ptree, _), meta = restore_checkpoint(
+        ckdir, STEPS, (ref_tree(solo, cfg), opt_state_to_jax(opt, cfg,
+                                                         numpy=False)))
+    assert meta == {"next_step": STEPS}
+    solo.load_state_dict(params_from_jax(ptree))
+    for k, v in solo.state_dict().items():
+        assert torch.equal(v, whole[k]), k
